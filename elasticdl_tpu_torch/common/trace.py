@@ -1,0 +1,279 @@
+# The PyTorch port's own copy of elasticdl_tpu/common/trace.py: the port imports
+# nothing of the JAX package.
+"""grafttrace — hot-path-safe structured tracing, one recorder per process.
+
+The repo could decompose a worker's wall time (``PhaseTimers``) but not
+show one training step ACROSS processes: a slow gang step was attributable
+to "control grew" and nothing finer.  This module is the recording half of
+the fix — a stdlib-only span recorder cheap enough to live inside
+``# hot-path`` functions — and ``tools/trace_dump.py`` is the reading half
+(merge every process's buffer into one Chrome-trace/Perfetto JSON).
+
+Design constraints, in order:
+
+- **Hot-path safe.**  Emission never blocks and never allocates beyond the
+  event record itself: the buffer is a bounded ``collections.deque`` whose
+  ``append`` is GIL-atomic (no lock), overwriting the OLDEST event when
+  full — a tracing stall or an unbounded buffer must never be the thing
+  that makes the traced job slow.  Disabled (the default), ``span()``
+  returns a shared no-op context manager: one attribute read per call.
+- **Stdlib only.**  The master control plane and the lint/bench tools are
+  jax-free by contract (graftlint import-hygiene); the recorder rides in
+  all of them.
+- **Mergeable.**  Events carry wall-anchored microsecond timestamps
+  (``time.time`` anchor + ``perf_counter`` offsets, so resolution is
+  perf_counter's while the epoch is comparable across processes) and the
+  worker ships its buffer with a measured clock offset (RPC RTT midpoint,
+  see ``Worker._check_membership``), so the dump tool can align per-process
+  clocks onto the master's.
+
+API split the ``trace-discipline`` lint rule enforces:
+
+- non-blocking ring API (legal anywhere, including ``# hot-path``):
+  ``span(...)`` / ``instant(...)`` / ``TraceRecorder.add_complete``;
+- export API (forbidden in ``# hot-path`` functions): ``drain_slice`` /
+  ``export`` / ``chrome_events`` — draining belongs on control-plane
+  boundaries (heartbeats, checkpoint reports, dump tools).
+
+Per-thread nesting: spans stack per thread; each records its parent's id
+and its SELF time (wall minus directly nested spans' wall) in
+``args.self_us`` — the trace-side twin of ``PhaseTimers``' nested-phase
+self-time arithmetic, and the tests pin that the two agree on the same
+block.
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+#: Default per-process ring capacity (events).  At the worker's steady
+#: state (~10 spans/task) this holds hours; the serving tier's per-request
+#: spans wrap sooner, which is the point of overwrite-oldest: the buffer
+#: always holds the most RECENT window.
+DEFAULT_CAPACITY = 65536
+
+#: How many events one heartbeat/report ships (bounded so a control-plane
+#: RPC can never balloon because tracing is on).
+SHIP_BATCH = 512
+
+
+class _NullSpan:
+    """Shared no-op span for the disabled recorder: enter/exit do nothing,
+    so a disabled hot path pays one attribute check per ``span()`` call."""
+
+    __slots__ = ()
+    span_id = 0
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    """One live span: a context manager pushed on the per-thread stack."""
+
+    __slots__ = ("_rec", "name", "cat", "attrs", "span_id", "parent_id",
+                 "_t0", "_child")
+
+    def __init__(self, rec: "TraceRecorder", name: str, cat: str,
+                 attrs: Dict[str, Any]):
+        self._rec = rec
+        self.name = name
+        self.cat = cat
+        self.attrs = attrs
+        self.span_id = 0
+        self.parent_id = 0
+        self._child = 0.0
+
+    def __enter__(self) -> "_Span":
+        rec = self._rec
+        stack = rec._stack()
+        self.span_id = next(rec._ids)
+        self.parent_id = stack[-1].span_id if stack else 0
+        stack.append(self)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = time.perf_counter()
+        rec = self._rec
+        elapsed = t1 - self._t0
+        stack = rec._stack()
+        if stack and stack[-1] is self:
+            stack.pop()
+        if stack:
+            # Hand the full wall to the enclosing span so IT can subtract;
+            # this span keeps only its self-time (PhaseTimers' arithmetic).
+            stack[-1]._child += elapsed
+        args = dict(self.attrs) if self.attrs else {}
+        args["self_us"] = round(max(elapsed - self._child, 0.0) * 1e6, 1)
+        args["span_id"] = self.span_id
+        if self.parent_id:
+            args["parent"] = self.parent_id
+        rec.add_complete(
+            self.name, self.cat,
+            rec._to_us(self._t0), elapsed * 1e6, args,
+        )
+        return False
+
+
+class TraceRecorder:
+    """Bounded ring of trace events with non-blocking append.
+
+    Thread-safety without a lock: ``deque(maxlen=N).append`` and
+    ``popleft`` are GIL-atomic in CPython, so concurrent writers interleave
+    safely and a full ring drops the oldest event (each writer's retained
+    events form a suffix of its own appends — pinned by tests).
+    ``dropped`` is an APPROXIMATE monotonic counter (unsynchronized
+    increments may lose a race); it exists to say "the window wrapped",
+    not to account every event.
+    """
+
+    def __init__(self, enabled: bool = False,
+                 capacity: int = DEFAULT_CAPACITY):
+        self.enabled = bool(enabled)
+        self.capacity = int(capacity)
+        self._buf: collections.deque = collections.deque(maxlen=self.capacity)
+        self._local = threading.local()
+        self._ids = itertools.count(1)
+        self.dropped = 0
+        # Wall anchor + perf_counter origin: timestamps get perf_counter's
+        # resolution/monotonicity on a wall-clock epoch, so buffers from
+        # different processes are alignable (after the RTT-midpoint offset).
+        self._wall0 = time.time()
+        self._pc0 = time.perf_counter()
+
+    # -- clock --
+
+    def _to_us(self, pc: float) -> float:
+        return (self._wall0 + (pc - self._pc0)) * 1e6
+
+    def now_us(self) -> float:
+        """Wall-anchored monotonic timestamp in microseconds."""
+        return self._to_us(time.perf_counter())
+
+    # -- non-blocking ring API (hot-path legal) --
+
+    def _stack(self) -> List[_Span]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def current_span_id(self) -> int:
+        stack = getattr(self._local, "stack", None)
+        return stack[-1].span_id if stack else 0
+
+    def span(self, name: str, cat: str = "span", **attrs):
+        """Context manager recording one complete ("X") event on exit."""
+        if not self.enabled:
+            return _NULL_SPAN
+        return _Span(self, name, cat, attrs)
+
+    def instant(self, name: str, cat: str = "event", **attrs) -> None:
+        """One instant ("i") event — elastic control transitions live here."""
+        if not self.enabled:
+            return
+        ev = {
+            "ph": "i", "name": name, "cat": cat,
+            "ts": round(self.now_us(), 1),
+            "tid": threading.get_ident() & 0x7FFFFFFF,
+            "s": "t",
+        }
+        if attrs:
+            ev["args"] = attrs
+        self._append(ev)
+
+    def add_complete(self, name: str, cat: str, ts_us: float, dur_us: float,
+                     args: Optional[Dict[str, Any]] = None) -> None:
+        """Append one complete event (the span exit path; also usable
+        directly by instrumentation that already timed itself)."""
+        if not self.enabled:
+            return
+        ev = {
+            "ph": "X", "name": name, "cat": cat,
+            "ts": round(ts_us, 1), "dur": round(dur_us, 1),
+            "tid": threading.get_ident() & 0x7FFFFFFF,
+        }
+        if args:
+            ev["args"] = args
+        self._append(ev)
+
+    def _append(self, ev: dict) -> None:
+        if len(self._buf) >= self.capacity:
+            self.dropped += 1  # approximate: see class docstring
+        self._buf.append(ev)
+
+    # -- export API (forbidden in # hot-path functions: trace-discipline) --
+
+    def drain_slice(self, max_events: int = SHIP_BATCH) -> List[dict]:
+        """Pop up to ``max_events`` OLDEST events (the shipping path:
+        bounded slices ride the heartbeat/report channel).  Safe against
+        concurrent appenders; never blocks."""
+        out: List[dict] = []
+        for _ in range(max_events):
+            try:
+                out.append(self._buf.popleft())
+            except IndexError:
+                break
+        return out
+
+    def export(self) -> List[dict]:
+        """Snapshot of the current window, oldest first (non-draining)."""
+        return list(self._buf)
+
+    def clear(self) -> None:
+        self._buf.clear()
+        self.dropped = 0
+
+
+# -- the process-global recorder ------------------------------------------
+
+#: One recorder per process.  GRAFT_TRACE=1 enables at import (subprocess
+#: workers/benches inherit the env); ``configure()`` flips it
+#: programmatically (the --trace job flag, tests, tools).
+_REC = TraceRecorder(
+    enabled=os.environ.get("GRAFT_TRACE", "") not in ("", "0")
+)
+
+
+def default() -> TraceRecorder:
+    return _REC
+
+
+def configure(enabled: Optional[bool] = None,
+              capacity: Optional[int] = None) -> TraceRecorder:
+    """Reconfigure the process recorder IN PLACE (module users hold no
+    reference; they call the module helpers, which read the global)."""
+    if capacity is not None and capacity != _REC.capacity:
+        _REC.capacity = int(capacity)
+        _REC._buf = collections.deque(_REC._buf, maxlen=_REC.capacity)
+    if enabled is not None:
+        _REC.enabled = bool(enabled)
+    return _REC
+
+
+def enabled() -> bool:
+    return _REC.enabled
+
+
+def span(name: str, cat: str = "span", **attrs):
+    return _REC.span(name, cat, **attrs)
+
+
+def instant(name: str, cat: str = "event", **attrs) -> None:
+    _REC.instant(name, cat, **attrs)
+
+
+def now_us() -> float:
+    return _REC.now_us()
