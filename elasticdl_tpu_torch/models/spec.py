@@ -1,8 +1,8 @@
 """The model contract of the PyTorch port: what a model-zoo entry provides.
 
 Port of ``elasticdl_tpu/models/spec.py``, cut to the fields the serving
-path reads.  The JAX contract is pure functions over pytrees; here the
-state is an ``nn.Module`` and the functions take it:
+and single-device training paths read.  The JAX contract is pure functions
+over pytrees; here the state is an ``nn.Module`` and the functions take it:
 
 - ``init(seed, device) -> nn.Module``       fresh weights from a seeded
   ``torch.Generator``
@@ -15,13 +15,23 @@ state is an ``nn.Module`` and the functions take it:
 - ``example_batch(n) -> {name: ndarray}``   the feature template
 - ``batch_shard_dim``                       which batch dim a mesh would
   shard (recorded for parity; the port runs on one device so far)
+- ``loss(outputs, batch[, mask]) -> scalar`` the training loss (a ``mask``
+  parameter makes the trainer pass the batch's ``__mask__``)
+- ``metrics(outputs, batch) -> {name: scalar}``
+- ``optimizer(parameters) -> torch.optim.Optimizer``  a factory: the
+  reference's optax transformation is state-free, a torch optimizer owns
+  the parameters it updates
+- ``feed(records) -> {name: ndarray}``      decodes a batch of records
+
+The training fields default to None: a spec without them serves but does
+not train.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 
@@ -35,6 +45,10 @@ class ModelSpec:
     predict: Optional[Callable[..., Any]] = None
     check_batch: Optional[Callable[..., None]] = None  # (model, numpy batch)
     batch_shard_dim: int = 0
+    loss: Optional[Callable[..., Any]] = None  # (outputs, batch[, mask]) -> scalar
+    metrics: Optional[Callable[..., Dict[str, Any]]] = None  # (outputs, batch)
+    optimizer: Optional[Callable[..., Any]] = None  # (parameters) -> Optimizer
+    feed: Optional[Callable[[Sequence[bytes]], Dict[str, np.ndarray]]] = None
 
 
 def load_model_spec(model_zoo: str, model_def: str, **params: Any) -> ModelSpec:

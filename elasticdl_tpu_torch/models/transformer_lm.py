@@ -1,6 +1,6 @@
 """Decoder-only transformer LM — the PyTorch port of
 ``elasticdl_tpu/models/transformer_lm.py`` (``parallelism="sequence"`` on
-one device; the serving slice of the port).
+one device: serving and training).
 
 Architecture, as in the reference: pre-RMSNorm blocks, causal multi-head
 attention, GELU MLP (4x), learned positional embedding, weight-tied LM
@@ -19,7 +19,15 @@ same function with them:
   downcasts once;
 - the embedding sum is taken in f32 and then cast to the compute dtype;
 - the logits are the compute-dtype product with ``tok_emb.T``, cast to f32
-  after the matmul (so they carry its rounding).
+  after the matmul (so they carry its rounding);
+- training rematerializes each block (``remat=True``, the default) and
+  the loss is the mean token cross-entropy over real (unmasked) sequences,
+  AdamW with optax's defaults.
+
+Weights in the compute dtype: a forward under autograd casts the f32
+parameters on every call, inside each (checkpointed) block, so gradients
+reach them; a forward without autograd (serving) reuses casts kept until
+a parameter changes.
 
 Tensor parallelism (``_tp_block``/``_tp_apply``) and the sequence ring are
 later slices of the port.
@@ -34,8 +42,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from elasticdl_tpu_torch.common.device import resolve_device
+from elasticdl_tpu_torch.data.codecs import lm_feed
+from elasticdl_tpu_torch.models.metrics import masked_mean
 from elasticdl_tpu_torch.models.spec import ModelSpec
 from elasticdl_tpu_torch.ops.ring_attention import ring_attention
 
@@ -65,12 +76,16 @@ class Block(nn.Module):
     def forward(
         self,
         x: torch.Tensor,
-        w: Dict[str, torch.Tensor],
+        w: Optional[Dict[str, torch.Tensor]],
         n_heads: int,
         attention: Callable[..., torch.Tensor],
     ) -> torch.Tensor:
+        """``w``: the matmul weights in ``x``'s dtype; None casts them here,
+        inside autograd (and inside the checkpoint under remat)."""
         b, l, dim = x.shape
         head_dim = dim // n_heads
+        if w is None:
+            w = {key: getattr(self, key).to(x.dtype) for key in _MATMUL_WEIGHTS}
         h = _rms_norm(x, self.ln1)
         qkv = h @ w["wqkv"]  # [B, L, 3*dim]
         # Views, not copies: the kernel reads them with qkv's row stride.
@@ -104,7 +119,7 @@ class TransformerLM(nn.Module):
         self.pos_emb = nn.Parameter(torch.empty(max_seq, dim, **f32))
         self.ln_f = nn.Parameter(torch.ones(dim, **f32))
         self.blocks = nn.ModuleDict({f"b{i}": Block(dim, device) for i in range(n_layers)})
-        self._cast: Optional[Dict[str, Any]] = None
+        self._cast: Optional[tuple] = None  # (parameter versions, casts)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -127,7 +142,6 @@ class TransformerLM(nn.Module):
             normal(blk.w2, 0.5 * scale)
             blk.ln1.fill_(1.0)
             blk.ln2.fill_(1.0)
-        self._cast = None
 
     @torch.no_grad()
     def load_jax_params(self, tree: Dict[str, Any]) -> "TransformerLM":
@@ -149,35 +163,41 @@ class TransformerLM(nn.Module):
             blk = self.blocks[name]
             for key in ("ln1", "ln2") + _MATMUL_WEIGHTS:
                 put(getattr(blk, key), tree["blocks"][name][key])
-        self._cast = None
         return self
 
     def _weights(self) -> Dict[str, Any]:
-        """The matmul weights in the compute dtype.  The reference casts
-        the f32 weights on every call (``.astype(compute_dtype)``); the
-        weights are fixed between loads (this slice serves, it does not
-        train), so the same casts are made once and kept until the next
-        load."""
-        if self._cast is None:
+        """The matmul weights in the compute dtype, for forwards without
+        autograd.  The reference casts the f32 weights on every call
+        (``.astype(compute_dtype)``); these casts are made once and kept
+        while the parameters are unchanged: the cache is keyed on their
+        version counters, which every in-place update (a load, an
+        optimizer step) bumps."""
+        versions = tuple(p._version for p in self.parameters())
+        if self._cast is None or self._cast[0] != versions:
             dt = self.compute_dtype
             with torch.inference_mode(False), torch.no_grad():
-                self._cast = {
+                casts = {
                     "head": self.tok_emb.to(dt),
                     "blocks": {
                         name: {key: getattr(blk, key).to(dt) for key in _MATMUL_WEIGHTS}
                         for name, blk in self.blocks.items()
                     },
                 }
-        return self._cast
+            self._cast = (versions, casts)
+        return self._cast[1]
 
     def forward(
         self,
         tokens: torch.Tensor,
         attention: Callable[..., torch.Tensor] = ring_attention,
+        remat: bool = False,
     ) -> torch.Tensor:
         """Logits f32 ``[B, L, vocab]`` for int tokens ``[B, L]``.
         ``attention(q, k, v, causal=True)`` over ``[B, L, H, D]``: the
-        kernel routing by default; a plain version for comparisons."""
+        kernel routing by default; a plain version for comparisons.
+        ``remat``: under autograd, recompute each block's activations in
+        the backward instead of keeping them (the reference's per-block
+        ``jax.checkpoint``)."""
         l = tokens.shape[1]
         max_seq = self.pos_emb.shape[0]
         # Fail loud on over-long sequences: positions past max_seq would
@@ -187,19 +207,61 @@ class TransformerLM(nn.Module):
                 f"global sequence length {l} exceeds max_seq "
                 f"{max_seq}; raise max_seq in the model spec"
             )
-        w = self._weights()
+        grad = torch.is_grad_enabled()
+        cast = None if grad else self._weights()
         pos = torch.arange(l, device=tokens.device)
         x = self.tok_emb[tokens.long()] + self.pos_emb[pos][None]
         x = x.to(self.compute_dtype)
         for name in sorted(self.blocks):  # the reference's order: b0, b1, b10, ...
-            x = self.blocks[name](x, w["blocks"][name], self.n_heads, attention)
+            blk = self.blocks[name]
+            w = None if cast is None else cast["blocks"][name]
+            if remat and grad:
+                x = checkpoint(blk, x, w, self.n_heads, attention,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = blk(x, w, self.n_heads, attention)
         x = _rms_norm(x, self.ln_f)
         # Weight-tied head; logits in f32 after the compute-dtype product.
-        return (x @ w["head"].T).float()
+        head = self.tok_emb.to(self.compute_dtype) if cast is None else cast["head"]
+        return (x @ head.T).float()
 
 
-def _apply(model: TransformerLM, batch: Dict[str, torch.Tensor], train: bool = False, **_):
-    return model(batch["tokens"])
+def _apply(
+    model: TransformerLM,
+    batch: Dict[str, torch.Tensor],
+    train: bool = False,
+    remat: bool = True,
+    **_,
+):
+    # Rematerialization per block in training only, as in the reference:
+    # eval and predict have no backward to save memory for.
+    return model(batch["tokens"], remat=remat and train)
+
+
+def _loss(logits: torch.Tensor, batch: Dict[str, torch.Tensor], mask=None) -> torch.Tensor:
+    """Mean token cross-entropy (f32 logits, integer labels) over real
+    sequences: ``mask`` gives whole padded sequences zero weight."""
+    ce = F.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), batch["labels"].reshape(-1).long(),
+        reduction="none",
+    ).reshape(logits.shape[:-1])
+    return masked_mean(ce, mask)
+
+
+def _metrics(logits: torch.Tensor, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Loss and accuracy without the mask, as the reference: a padded
+    batch's accuracy counts its padded rows."""
+    acc = (logits.argmax(dim=-1) == batch["labels"].long()).float().mean()
+    return {"loss": _loss(logits, batch), "accuracy": acc}
+
+
+def _adamw(parameters, learning_rate: float) -> torch.optim.AdamW:
+    """``optax.adamw(learning_rate)`` with optax's defaults (b1 0.9, b2
+    0.999, eps 1e-8, weight decay 1e-4, not torch's 0.01), decaying every
+    parameter as optax does with no mask (norms and embeddings too)."""
+    return torch.optim.AdamW(
+        parameters, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4,
+    )
 
 
 def _check_batch(model: TransformerLM, batch: Dict[str, Any]) -> None:
@@ -248,6 +310,21 @@ def params_from_jax(
     return model.load_jax_params(tree)
 
 
+def params_to_jax(model: TransformerLM) -> Dict[str, Any]:
+    """The reverse of :func:`params_from_jax`: the model's parameters as a
+    JAX ``transformer_lm`` params tree of f32 numpy arrays."""
+
+    def get(p: torch.Tensor) -> np.ndarray:
+        return p.detach().float().cpu().numpy()
+
+    tree: Dict[str, Any] = {key: get(getattr(model, key)) for key in ("tok_emb", "pos_emb", "ln_f")}
+    tree["blocks"] = {
+        name: {key: get(getattr(blk, key)) for key in ("ln1", "ln2") + _MATMUL_WEIGHTS}
+        for name, blk in model.blocks.items()
+    }
+    return tree
+
+
 def _example_batch(batch_size: int, seq_len: int = 256) -> Dict[str, np.ndarray]:
     return {
         "tokens": np.zeros((batch_size, seq_len), np.int32),
@@ -256,6 +333,7 @@ def _example_batch(batch_size: int, seq_len: int = 256) -> Dict[str, np.ndarray]
 
 
 def model_spec(
+    learning_rate: float = 3e-4,
     compute_dtype: str = "bfloat16",
     vocab: int = 8192,
     dim: int = 256,
@@ -263,6 +341,7 @@ def model_spec(
     n_layers: int = 2,
     max_seq: int = 4096,
     seq_len: int = 256,
+    remat: bool = True,
     parallelism: str = "sequence",
 ) -> ModelSpec:
     """``parallelism="sequence"`` on one device is the ported variant;
@@ -284,8 +363,12 @@ def model_spec(
             _init, vocab=vocab, dim=dim, n_heads=n_heads, n_layers=n_layers,
             max_seq=max_seq, compute_dtype=_DTYPES[compute_dtype],
         ),
-        apply=_apply,
+        apply=functools.partial(_apply, remat=remat),
         check_batch=_check_batch,
         example_batch=functools.partial(_example_batch, seq_len=seq_len),
         batch_shard_dim=1,
+        loss=_loss,
+        metrics=_metrics,
+        optimizer=functools.partial(_adamw, learning_rate=learning_rate),
+        feed=lm_feed,
     )

@@ -40,6 +40,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()  # lock-order: leaf
+_build_locks: Dict[str, threading.Lock] = {}  # guarded-by: _lock
 _libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
 _build_info: Dict[str, Tuple[float, str]] = {}  # guarded-by: _lock
 _counts: Dict[str, int] = {}  # guarded-by: _lock
@@ -87,14 +88,24 @@ def _build(source: str) -> Tuple[str, float, str]:
 
 
 def load(source: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<source>``, built at first use."""
+    """The loaded library for ``csrc/<source>``, built at first use.  Each
+    source has its own build lock, taken outside the module lock, so
+    threads can build different sources at once (``nvcc`` runs in a
+    subprocess)."""
     with _lock:
         lib = _libs.get(source)
+        if lib is not None:
+            return lib
+        build_lock = _build_locks.setdefault(source, threading.Lock())
+    with build_lock:  # lock-order: before _lock
+        with _lock:
+            lib = _libs.get(source)
         if lib is None:
             path, seconds, log = _build(source)
             lib = ctypes.CDLL(path)
-            _libs[source] = lib
-            _build_info[source] = (seconds, log)
+            with _lock:
+                _libs[source] = lib
+                _build_info[source] = (seconds, log)
         return lib
 
 

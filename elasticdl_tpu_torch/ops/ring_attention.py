@@ -30,10 +30,11 @@ def attention_reference(
 
 
 def _local_attention(q, k, v, causal: bool) -> torch.Tensor:
-    """Exact single-shard attention: the flash kernel for CUDA tensors
-    inside its contract, the plain oracle otherwise (the CPU, and shapes
-    the kernel does not take), as the reference routes between its Pallas
-    kernel and its XLA path."""
+    """Exact single-shard attention: the flash kernels for CUDA tensors
+    inside their contract (the forward, and the dq and dkv kernels in the
+    backward, whether or not a gradient is wanted), the plain oracle
+    otherwise (the CPU, and shapes the kernels do not take), as the
+    reference routes between its Pallas kernels and its XLA path."""
     if q.is_cuda and supports(q, k, v):
         return flash_attention(q, k, v, causal)
     return attention_reference(q, k, v, causal=causal)

@@ -121,13 +121,12 @@ class ServingServer:
             sorted(set(int(b) for b in (batch_buckets or ())) | {max_batch})
         )
         if state is None:
-            state = self.trainer.init_state(seed)
+            state = self.trainer.init_state(seed).model
             logger.warning(
                 "serving fresh weights from seed %d (no checkpoint restore "
                 "in this port yet)", seed,
             )
-        else:
-            state = state.eval()
+        state = state.eval()
         self._state_lock = locksan.lock("ServingServer._state_lock", leaf=True)  # lock-order: leaf
         self._live = _LiveModel(-1, state)  # guarded-by: _state_lock
         self._requests = 0  # guarded-by: _state_lock
