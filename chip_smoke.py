@@ -6,7 +6,9 @@ never the JAX package, in phases; any failed phase raises and the script
 exits non-zero without its result line:
 
 1. build every kernel source from ``elasticdl_tpu_torch/csrc`` at once (one
-   nvcc each, into ``elasticdl_tpu_torch/csrc/build/``, at first use);
+   nvcc each, into ``elasticdl_tpu_torch/csrc/build/``, at first use) and
+   report the bf16 backward kernels' registers, shared memory, spills and
+   blocks per SM;
 2. hold the flash forward against its plain PyTorch version on the card at
    the serving path's shapes and layout (q, k, v as views into the fused
    qkv projection), check that the limits reject a kernel that skips a
@@ -14,8 +16,9 @@ exits non-zero without its result line:
    (``F.scaled_dot_product_attention``, timed here only: the port never
    calls it);
 3. the same for the backward kernels (dq, dkv) at the training shape and
-   others, with two wrong versions each limit must reject, and the
-   backward of ``F.scaled_dot_product_attention`` as the yardstick;
+   others (D=128; D=36, which the wrapper pads to 40; L=8192), with two
+   wrong versions each limit must reject, and the backward of
+   ``F.scaled_dot_product_attention`` as the yardstick;
 4. train ``transformer_lm`` at the GPT-2-small width (vocab 32768, dim
    768, 12 heads, 12 layers, 1024 tokens, batch 16) for 10 steps through
    ``Trainer.run_train_steps`` with the launch counts zeroed just before
@@ -124,10 +127,34 @@ def attention_bound_ms(b, l, h, d, dtype, causal, kernel: str = "fwd") -> tuple:
     return bound_ms(nbytes, per_pair * d * pairs, dtype)
 
 
+def bwd_kernel_info() -> dict:
+    """Registers, static and dynamic shared memory, spill bytes and resident
+    blocks per SM of each bf16 backward kernel (the CUDA runtime's function
+    attributes and occupancy calculator)."""
+    import ctypes
+
+    from elasticdl_tpu_torch.ops import flash_attention, kernels
+
+    fn = kernels.bind(flash_attention.BWD_SOURCE, "flash_attention_bwd_kernel_info",
+                      (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    report = {}
+    for kernel, name in enumerate(("dq", "dkv")):
+        for d in (64, 128):
+            out = (ctypes.c_int * 5)()
+            status = fn(kernel, d, ctypes.addressof(out))
+            assert status == 0, f"kernel_info({name}, D={d}): cudaError {status}"
+            info = dict(zip(("registers", "static_smem", "dynamic_smem", "spill_bytes",
+                             "blocks_per_sm"), list(out)))
+            report[f"{name}_D{d}"] = info
+            log(f"[build]   {name} bf16 D={d}: " + json.dumps(info))
+    return report
+
+
 def phase_build() -> dict:
     """Build every kernel source at once (one nvcc per source, each in its
     own thread: the builds hold per-source locks) and log each source's
-    nvcc seconds, registers and spills."""
+    nvcc seconds, registers and spills, and the bf16 backward kernels'
+    shared memory and blocks per SM."""
     from concurrent.futures import ThreadPoolExecutor
 
     from elasticdl_tpu_torch.ops import flash_attention, kernels
@@ -146,6 +173,7 @@ def phase_build() -> dict:
                 log(f"[build]   {line.strip()}")
         report["sources"][source] = {"nvcc_s": seconds}
     log(f"[build] {len(sources)} sources built concurrently in {wall:.2f}s")
+    report["bwd_kernels"] = bwd_kernel_info()
     return report
 
 
@@ -244,8 +272,8 @@ BT, LT, HT, DT = 16, 1024, 12, 64
 # dk, dv the error norm over the reference's norm ("rel") and the largest
 # error over the largest element ("max"); delta's largest error over its
 # largest element ("delta").  Set from the kernels' readings on the card
-# (NVIDIA H100 80GB HBM3, 700 W; bf16: rel up to 1.3e-4, max up to 5.1e-3,
-# about one output ulp; PERF.md's backward limits table) with
+# (NVIDIA H100 80GB HBM3, 700 W; bf16: rel up to 3.5e-4 at L=8192, max up
+# to 5.1e-3, about one output ulp; PERF.md's backward limits table) with
 # room on both sides: every case also computes two wrong versions (the
 # backward with delta dropped, and with the diagonal 64x64 tile of every
 # block skipped).  Every limit must reject the skipped tile, and the norm
@@ -312,6 +340,9 @@ def phase_kernel_check_bwd() -> dict:
         ("bf16_causal_L128", (2, 128, 3, 64), bf16, True, 0.5, False),
         ("bf16_causal_D128", (2, 256, 2, 128), bf16, True, 0.5, True),
         ("f32_full_D128", (2, 256, 2, 128), f32, False, 0.5, False),
+        # D=36: the wrapper's route through a head dim padded to 40.
+        ("bf16_causal_D36", (2, 256, 2, 36), bf16, True, 0.5, True),
+        ("bf16_causal_L8192", (1, 8192, 2, 64), bf16, True, 0.5, True),
     ]
     results = {}
     for name, (b, l, h, d), dtype, causal, scale, fused in cases:
@@ -390,8 +421,8 @@ def _count(name: str) -> int:
 # Profiler kernel-name fragments of each group of a device breakdown.
 _GROUPS = (
     ("flash_fwd", ("fwd_bf16_kernel", "fwd_f32_kernel")),
-    ("flash_dq", ("dq_bf16_kernel", "dq_f32_kernel")),
-    ("flash_dkv", ("dkv_bf16_kernel", "dkv_f32_kernel")),
+    ("flash_dq", ("dq_wgmma_kernel", "dq_f32_kernel")),
+    ("flash_dkv", ("dkv_wgmma_kernel", "dkv_f32_kernel")),
     ("matmul", ("nvjet", "gemm", "xmma", "cutlass", "matmul")),
 )
 

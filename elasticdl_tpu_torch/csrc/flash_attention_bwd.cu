@@ -28,38 +28,63 @@
 // us at 3.35 TB/s, against 6*D flops per pair (39 us at 989 TFLOP/s): it is
 // bound by bytes.  The dkv kernel reads q, k, v, dO, lse, delta and writes
 // dk, dv (153 MB, 46 us) against 8*D flops per pair (52 us): bound by
-// operations.  Neither O(L^2) tensor (P, dS) ever leaves registers.
+// operations.  Neither O(L^2) tensor (P, dS) ever leaves registers.  Both
+// kernels re-read the streamed tiles once per 64-row block (L2 serves most
+// of that), so what they can reach is set by how well tile loads overlap the
+// tensor-core work and how many blocks share an SM.
 //
-// Design.  K/V (or Q/dO) do not fit in shared memory whole at L up to 8192,
-// so, as the forward, the kernels stream tiles through shared memory:
-// - dq: one block per (batch*head, 64-row query tile), four warps of 16
-//   rows.  Q and dO stay in registers as mma A fragments; K and V tiles of
-//   BN keys stream through.  delta for the block's rows is computed in the
-//   prologue from dO and O and written out for the dkv kernel (launched
-//   after it on the same stream).  Under causal masking the loop stops at
-//   the diagonal tile.
-// - dkv: one block per (batch*head, 64-key tile), four warps of 16 keys.  K
-//   and V stay in registers as A fragments; Q, dO, lse and delta tiles of BN
-//   queries stream through; dK and dV accumulate in f32 registers.  Under
-//   causal masking the loop starts at the diagonal tile (q tiles wholly
-//   above it contribute nothing) and masks elementwise on it.
-// bf16 uses mma.sync m16n8k16 with f32 accumulation.  As in the forward,
-// the accumulator fragments of two adjacent 8-column tiles of dS (or P^T,
-// dS^T) are re-packed in registers as the A operand of the next product, so
-// they never go through shared memory.  Where a product contracts over keys
-// or queries (dS K, P^T dO, dS^T Q), its B operand is read from a transposed
-// copy of the tile kept in shared memory beside the row-major one, so every
-// B fragment is an aligned 32-bit pair.  f32 (the parity type) runs plain FMA
-// kernels, one thread per row, because the tensor cores would round f32
-// operands to TF32.
+// Design (bf16).  K/V (or Q/dO) do not fit in shared memory whole at L up to
+// 8192, so tiles of BN rows stream through shared memory:
+// - dq: one block per (batch*head, 64-row query tile); Q and dO stay
+//   resident in shared memory, K and V tiles stream.  delta for the block's
+//   rows is computed in the prologue from dO and O and written out for the
+//   dkv kernel (launched after it on the same stream).  Under causal masking
+//   the loop stops at the diagonal tile.  Blocks run longest-first.
+// - dkv: one block per (batch*head, 64-key tile); K and V resident, Q and dO
+//   tiles stream with their lse and delta.  Under causal masking the loop
+//   starts at the diagonal tile (q tiles wholly above it contribute nothing).
+// - One warpgroup (128 threads) per block.  Every product is a
+//   wgmma.mma_async m64nNk16 (bf16 in, f32 accumulate): the block's 64
+//   resident rows are exactly wgmma's M.  S = Q K^T and dP = dO V^T (S^T =
+//   K Q^T and dP^T = V dO^T in dkv) read A and B from shared memory,
+//   K-major.  dQ += dS K, dV += P^T dO and dK += dS^T Q take A from
+//   registers: the f32 accumulator of dS (P^T, dS^T) re-packed as bf16
+//   pairs, since the accumulator layout of wgmma is, warp by warp, the A
+//   layout, so P and dS never touch shared memory.  Their B (K, dO, Q) is
+//   read MN-major from the same tile copy that fed the first products.
+// - Each tile is kept once, in the 128-byte-swizzled layout that TMA writes
+//   and wgmma reads, K-major or MN-major by its descriptor: no transposed
+//   copy, no bank conflicts, no fragment loads by the threads.  A row of 64
+//   bf16 is one 128-byte swizzle row; at D=128 a tile is two 64-column
+//   halves (the 128-byte swizzle box is at most 128 bytes wide).
+// - Tiles arrive by TMA into a ring of kStages stages, each with an
+//   mbarrier that counts the bytes in.  Thread 0 keeps kStages - 1 tiles in
+//   flight ahead of the warpgroup; a stage is refilled only after every
+//   thread has waited out the wgmma groups that read it (one __syncthreads
+//   per tile).  dkv's lse and delta come along by a 1-D bulk copy on the same
+//   barrier.
+// - Scalar work: exp2 with log2(e) folded into the scale and lse; the causal
+//   mask only on tiles that cross the diagonal; dQ, dK, dV staged through
+//   shared memory and written with 16-byte stores.
+// - The tensor maps are encoded on the host at every launch (pointers change
+//   each step) through the driver entry point that cudart hands out, so the
+//   library links no libcuda, and passed as __grid_constant__ parameters.
+// - D=64 runs 64-row tiles, three stages (64 KB of shared memory a block,
+//   three blocks an SM); D=128 runs 32-row tiles (two blocks an SM).  TMA
+//   needs 16-byte rows: D % 8 == 0, row strides a multiple of 8 elements,
+//   16-byte-aligned pointers; the Python wrapper copies other inputs into a
+//   head dim padded to a multiple of 8 (columns past D read as zeros; TMA
+//   fills the rest of a 64-column box with zeros).
+// f32 (the parity type) runs plain FMA kernels, one thread per row, because
+// the tensor cores would round f32 operands to TF32.
 //
 // Layout: q, k and v are [B, L, H, D] read with one row stride `rs` (views
 // into the fused [B, L, 3*H*D] qkv projection, or contiguous); o and dO are
 // contiguous [B, L, H, D]; dq, dk and dv are written with one row stride
 // `grs`, so autograd can hand over the fused qkv gradient whole instead of
 // concatenating three copies; lse and delta are f32 [B*H, L].
-// Simple first: no TMA, no wgmma, no cp.async pipelining yet.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -69,126 +94,304 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kBlockM = 64;  // resident rows per bf16 block: queries (dq) or keys (dkv)
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+constexpr int kBlockM = 64;   // resident rows per bf16 block: queries (dq) or keys (dkv)
+constexpr int kThreads = 128; // one warpgroup
+constexpr int kStages = 3;    // TMA ring depth
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
+// ------------------------------------------------------- Hopper primitives
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-// D[16x8] += A[16x16] (row) * B[16x8] (col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// Arrive once and expect `bytes` more to land on the barrier's phase.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase with parity `parity` has completed.  A
+// phase that never completes (a copy that never lands) traps after some
+// 2^24 polls, far past any real wait, instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done, polls = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (++polls == (1u << 24)) __trap();
+  } while (!done);
+}
+
+// One TMA box (64 columns x 1 head x rows) of a [rows, H, D] tensor map to
+// shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int col, int head,
+                                         int row, uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row), "r"(bar)
+      : "memory");
 }
 
-// Rows r0 and r0 + 8 of x (element (row, c) at base + row * rs + c) as mma A
-// fragments over every 16-wide slice of the padded head dim (zeros past D).
-template <int DP>
-__device__ __forceinline__ void load_a(uint32_t (&f)[DP / 16][4], const bf16* __restrict__ x,
-                                       long base, long rs, int r0, int D, int t) {
-  const bf16 zero = __float2bfloat16(0.0f);
-  const long p0 = base + (long)r0 * rs;
-  const long p1 = p0 + 8 * rs;
+// `bytes` contiguous bytes (a multiple of 16, 16-byte aligned) to shared
+// memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand at `addr`: 8-row groups
+// 1024 bytes apart (SBO); `lbo`: for an MN-major operand wider than 64
+// elements, the distance between its 64-element halves (unused K-major).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Byte offset of the kk-th 16-column slice of a swizzled tile of `rows`
+// rows (stored as 64-column halves of rows x 128 bytes): the K-major
+// operand of a product that contracts over the head dim.
+__device__ __forceinline__ uint32_t kslice(int kk, int rows) {
+  return (kk >> 2) * rows * 128 + (kk & 3) * 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the wgmma issue and wait statements.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&x)[N]) {
 #pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const int c0 = kk * 16 + t * 2;
-    const int cols[4] = {c0, c0 + 1, c0 + 8, c0 + 9};
-    bf16 e[8];
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+// wgmma.mma_async m64nNk16, bf16 in, f32 accumulate.  The accumulator of a
+// thread of warp w, lane 4g + t, holds d[4j + e] = element (16w + g + 8*(e >=
+// 2), 8j + 2t + (e & 1)): the m16n8 layout of mma.sync, warp by warp.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  // D[64x32] (+)= A[64x16] B[16x32], A and B K-major in shared memory.
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // D[64x64] (+)= A[64x16] B[16x64], A and B K-major in shared memory.
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+
+  // D[64x64] += A[64x16] B[16x64], A from registers (the accumulator layout
+  // re-packed as bf16 pairs), B MN-major in shared memory.
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // D[64x128] += A[64x16] B[16x128], A from registers (the accumulator layout
+  // re-packed as bf16 pairs), B MN-major in shared memory.
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// A f32 accumulator of 64 x N (N/2 values a thread) as N/16 bf16 A
+// operands of m64nNk16: slice kt packs columns 16kt..16kt+15.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      e[i] = cols[i] < D ? x[p0 + cols[i]] : zero;
-      e[4 + i] = cols[i] < D ? x[p1 + cols[i]] : zero;
-    }
-    f[kk][0] = pack_raw(e[0], e[1]);
-    f[kk][1] = pack_raw(e[4], e[5]);
-    f[kk][2] = pack_raw(e[2], e[3]);
-    f[kk][3] = pack_raw(e[6], e[7]);
+  for (int kt = 0; kt < N / 16; ++kt) {
+    a[kt][0] = pack_bf16(x[8 * kt], x[8 * kt + 1]);
+    a[kt][1] = pack_bf16(x[8 * kt + 2], x[8 * kt + 3]);
+    a[kt][2] = pack_bf16(x[8 * kt + 4], x[8 * kt + 5]);
+    a[kt][3] = pack_bf16(x[8 * kt + 6], x[8 * kt + 7]);
   }
 }
 
-// Rows [n0, n0 + BN) of x into shared memory, row-major `rm` and/or
-// transposed `tr` (either may be null), zeros past D.  `vec`: 16-byte loads
-// (D % 8 == 0, 16-byte aligned rows).
+// `rows` rows (a multiple of BN) of one head of a [*, H, D] tensor map,
+// starting at `row`, into a swizzled tile at `dst`: DP/64 halves of rows x
+// 128 bytes, boxes of BN rows.
 template <int DP, int BN>
-__device__ __forceinline__ void load_tile(const bf16* __restrict__ x, long base, long rs,
-                                          int n0, int D, int vec, int tid,
-                                          bf16 (*rm)[DP + 8], bf16 (*tr)[BN + 8]) {
-  if (vec) {
-    for (int idx = tid; idx < BN * (DP / 8); idx += kThreads) {
-      const int r = idx / (DP / 8);
-      const int c = (idx % (DP / 8)) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (c < D) val = *reinterpret_cast<const uint4*>(x + base + (long)(n0 + r) * rs + c);
-      if (rm) *reinterpret_cast<uint4*>(&rm[r][c]) = val;
-      if (tr) {
-        const bf16* e = reinterpret_cast<const bf16*>(&val);
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, int head, int row,
+                                          int rows, uint32_t bar) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) tr[c + i][r] = e[i];
-      }
-    }
-  } else {
-    const bf16 zero = __float2bfloat16(0.0f);
-    for (int idx = tid; idx < BN * DP; idx += kThreads) {
-      const int r = idx / DP;
-      const int c = idx % DP;
-      const bf16 val = c < D ? x[base + (long)(n0 + r) * rs + c] : zero;
-      if (rm) rm[r][c] = val;
-      if (tr) tr[c][r] = val;
-    }
+  for (int half = 0; half < DP / 64; ++half)
+    for (int r = 0; r < rows; r += BN)
+      tma_load(dst + (half * rows + r) * 128, map, half * 64, head, row + r, bar);
+}
+
+// Rows r0 and r0 + 8 (local) of a 64 x DP accumulator times `mul`, as bf16,
+// into a row-major staging tile of pitch DP + 8 (4-byte stores; the pad
+// keeps the 32 lanes on 32 banks).
+template <int DP>
+__device__ __forceinline__ void stage_acc(bf16* st, int r0, int t, const float (&acc)[DP / 2],
+                                          float mul) {
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    *reinterpret_cast<uint32_t*>(&st[r0 * (DP + 8) + c]) =
+        pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+    *reinterpret_cast<uint32_t*>(&st[(r0 + 8) * (DP + 8) + c]) =
+        pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
   }
 }
 
-// Write rows r0 and r0 + 8 of an f32 accumulator (mma C layout over the
-// padded head dim) times `mul`, rounded to bf16, columns < D.
+// The staging tile's 64 rows, columns < D, to out[row0 + r] (row stride
+// grs) with 16-byte stores.
 template <int DP>
-__device__ __forceinline__ void store_acc(bf16* __restrict__ out, long base, long rs, int r0,
-                                          int D, int t, const float (&acc)[DP / 8][4], float mul) {
-  const long p0 = base + (long)r0 * rs;
-  const long p1 = p0 + 8 * rs;
-#pragma unroll
-  for (int dt = 0; dt < DP / 8; ++dt) {
-    const int c = dt * 8 + t * 2;
-    if (c < D) {
-      out[p0 + c] = __float2bfloat16(acc[dt][0] * mul);
-      out[p1 + c] = __float2bfloat16(acc[dt][2] * mul);
-    }
-    if (c + 1 < D) {
-      out[p0 + c + 1] = __float2bfloat16(acc[dt][1] * mul);
-      out[p1 + c + 1] = __float2bfloat16(acc[dt][3] * mul);
-    }
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out, long base, long grs, int row0,
+                                           int D, const bf16* st, int tid) {
+  const int chunks = D / 8;
+  for (int idx = tid; idx < kBlockM * chunks; idx += kThreads) {
+    const int r = idx / chunks;
+    const int c = (idx % chunks) * 8;
+    *reinterpret_cast<uint4*>(out + base + (long)(row0 + r) * grs + c) =
+        *reinterpret_cast<const uint4*>(st + r * (DP + 8) + c);
   }
+}
+
+template <int DP, int BN>
+constexpr int bf16_smem_bytes() {
+  // alignment slack + two resident 64-row tiles + the ring (two tiles a stage)
+  return 1024 + 2 * kBlockM * DP * 2 + kStages * 2 * BN * DP * 2;
+}
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
 // ---------------------------------------------------------------- bf16 dq
+// Both bf16 kernels ask the register allocator for three blocks an SM at
+// D=64 (about 64 KB of shared memory each; at most 168 registers a thread).
 
 template <int DP, int BN>
-__global__ void __launch_bounds__(kThreads)
-dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ o,
-               const bf16* __restrict__ dout, const float* __restrict__ lse,
-               float* __restrict__ delta, bf16* __restrict__ dq, int L, int H, int D,
-               long rs, long grs, float scale, int causal, int vec) {
-  __shared__ __align__(16) bf16 ks[BN][DP + 8];   // K tile, row-major (B of Q K^T)
-  __shared__ __align__(16) bf16 vs[BN][DP + 8];   // V tile, row-major (B of dO V^T)
-  __shared__ __align__(16) bf16 kts[DP][BN + 8];  // K tile, transposed (B of dS K)
+__global__ void __launch_bounds__(kThreads, DP == 64 ? 3 : 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq,
+                int L, int H, int D, long grs, float scale, int causal) {
+  constexpr int kRes = kBlockM * DP * 2;  // bytes of a resident tile
+  constexpr int kTile = BN * DP * 2;      // bytes of a streamed tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[kStages + 1];  // ring stages, then the resident load
+  __shared__ float dl_s[kBlockM];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t qs = smem_u32(smem);  // Q, resident (A of Q K^T)
+  const uint32_t dos = qs + kRes;      // dO, resident (A of dO V^T)
+  const uint32_t ring = dos + kRes;    // stage s: K tile, then V tile
+  const uint32_t bar0 = smem_u32(bars);
+  const uint32_t bar_res = bar0 + 8 * kStages;
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -198,120 +401,161 @@ dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const long base = (long)b * L * rs + (long)h * D;    // q/k/v element (b, 0, h, 0)
-  const long ors = (long)H * D;                        // o/dO row stride
-  const long obase = (long)b * L * ors + (long)h * D;
-  const long gbase = (long)b * L * grs + (long)h * D;  // dq element (b, 0, h, 0)
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row_b = b * L;  // row of (b, 0) in the [B*L, H, D] tensor maps
+  const int n_tiles = (causal ? q0 + kBlockM : L) / BN;
 
-  const int r0 = q0 + warp * 16 + g;
-  const int r1 = r0 + 8;
-  uint32_t qf[DP / 16][4], df[DP / 16][4];
-  load_a<DP>(qf, q, base, rs, r0, D, t);
-  load_a<DP>(df, dout, obase, ors, r0, D, t);
+  if (tid == 0) {
+    for (int s = 0; s <= kStages; ++s) mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Tile j's K and V rows into stage j % kStages (issued by thread 0).
+  auto load_tile = [&](int j) {
+    const int s = j % kStages;
+    const uint32_t st = ring + s * 2 * kTile;
+    mbar_expect_tx(bar0 + 8 * s, 2 * kTile);
+    load_rows<DP, BN>(st, &tm_k, h, row_b + j * BN, BN, bar0 + 8 * s);
+    load_rows<DP, BN>(st + kTile, &tm_v, h, row_b + j * BN, BN, bar0 + 8 * s);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_res, 2 * kRes);
+    load_rows<DP, BN>(qs, &tm_q, h, row_b + q0, kBlockM, bar_res);
+    load_rows<DP, BN>(dos, &tm_do, h, row_b + q0, kBlockM, bar_res);
+    for (int j = 0; j < kStages - 1 && j < n_tiles; ++j) load_tile(j);
+  }
 
-  // delta = rowsum(dO * O) in f32: each of the four threads of a row group
-  // sums a quarter of the columns, then the group reduces.
-  float dl0 = 0.0f, dl1 = 0.0f;
+  // delta = rowsum(dO * O) in f32 while the tiles load: two threads a row,
+  // 16-byte loads, alternate 8-column chunks.
+  {
+    const int r = tid >> 1;
+    const long off = ((long)(row_b + q0 + r) * H + h) * D;
+    float sum = 0.0f;
+    for (int c = (tid & 1) * 8; c < D; c += 16) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(o + off + c);
+      const uint4 gv = *reinterpret_cast<const uint4*>(dout + off + c);
+      const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
 #pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const int c0 = kk * 16 + t * 2;
-    const int cols[4] = {c0, c0 + 1, c0 + 8, c0 + 9};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (cols[i] < D) {
-        const long p0 = obase + (long)r0 * ors + cols[i];
-        const long p1 = p0 + 8 * ors;
-        dl0 += __bfloat162float(dout[p0]) * __bfloat162float(o[p0]);
-        dl1 += __bfloat162float(dout[p1]) * __bfloat162float(o[p1]);
+      for (int i = 0; i < 4; ++i) {
+        const float2 of = __bfloat1622float2(op[i]);
+        const float2 gf = __bfloat1622float2(gp[i]);
+        sum = fmaf(gf.x, of.x, sum);
+        sum = fmaf(gf.y, of.y, sum);
       }
     }
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    dl0 += __shfl_xor_sync(0xffffffffu, dl0, off);
-    dl1 += __shfl_xor_sync(0xffffffffu, dl1, off);
-  }
-  if (t == 0) {
-    delta[(long)bh * L + r0] = dl0;
-    delta[(long)bh * L + r1] = dl1;
-  }
-  const float ls0 = lse[(long)bh * L + r0];
-  const float ls1 = lse[(long)bh * L + r1];
-
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < DP / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.0f;
-
-  const int n_end = causal ? min(L, q0 + kBlockM) : L;
-  for (int n0 = 0; n0 < n_end; n0 += BN) {
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<DP, BN>(k, base, rs, n0, D, vec, tid, ks, kts);
-    load_tile<DP, BN>(v, base, rs, n0, D, vec, tid, vs, nullptr);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows and the tile's keys.
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        const bf16* kp = &ks[nt * 8 + g][kk * 16 + t * 2];
-        const bf16* vp = &vs[nt * 8 + g][kk * 16 + t * 2];
-        mma_bf16(s[nt], qf[kk], ld32(kp), ld32(kp + 8));
-        mma_bf16(dp[nt], df[kk], ld32(vp), ld32(vp + 8));
-      }
-    }
-
-    // P = exp(S - lse), zero past the diagonal; dS = P (dP - delta) in f32,
-    // kept in s.
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool lo = e < 2;
-        const int row = lo ? r0 : r1;
-        const int col = n0 + nt * 8 + t * 2 + (e & 1);
-        float p = expf(s[nt][e] * scale - (lo ? ls0 : ls1));
-        if (causal && col > row) p = 0.0f;
-        s[nt][e] = p * (dp[nt][e] - (lo ? dl0 : dl1));
-      }
-    }
-
-    // dQ += dS K: dS rounded to bf16 and re-packed as the A operand.
-#pragma unroll
-    for (int kt = 0; kt < BN / 16; ++kt) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kt][0], s[2 * kt][1]),
-                             pack_bf16(s[2 * kt][2], s[2 * kt][3]),
-                             pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
-                             pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < DP / 8; ++dt) {
-        const bf16* kp = &kts[dt * 8 + g][kt * 16 + t * 2];
-        mma_bf16(acc[dt], a, ld32(kp), ld32(kp + 8));
-      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if ((tid & 1) == 0) {
+      dl_s[r] = sum;
+      delta[(long)bh * L + q0 + r] = sum;
     }
   }
-  store_acc<DP>(dq, gbase, grs, r0, D, t, acc, scale);
+  __syncthreads();
+  const int r0 = warp * 16 + g;  // this thread's rows r0 and r0 + 8 (local)
+  const float dl0 = dl_s[r0], dl1 = dl_s[r0 + 8];
+  const float ls0 = lse[(long)bh * L + q0 + r0] * kLog2e;
+  const float ls1 = lse[(long)bh * L + q0 + r0 + 8] * kLog2e;
+  const float scale_log2 = scale * kLog2e;
+
+  float acc[DP / 2], sc[BN / 2], dp[BN / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) sc[i] = dp[i] = 0.0f;
+  mbar_wait(bar_res, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    // Refill the stage the previous tile used (every thread is past it).
+    if (tid == 0 && j + kStages - 1 < n_tiles) load_tile(j + kStages - 1);
+    const int s = j % kStages;
+    const uint32_t ks = ring + s * 2 * kTile;
+    const uint32_t vs = ks + kTile;
+    mbar_wait(bar0 + 8 * s, (j / kStages) & 1);
+
+    // S = Q K^T, then dP = dO V^T: two groups, so the exponentials of S run
+    // while dP is in the tensor cores.
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      Wgmma<BN>::ss(sc, sw128_desc(qs + kslice(kk, kBlockM), 16),
+                    sw128_desc(ks + kslice(kk, BN), 16), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      Wgmma<BN>::ss(dp, sw128_desc(dos + kslice(kk, kBlockM), 16),
+                    sw128_desc(vs + kslice(kk, BN), 16), kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+
+    // P = exp(S - lse), zero past the diagonal (only tiles that cross it).
+    const int n0 = j * BN;
+    if (causal && n0 + BN - 1 > q0) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int row = q0 + r0 + ((i & 2) ? 8 : 0);
+        const int col = n0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        const float p = exp2f(fmaf(sc[i], scale_log2, -((i & 2) ? ls1 : ls0)));
+        sc[i] = col > row ? 0.0f : p;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i)
+        sc[i] = exp2f(fmaf(sc[i], scale_log2, -((i & 2) ? ls1 : ls0)));
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    // dS = P (dP - delta), f32, rounded to bf16 as dQ's A operand.
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] *= dp[i] - ((i & 2) ? dl1 : dl0);
+    uint32_t a[BN / 16][4];
+    pack_a<BN>(a, sc);
+
+    // dQ += dS K: K's tile read MN-major (keys are the contraction).
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < BN / 16; ++kt)
+      Wgmma<DP>::rs(acc, a[kt], sw128_desc(ks + kt * 16 * 128, BN * 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // every thread is done with stage s
+  }
+
+  // dQ * D^-1/2 through shared memory (the ring is free) to 16-byte stores.
+  bf16* st = reinterpret_cast<bf16*>(smem + 2 * kRes);
+  stage_acc<DP>(st, r0, t, acc, scale);
+  __syncthreads();
+  store_rows<DP>(dq, (long)b * L * grs + (long)h * D, grs, q0, D, st, tid);
 }
 
 // --------------------------------------------------------------- bf16 dkv
 
 template <int DP, int BN>
-__global__ void __launch_bounds__(kThreads)
-dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int H, int D,
-                long rs, long grs, float scale, int causal, int vec) {
-  __shared__ __align__(16) bf16 qs[BN][DP + 8];    // Q tile, row-major (B of K Q^T)
-  __shared__ __align__(16) bf16 dos[BN][DP + 8];   // dO tile, row-major (B of V dO^T)
-  __shared__ __align__(16) bf16 qts[DP][BN + 8];   // Q tile, transposed (B of dS^T Q)
-  __shared__ __align__(16) bf16 dots[DP][BN + 8];  // dO tile, transposed (B of P^T dO)
-  __shared__ float ls_s[BN], dl_s[BN];
+__global__ void __launch_bounds__(kThreads, DP == 64 ? 3 : 1)
+dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                 int L, int H, int D, long grs, float scale, int causal) {
+  constexpr int kRes = kBlockM * DP * 2;
+  constexpr int kTile = BN * DP * 2;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[kStages + 1];
+  __shared__ __align__(16) float ls_s[kStages][BN];  // lse of the stage's queries
+  __shared__ __align__(16) float dl_s[kStages][BN];  // delta of the stage's queries
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t ks = smem_u32(smem);  // K, resident (A of K Q^T)
+  const uint32_t vs = ks + kRes;       // V, resident (A of V dO^T)
+  const uint32_t ring = vs + kRes;     // stage s: Q tile, then dO tile
+  const uint32_t bar0 = smem_u32(bars);
+  const uint32_t bar_res = bar0 + 8 * kStages;
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -324,89 +568,127 @@ dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const long base = (long)b * L * rs + (long)h * D;
-  const long ors = (long)H * D;
-  const long obase = (long)b * L * ors + (long)h * D;
-  const long gbase = (long)b * L * grs + (long)h * D;
+  const int row_b = b * L;
+  const int m_begin = causal ? k0 : 0;
+  const int n_tiles = (L - m_begin) / BN;
 
-  const int kr0 = k0 + warp * 16 + g;  // this thread's key rows kr0 and kr0 + 8
-  const int kr1 = kr0 + 8;
-  uint32_t kf[DP / 16][4], vf[DP / 16][4];
-  load_a<DP>(kf, k, base, rs, kr0, D, t);
-  load_a<DP>(vf, v, base, rs, kr0, D, t);
-
-  float dka[DP / 8][4], dva[DP / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < DP / 8; ++dt) {
-    dka[dt][0] = dka[dt][1] = dka[dt][2] = dka[dt][3] = 0.0f;
-    dva[dt][0] = dva[dt][1] = dva[dt][2] = dva[dt][3] = 0.0f;
+  if (tid == 0) {
+    for (int s = 0; s <= kStages; ++s) mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Tile j's Q and dO rows, lse and delta into stage j % kStages (issued
+  // by thread 0).
+  auto load_tile = [&](int j) {
+    const int s = j % kStages;
+    const int m0 = m_begin + j * BN;
+    const uint32_t st = ring + s * 2 * kTile;
+    const uint32_t bar = bar0 + 8 * s;
+    mbar_expect_tx(bar, 2 * kTile + 2 * BN * 4);
+    load_rows<DP, BN>(st, &tm_q, h, row_b + m0, BN, bar);
+    load_rows<DP, BN>(st + kTile, &tm_do, h, row_b + m0, BN, bar);
+    bulk_load(smem_u32(ls_s[s]), lse + (long)bh * L + m0, BN * 4, bar);
+    bulk_load(smem_u32(dl_s[s]), delta + (long)bh * L + m0, BN * 4, bar);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_res, 2 * kRes);
+    load_rows<DP, BN>(ks, &tm_k, h, row_b + k0, kBlockM, bar_res);
+    load_rows<DP, BN>(vs, &tm_v, h, row_b + k0, kBlockM, bar_res);
+    for (int j = 0; j < kStages - 1 && j < n_tiles; ++j) load_tile(j);
   }
 
-  const int m_begin = causal ? k0 : 0;
-  for (int m0 = m_begin; m0 < L; m0 += BN) {
-    __syncthreads();
-    load_tile<DP, BN>(q, base, rs, m0, D, vec, tid, qs, qts);
-    load_tile<DP, BN>(dout, obase, ors, m0, D, vec, tid, dos, dots);
-    if (tid < BN) {
-      ls_s[tid] = lse[(long)bh * L + m0 + tid];
-      dl_s[tid] = delta[(long)bh * L + m0 + tid];
-    }
-    __syncthreads();
+  const int r0 = warp * 16 + g;  // this thread's keys k0 + r0 and k0 + r0 + 8
+  const int key0 = k0 + r0;
+  const float scale_log2 = scale * kLog2e;
+  float dka[DP / 2], dva[DP / 2], sc[BN / 2], dp[BN / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) sc[i] = dp[i] = 0.0f;
+  mbar_wait(bar_res, 0);
 
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys and the tile's
-    // queries.
-    float st[BN / 8][4], dpt[BN / 8][4];
+  for (int j = 0; j < n_tiles; ++j) {
+    if (tid == 0 && j + kStages - 1 < n_tiles) load_tile(j + kStages - 1);
+    const int s = j % kStages;
+    const uint32_t qs = ring + s * 2 * kTile;
+    const uint32_t dos = qs + kTile;
+    mbar_wait(bar0 + 8 * s, (j / kStages) & 1);
+
+    // S^T = K Q^T, then dP^T = V dO^T.
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      Wgmma<BN>::ss(sc, sw128_desc(ks + kslice(kk, kBlockM), 16),
+                    sw128_desc(qs + kslice(kk, BN), 16), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      Wgmma<BN>::ss(dp, sw128_desc(vs + kslice(kk, kBlockM), 16),
+                    sw128_desc(dos + kslice(kk, BN), 16), kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+
+    // P^T = exp(S^T - lse[query]), zero where the query precedes the key
+    // (only tiles that cross the diagonal).
+    const int m0 = m_begin + j * BN;
+    const bool diag = causal && m0 < k0 + kBlockM - 1;
 #pragma unroll
     for (int nt = 0; nt < BN / 8; ++nt) {
-      st[nt][0] = st[nt][1] = st[nt][2] = st[nt][3] = 0.0f;
-      dpt[nt][0] = dpt[nt][1] = dpt[nt][2] = dpt[nt][3] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        const bf16* qp = &qs[nt * 8 + g][kk * 16 + t * 2];
-        const bf16* dp = &dos[nt * 8 + g][kk * 16 + t * 2];
-        mma_bf16(st[nt], kf[kk], ld32(qp), ld32(qp + 8));
-        mma_bf16(dpt[nt], vf[kk], ld32(dp), ld32(dp + 8));
-      }
-    }
-
-    // P^T = exp(S^T - lse[query]), zero where the query precedes the key;
-    // dS^T = P^T (dP^T - delta[query]) in f32, kept in dpt.
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
+      const float2 ls = *reinterpret_cast<const float2*>(&ls_s[s][8 * nt + 2 * t]);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = e < 2 ? kr0 : kr1;
-        const int col = nt * 8 + t * 2 + (e & 1);
-        float p = expf(st[nt][e] * scale - ls_s[col]);
-        if (causal && m0 + col < key) p = 0.0f;
-        st[nt][e] = p;
-        dpt[nt][e] = p * (dpt[nt][e] - dl_s[col]);
+        const int i = 4 * nt + e;
+        const float p = exp2f(fmaf(sc[i], scale_log2, -((e & 1) ? ls.y : ls.x) * kLog2e));
+        const int query = m0 + 8 * nt + 2 * t + (e & 1);
+        sc[i] = (diag && query < key0 + ((e & 2) ? 8 : 0)) ? 0.0f : p;
       }
     }
+    uint32_t ap[BN / 16][4];
+    pack_a<BN>(ap, sc);
+    wgmma_wait<0>();
+    fence_regs(dp);
+    // dS^T = P^T (dP^T - delta[query]) in f32.
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+      const float2 dl = *reinterpret_cast<const float2*>(&dl_s[s][8 * nt + 2 * t]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * nt + e;
+        dp[i] = sc[i] * (dp[i] - ((e & 1) ? dl.y : dl.x));
+      }
+    }
+    uint32_t ad[BN / 16][4];
+    pack_a<BN>(ad, dp);
 
-    // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to bf16 and
-    // re-packed as A operands.
+    // dV += P^T dO and dK += dS^T Q: dO's and Q's tiles read MN-major.
+    fence_regs(dva);
+    fence_regs(dka);
+    wgmma_fence();
 #pragma unroll
-    for (int kt = 0; kt < BN / 16; ++kt) {
-      const uint32_t ap[4] = {pack_bf16(st[2 * kt][0], st[2 * kt][1]),
-                              pack_bf16(st[2 * kt][2], st[2 * kt][3]),
-                              pack_bf16(st[2 * kt + 1][0], st[2 * kt + 1][1]),
-                              pack_bf16(st[2 * kt + 1][2], st[2 * kt + 1][3])};
-      const uint32_t ad[4] = {pack_bf16(dpt[2 * kt][0], dpt[2 * kt][1]),
-                              pack_bf16(dpt[2 * kt][2], dpt[2 * kt][3]),
-                              pack_bf16(dpt[2 * kt + 1][0], dpt[2 * kt + 1][1]),
-                              pack_bf16(dpt[2 * kt + 1][2], dpt[2 * kt + 1][3])};
+    for (int kt = 0; kt < BN / 16; ++kt)
+      Wgmma<DP>::rs(dva, ap[kt], sw128_desc(dos + kt * 16 * 128, BN * 128));
 #pragma unroll
-      for (int dt = 0; dt < DP / 8; ++dt) {
-        const bf16* dp = &dots[dt * 8 + g][kt * 16 + t * 2];
-        const bf16* qp = &qts[dt * 8 + g][kt * 16 + t * 2];
-        mma_bf16(dva[dt], ap, ld32(dp), ld32(dp + 8));
-        mma_bf16(dka[dt], ad, ld32(qp), ld32(qp + 8));
-      }
-    }
+    for (int kt = 0; kt < BN / 16; ++kt)
+      Wgmma<DP>::rs(dka, ad[kt], sw128_desc(qs + kt * 16 * 128, BN * 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    __syncthreads();
   }
-  store_acc<DP>(dk, gbase, grs, kr0, D, t, dka, scale);
-  store_acc<DP>(dv, gbase, grs, kr0, D, t, dva, 1.0f);
+
+  bf16* st_k = reinterpret_cast<bf16*>(smem + 2 * kRes);
+  bf16* st_v = st_k + kBlockM * (DP + 8);
+  stage_acc<DP>(st_k, r0, t, dka, scale);
+  stage_acc<DP>(st_v, r0, t, dva, 1.0f);
+  __syncthreads();
+  const long gbase = (long)b * L * grs + (long)h * D;
+  store_rows<DP>(dk, gbase, grs, k0, D, st_k, tid);
+  store_rows<DP>(dv, gbase, grs, k0, D, st_v, tid);
 }
 
 // ----------------------------------------------------------------- f32 dq
@@ -584,11 +866,112 @@ int check_args(int L, int H, int D, long rs, long grs) {
   return 0;
 }
 
-// 16-byte tile loads need D % 8 == 0 and every row start 16-byte aligned.
-int vec_ok(int D, long rs, const void* a, const void* b, const void* c) {
-  const uintptr_t bits = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
-                         reinterpret_cast<uintptr_t>(c);
-  return (D % 8 == 0) && (rs % 8 == 0) && (bits % 16 == 0);
+// cuTensorMapEncodeTiled, fetched once through cudart's driver entry
+// point, so the library needs no libcuda at link time.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A [rows, H, D] bf16 tensor map (row stride rs elements, head stride D) in
+// boxes of 64 columns x 1 head x box_rows rows, 128-byte swizzle, columns
+// past D filled with zeros.
+bool encode_rows(CUtensorMap* map, const void* base, int D, int H, long rows, long rs,
+                 int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rs * 2};
+  const cuuint32_t box[3] = {64, 1, (cuuint32_t)box_rows};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// What the bf16 kernels' TMA loads and 16-byte stores need: D % 8 == 0, row
+// strides a multiple of 8 elements, 16-byte-aligned pointers.
+bool tma_ok(int D, long rs, long grs, const void* const* ptrs, int n) {
+  uintptr_t bits = 0;
+  for (int i = 0; i < n; ++i) bits |= reinterpret_cast<uintptr_t>(ptrs[i]);
+  return D % 8 == 0 && rs % 8 == 0 && grs % 8 == 0 && bits % 16 == 0;
+}
+
+// The maps of q, k, v (row stride rs) and dO (contiguous) for tiles of BN
+// rows; false if the driver refuses one.
+bool encode_qkv_do(CUtensorMap (&m)[4], const void* q, const void* k, const void* v,
+                   const void* dout, int B, int L, int H, int D, long rs, int BN) {
+  const long rows = (long)B * L;
+  return encode_rows(&m[0], q, D, H, rows, rs, BN) && encode_rows(&m[1], k, D, H, rows, rs, BN) &&
+         encode_rows(&m[2], v, D, H, rows, rs, BN) &&
+         encode_rows(&m[3], dout, D, H, rows, (long)H * D, BN);
+}
+
+template <int DP, int BN>
+cudaError_t launch_dq(const CUtensorMap (&m)[4], const bf16* o, const bf16* dout,
+                      const float* lse, float* delta, bf16* dq, int B, int L, int H, int D,
+                      long grs, float scale, int causal, cudaStream_t st) {
+  auto kernel = dq_wgmma_kernel<DP, BN>;
+  constexpr int smem = bf16_smem_bytes<DP, BN>();
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(B * H, L / kBlockM), kThreads, smem, st>>>(m[0], m[1], m[2], m[3], o, dout, lse,
+                                                          delta, dq, L, H, D, grs, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int DP, int BN>
+cudaError_t launch_dkv(const CUtensorMap (&m)[4], const float* lse, const float* delta, bf16* dk,
+                       bf16* dv, int B, int L, int H, int D, long grs, float scale, int causal,
+                       cudaStream_t st) {
+  auto kernel = dkv_wgmma_kernel<DP, BN>;
+  constexpr int smem = bf16_smem_bytes<DP, BN>();
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(B * H, L / kBlockM), kThreads, smem, st>>>(m[0], m[1], m[2], m[3], lse, delta, dk,
+                                                          dv, L, H, D, grs, scale, causal);
+  return cudaGetLastError();
+}
+
+// Registers, static and dynamic shared memory, local (spill) bytes and
+// resident blocks per SM of one bf16 kernel instantiation.
+template <typename Kernel>
+cudaError_t kernel_info(Kernel kernel, int smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.sharedSizeBytes;
+  out[2] = smem;
+  out[3] = (int)attr.localSizeBytes;
+  out[4] = blocks;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -598,8 +981,11 @@ int vec_ok(int D, long rs, const void* a, const void* b, const void* c) {
 // contiguous [B, L, H, D]; dq, dk and dv are written with grad_row_stride in
 // the same way; lse and delta are f32 [B*H, L] (row b*H + h).  The caller
 // guarantees L % 64 == 0 and D <= 128 (the Python wrapper checks the
-// reference's contract, L % 128 == 0).  Each function launches on `stream`
-// without synchronising and returns cudaGetLastError() of the launch.
+// reference's contract, L % 128 == 0); for bfloat16 also D % 8 == 0, both row
+// strides a multiple of 8 and every pointer 16-byte aligned (the wrapper
+// pads the head dim otherwise).  Each function launches on `stream` without
+// synchronising and returns cudaGetLastError() of the launch
+// (cudaErrorInvalidValue for arguments outside the contract).
 
 // dq and delta = rowsum(dout * o); the dkv kernel reads that delta, so it
 // must be launched after this one on the same stream.
@@ -613,22 +999,20 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
   const float* ls = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == 1) {
-    const dim3 grid(B * H, L / kBlockM);
-    const auto* qb = static_cast<const bf16*>(q);
-    const auto* kb = static_cast<const bf16*>(k);
-    const auto* vb = static_cast<const bf16*>(v);
+    const void* ptrs[8] = {q, k, v, o, dout, lse, delta, dq};
+    if (!tma_ok(D, row_stride, grad_row_stride, ptrs, 8)) return (int)cudaErrorInvalidValue;
+    const int bn = D <= 64 ? 64 : 32;
+    CUtensorMap maps[4];
+    if (!encode_qkv_do(maps, q, k, v, dout, B, L, H, D, row_stride, bn))
+      return (int)cudaErrorInvalidValue;
     const auto* ob = static_cast<const bf16*>(o);
     const auto* gb = static_cast<const bf16*>(dout);
     auto* dqb = static_cast<bf16*>(dq);
-    const int vec = vec_ok(D, row_stride, q, k, v);
     if (D <= 64)
-      dq_bf16_kernel<64, 64><<<grid, kThreads, 0, st>>>(qb, kb, vb, ob, gb, ls, dl, dqb, L, H, D,
-                                                       row_stride, grad_row_stride, scale,
-                                                       causal, vec);
-    else
-      dq_bf16_kernel<128, 32><<<grid, kThreads, 0, st>>>(qb, kb, vb, ob, gb, ls, dl, dqb, L, H,
-                                                        D, row_stride, grad_row_stride, scale,
-                                                        causal, vec);
+      return (int)launch_dq<64, 64>(maps, ob, gb, ls, dl, dqb, B, L, H, D, grad_row_stride, scale,
+                                    causal, st);
+    return (int)launch_dq<128, 32>(maps, ob, gb, ls, dl, dqb, B, L, H, D, grad_row_stride, scale,
+                                   causal, st);
   } else if (dtype == 0) {
     const auto* qf = static_cast<const float*>(q);
     const auto* kf = static_cast<const float*>(k);
@@ -659,22 +1043,19 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (dtype == 1) {
-    const dim3 grid(B * H, L / kBlockM);
-    const auto* qb = static_cast<const bf16*>(q);
-    const auto* kb = static_cast<const bf16*>(k);
-    const auto* vb = static_cast<const bf16*>(v);
-    const auto* gb = static_cast<const bf16*>(dout);
+    const void* ptrs[8] = {q, k, v, dout, lse, delta, dk, dv};
+    if (!tma_ok(D, row_stride, grad_row_stride, ptrs, 8)) return (int)cudaErrorInvalidValue;
+    const int bn = D <= 64 ? 64 : 32;
+    CUtensorMap maps[4];
+    if (!encode_qkv_do(maps, q, k, v, dout, B, L, H, D, row_stride, bn))
+      return (int)cudaErrorInvalidValue;
     auto* dkb = static_cast<bf16*>(dk);
     auto* dvb = static_cast<bf16*>(dv);
-    const int vec = vec_ok(D, row_stride, q, dout, dout);
     if (D <= 64)
-      dkv_bf16_kernel<64, 64><<<grid, kThreads, 0, st>>>(qb, kb, vb, gb, ls, dl, dkb, dvb, L, H,
-                                                        D, row_stride, grad_row_stride, scale,
-                                                        causal, vec);
-    else
-      dkv_bf16_kernel<128, 32><<<grid, kThreads, 0, st>>>(qb, kb, vb, gb, ls, dl, dkb, dvb, L,
-                                                         H, D, row_stride, grad_row_stride,
-                                                         scale, causal, vec);
+      return (int)launch_dkv<64, 64>(maps, ls, dl, dkb, dvb, B, L, H, D, grad_row_stride, scale,
+                                     causal, st);
+    return (int)launch_dkv<128, 32>(maps, ls, dl, dkb, dvb, B, L, H, D, grad_row_stride, scale,
+                                    causal, st);
   } else if (dtype == 0) {
     const auto* qf = static_cast<const float*>(q);
     const auto* kf = static_cast<const float*>(k);
@@ -692,4 +1073,17 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// Occupancy report of a bf16 kernel: kernel 0 = dq, 1 = dkv, for head dim D;
+// out[5] = registers, static shared bytes, dynamic shared bytes, local
+// (spill) bytes, resident blocks per SM.
+extern "C" int flash_attention_bwd_kernel_info(int kernel, int D, int* out) {
+  if (kernel == 0)
+    return (int)(D <= 64 ? kernel_info(dq_wgmma_kernel<64, 64>, bf16_smem_bytes<64, 64>(), out)
+                         : kernel_info(dq_wgmma_kernel<128, 32>, bf16_smem_bytes<128, 32>(), out));
+  if (kernel == 1)
+    return (int)(D <= 64 ? kernel_info(dkv_wgmma_kernel<64, 64>, bf16_smem_bytes<64, 64>(), out)
+                         : kernel_info(dkv_wgmma_kernel<128, 32>, bf16_smem_bytes<128, 32>(), out));
+  return (int)cudaErrorInvalidValue;
 }

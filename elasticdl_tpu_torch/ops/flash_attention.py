@@ -18,7 +18,11 @@ TPU layout constraints and are gone.
 Routing: a CUDA tensor launches the kernel or raises; a CPU tensor runs the
 plain version, the same arithmetic in plain PyTorch (the tests hold it
 against the JAX kernels, and ``chip_smoke.py`` holds each kernel against it
-on the card).  There is no silent fallback from one to the other.
+on the card).  There is no silent fallback from one to the other.  On the
+card the bf16 backward kernels load tiles by TMA, which needs 16-byte rows:
+inputs with a head dim that is not a multiple of 8 (or rows it cannot
+address) run the same kernels over copies padded to such a head dim, a
+routing by layout that the wrappers state and the tests cover.
 
 :func:`flash_attention` is differentiable.  When q, k and v are views into
 one fused ``[B, L, 3*H*D]`` projection, as the model passes them, the
@@ -166,41 +170,44 @@ def _heads_first(x: torch.Tensor) -> torch.Tensor:
     return x.float().permute(0, 2, 1, 3)
 
 
-def _probs(q, k, lse, causal: bool) -> torch.Tensor:
+def _probs(q, k, lse, causal: bool, scale: float) -> torch.Tensor:
     """P = exp(S - lse) in f32 ``[B, H, L, L]`` from the forward's lse, zero
     past the diagonal under causal masking."""
     b, l, h, d = q.shape
-    s = torch.matmul(_heads_first(q), _heads_first(k).transpose(-1, -2)) * d**-0.5
+    s = torch.matmul(_heads_first(q), _heads_first(k).transpose(-1, -2)) * scale
     if causal:
         mask = torch.ones(l, l, dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~mask, float("-inf"))
     return torch.exp(s - lse.reshape(b, h, l, 1))
 
 
-def flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal: bool = False):
+def flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal: bool = False, scale=None):
     """The dq kernel's function in plain PyTorch: (dq ``[B, L, H, D]`` in
     the input dtype, delta f32 ``[B*H, L]``).  delta = rowsum(dO * O) and
     dS = P (dO V^T - delta) in f32; dS rounded to the input dtype before
-    the product with K, as in the TPU kernel."""
+    the product with K, as in the TPU kernel.  ``scale``: the score scale,
+    D^-1/2 by default."""
     b, l, h, d = q.shape
-    p = _probs(q, k, lse, causal)
+    scale = d**-0.5 if scale is None else scale
+    p = _probs(q, k, lse, causal, scale)
     dof = _heads_first(do)
     delta = (dof * _heads_first(o)).sum(dim=-1)  # [B, H, L]
     ds = p * (torch.matmul(dof, _heads_first(v).transpose(-1, -2)) - delta[..., None])
-    dq = torch.matmul(ds.to(q.dtype).float(), _heads_first(k)) * d**-0.5
+    dq = torch.matmul(ds.to(q.dtype).float(), _heads_first(k)) * scale
     return dq.to(q.dtype).permute(0, 2, 1, 3), delta.reshape(b * h, l)
 
 
-def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = False):
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = False, scale=None):
     """The dkv kernel's function in plain PyTorch: (dk, dv) ``[B, L, H, D]``
     in the input dtype.  P^T and dS^T in f32, each rounded to the input
     dtype before its product (with dO, with Q), as in the TPU kernel."""
     b, l, h, d = q.shape
-    p = _probs(q, k, lse, causal)
+    scale = d**-0.5 if scale is None else scale
+    p = _probs(q, k, lse, causal, scale)
     dof = _heads_first(do)
     ds = p * (torch.matmul(dof, _heads_first(v).transpose(-1, -2)) - delta.reshape(b, h, l, 1))
     dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), dof)
-    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), _heads_first(q)) * d**-0.5
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), _heads_first(q)) * scale
     return dk.to(q.dtype).permute(0, 2, 1, 3), dv.to(q.dtype).permute(0, 2, 1, 3)
 
 
@@ -258,21 +265,54 @@ def _bwd_inputs(q, k, v, tensors, vectors) -> None:
         _check_layout(q, k, v)
 
 
-def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = False, dq=None):
-    """(dq, delta) of attention's backward; ``dq``: a buffer to write into
-    (a view into a fused qkv gradient, say)."""
-    _bwd_inputs(q, k, v, (o, do), (lse,))
-    (dq,) = _grad_buffers(q, None if dq is None else (dq,), 1)
-    if q.device.type == "cpu":
-        ref, delta = flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal)
-        return dq.copy_(ref), delta
+def _tma_layout(*xs: torch.Tensor) -> bool:
+    """True when the bf16 kernels' TMA loads and 16-byte stores can take
+    ``xs`` ([B, L, H, D] tensors, as they are): rows of whole 16-byte
+    chunks (D % 8 == 0), row strides a multiple of 8 elements, 16-byte
+    aligned data."""
+    d = xs[0].shape[-1]
+    return d % 8 == 0 and all(x.stride(1) % 8 == 0 and x.data_ptr() % 16 == 0 for x in xs)
+
+
+def _pad_head(x: torch.Tensor, dp: int) -> torch.Tensor:
+    """A contiguous copy of [B, L, H, D] ``x`` with the head dim zero-padded
+    to ``dp``."""
+    out = x.new_zeros((*x.shape[:-1], dp))
+    out[..., : x.shape[-1]] = x
+    return out
+
+
+def _bwd_dq_padded(q, k, v, o, lse, do, causal, dq_fn):
+    """(dq, delta) by ``dq_fn`` (the dq kernel's launch, or its plain
+    version) over copies of q, k, v, o and dO whose head dim is zero-padded
+    to a multiple of 8, at the original D^-1/2 scale; dq sliced back to D.
+    Zero columns add nothing to a score, to delta or to a gradient column
+    that is kept."""
+    d = q.shape[-1]
+    dp = -(-d // 8) * 8
+    dq, delta = dq_fn(*(_pad_head(x, dp) for x in (q, k, v, o)), lse, _pad_head(do, dp), causal,
+                      scale=d**-0.5)
+    return dq[..., :d], delta
+
+
+def _bwd_dkv_padded(q, k, v, do, lse, delta, causal, dkv_fn):
+    """(dk, dv) by ``dkv_fn`` over head-padded copies, as ``_bwd_dq_padded``."""
+    d = q.shape[-1]
+    dp = -(-d // 8) * 8
+    dk, dv = dkv_fn(*(_pad_head(x, dp) for x in (q, k, v, do)), lse, delta, causal,
+                    scale=d**-0.5)
+    return dk[..., :d], dv[..., :d]
+
+
+def _launch_dq(q, k, v, o, lse, do, causal, scale=None, dq=None):
     b, l, h, d = q.shape
+    dq = torch.empty_like(o) if dq is None else dq
     delta = torch.empty_like(lse)
     fn = kernels.bind(BWD_SOURCE, DQ_KERNEL, _BWD_ARGTYPES)
     status = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), b, l, h, d, q.stride(1), dq.stride(1),
-        float(d**-0.5), int(bool(causal)), _DTYPE_CODES[q.dtype],
+        float(d**-0.5 if scale is None else scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.count(DQ_KERNEL)
@@ -280,26 +320,55 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = False, dq=None):
     return dq, delta
 
 
-def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False, dk=None, dv=None):
-    """(dk, dv) of attention's backward from the forward's lse and the dq
-    step's delta; ``dk``, ``dv``: buffers to write into (both or
-    neither)."""
-    _bwd_inputs(q, k, v, (do,), (lse, delta))
-    dk, dv = _grad_buffers(q, None if dk is None else (dk, dv), 2)
-    if q.device.type == "cpu":
-        ref_k, ref_v = flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
-        return dk.copy_(ref_k), dv.copy_(ref_v)
+def _launch_dkv(q, k, v, do, lse, delta, causal, scale=None, dk=None, dv=None):
     b, l, h, d = q.shape
+    if dk is None:
+        dk, dv = torch.empty_like(do), torch.empty_like(do)
     fn = kernels.bind(BWD_SOURCE, DKV_KERNEL, _BWD_ARGTYPES)
     status = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, l, h, d, q.stride(1), dk.stride(1),
-        float(d**-0.5), int(bool(causal)), _DTYPE_CODES[q.dtype],
+        float(d**-0.5 if scale is None else scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.count(DKV_KERNEL)
     kernels.check_launch(DKV_KERNEL, status)
     return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = False, dq=None):
+    """(dq, delta) of attention's backward; ``dq``: a buffer to write into
+    (a view into a fused qkv gradient, say).
+
+    Routing by layout on the card: bf16 inputs whose head dim is not a
+    multiple of 8 (or whose rows the kernel's TMA loads cannot address:
+    row strides not a multiple of 8, data not 16-byte aligned) go to the
+    same kernel over copies padded to such a head dim, and dq is sliced
+    back, as the TPU wrapper pads the head dim to its 128 lanes."""
+    _bwd_inputs(q, k, v, (o, do), (lse,))
+    (dq,) = _grad_buffers(q, None if dq is None else (dq,), 1)
+    if q.device.type == "cpu":
+        ref, delta = flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal)
+        return dq.copy_(ref), delta
+    if q.dtype == torch.bfloat16 and not _tma_layout(q, k, v, o, do, dq):
+        ref, delta = _bwd_dq_padded(q, k, v, o, lse, do, causal, _launch_dq)
+        return dq.copy_(ref), delta
+    return _launch_dq(q, k, v, o, lse, do, causal, dq=dq)
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False, dk=None, dv=None):
+    """(dk, dv) of attention's backward from the forward's lse and the dq
+    step's delta; ``dk``, ``dv``: buffers to write into (both or
+    neither).  Routed by layout as ``flash_attention_bwd_dq``."""
+    _bwd_inputs(q, k, v, (do,), (lse, delta))
+    dk, dv = _grad_buffers(q, None if dk is None else (dk, dv), 2)
+    if q.device.type == "cpu":
+        ref_k, ref_v = flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
+        return dk.copy_(ref_k), dv.copy_(ref_v)
+    if q.dtype == torch.bfloat16 and not _tma_layout(q, k, v, do, dk, dv):
+        ref_k, ref_v = _bwd_dkv_padded(q, k, v, do, lse, delta, causal, _launch_dkv)
+        return dk.copy_(ref_k), dv.copy_(ref_v)
+    return _launch_dkv(q, k, v, do, lse, delta, causal, dk=dk, dv=dv)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False, out=None):

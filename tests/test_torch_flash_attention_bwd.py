@@ -148,6 +148,46 @@ def test_wrappers_write_into_given_buffers_and_return_delta():
     torch.testing.assert_close(delta, want)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padded_head_route_matches_plain_backward_and_jax_vjp(dtype):
+    """D=36, which the bf16 kernels' TMA loads cannot read: the wrappers'
+    route (q, k, v, o and dO copied into a head dim zero-padded to 40, the
+    D=36 scale, gradients sliced back), run through the plain versions,
+    gives the unpadded plain backward's dq, dk, dv and delta, and both match
+    ``jax.vjp`` of the Pallas kernels at this file's tolerance."""
+    b, l, h, d = 2, 128, 2, 36
+    q, k, v, g = _arrays((b, l, h, d), seed=36)
+    tdt = _DTYPES[dtype][1]
+    tq, tk, tv, tg = (torch.from_numpy(a).to(tdt) for a in (q, k, v, g))
+    o, lse = tfa.flash_attention_fwd(tq, tk, tv, True)
+    dq, delta = tfa._bwd_dq_padded(tq, tk, tv, o, lse, tg, True, tfa.flash_attention_bwd_dq_plain)
+    padded = (dq, *tfa._bwd_dkv_padded(tq, tk, tv, tg, lse, delta, True,
+                                       tfa.flash_attention_bwd_dkv_plain))
+    ref_dq, ref_delta = tfa.flash_attention_bwd_dq_plain(tq, tk, tv, o, lse, tg, True)
+    plain = (ref_dq, *tfa.flash_attention_bwd_dkv_plain(tq, tk, tv, tg, lse, ref_delta, True))
+    assert all(x.shape == tq.shape and x.dtype == tdt for x in padded)
+    torch.testing.assert_close(delta, ref_delta, atol=1e-6, rtol=1e-5)
+    # The zero columns change only the f32 summation order.
+    _assert_grads_close(padded, [x.float().numpy() for x in plain], dtype)
+    ref = _jax_grads(q, k, v, g, dtype, True)
+    _assert_grads_close(padded, ref, dtype)
+    _assert_grads_close(plain, ref, dtype)
+
+
+def test_tma_layout_routes_by_head_dim_strides_and_alignment():
+    bf16 = torch.bfloat16
+    q, k, v = tfa._split_qkv(torch.zeros((1, 128, 3 * 2 * 64), dtype=bf16), 2)
+    assert tfa._tma_layout(q, k, v)  # the model's fused qkv views at D=64
+    q36, k36, v36 = tfa._split_qkv(torch.zeros((1, 128, 3 * 2 * 36), dtype=bf16), 2)
+    assert not tfa._tma_layout(q36, k36, v36)  # 72-byte rows
+    shifted = torch.zeros(128 * 2 * 64 + 1, dtype=bf16)[1:].view(1, 128, 2, 64)
+    assert not tfa._tma_layout(shifted)  # data 2 bytes off 16-byte alignment
+    x = torch.from_numpy(_arrays((1, 128, 2, 36), seed=2, n=1)[0])
+    p = tfa._pad_head(x, 40)
+    assert p.shape == (1, 128, 2, 40) and p.is_contiguous() and tfa._tma_layout(p)
+    assert torch.equal(p[..., :36], x) and not p[..., 36:].any()
+
+
 def test_backward_wrappers_refuse_bad_arguments():
     q, k, v, g = (torch.from_numpy(a) for a in _arrays((1, 128, 2, 64), 6))
     o, lse = tfa.flash_attention_fwd(q, k, v, True)
