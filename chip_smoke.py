@@ -7,14 +7,16 @@ exits non-zero without its result line:
 
 1. build every kernel source from ``elasticdl_tpu_torch/csrc`` at once (one
    nvcc each, into ``elasticdl_tpu_torch/csrc/build/``, at first use) and
-   report the bf16 backward kernels' registers, shared memory, spills and
-   blocks per SM;
+   report each bf16 kernel's registers, shared memory, spills and blocks
+   per SM (forward, dq, dkv; D=64 and D=128);
 2. hold the flash forward against its plain PyTorch version on the card at
-   the serving path's shapes and layout (q, k, v as views into the fused
-   qkv projection), check that the limits reject a kernel that skips a
-   tile, and time kernel, plain version and the library yardstick
+   the serving and training paths' shapes and layout (q, k, v as views into
+   the fused qkv projection) and others (D=128; D=36, which the wrapper
+   pads to 40; L=8192), check that the limits reject two wrong versions (a
+   key tile skipped; the causal mask dropped on the diagonal tile), and
+   time kernel, plain version and the library yardstick
    (``F.scaled_dot_product_attention``, timed here only: the port never
-   calls it);
+   calls it) at both paths' shapes;
 3. the same for the backward kernels (dq, dkv) at the training shape and
    others (D=128; D=36, which the wrapper pads to 40; L=8192), with two
    wrong versions each limit must reject, and the backward of
@@ -59,12 +61,16 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # The serving path's attention shape at the GPT-2-small width.
 B, L, H, D = 4, 1024, 12, 64
+# The training path's attention shape (GPT-2-small width, batch 16).
+BT, LT, HT, DT = 16, 1024, 12, 64
 # Kernel against plain version, per dtype: O's error norm over O's norm
 # ("o_rel"), O's largest element error over O's largest element ("o_max"),
 # and lse's largest absolute error ("lse").  Set from the kernel's readings
 # on the card (bf16 O within one output ulp, lse to f32 summation order) with
 # room on both sides: every case also computes what a kernel that skipped
-# one 64-key tile would give, and each limit must reject that reading.
+# one 64-key tile would give, and each limit must reject that reading; a
+# causal case also what a kernel that left the diagonal tile unmasked would
+# give, which the lse and o_max limits must reject.
 TOL = {
     torch.bfloat16: {"o_rel": 1e-2, "o_max": 2**-5, "lse": 1e-4},
     torch.float32: {"o_rel": 1e-5, "o_max": 1e-4, "lse": 2e-5},
@@ -87,11 +93,21 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` calls, by CUDA events."""
+    """Mean device time of ``fn()`` over ``iters`` calls, by CUDA events.
+
+    A spin kernel holds the stream while the host enqueues the timed
+    calls, so the events time the device's work back to back and not the
+    host's launch rate (a kernel of tens of microseconds takes about as
+    long to enqueue)."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    # Twice the host time of all the calls, at 2 GHz (the spin counts clocks).
+    torch.cuda._sleep(int(2 * (time.perf_counter() - t) * iters * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -127,21 +143,26 @@ def attention_bound_ms(b, l, h, d, dtype, causal, kernel: str = "fwd") -> tuple:
     return bound_ms(nbytes, per_pair * d * pairs, dtype)
 
 
-def bwd_kernel_info() -> dict:
+def kernel_info() -> dict:
     """Registers, static and dynamic shared memory, spill bytes and resident
-    blocks per SM of each bf16 backward kernel (the CUDA runtime's function
-    attributes and occupancy calculator)."""
+    blocks per SM of each bf16 kernel, forward and backward, at D=64 and
+    D=128 (the CUDA runtime's function attributes and occupancy
+    calculator)."""
     import ctypes
 
     from elasticdl_tpu_torch.ops import flash_attention, kernels
 
-    fn = kernels.bind(flash_attention.BWD_SOURCE, "flash_attention_bwd_kernel_info",
-                      (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    fwd = kernels.bind(flash_attention.SOURCE, "flash_attention_fwd_kernel_info",
+                       (ctypes.c_int, ctypes.c_void_p))
+    bwd = kernels.bind(flash_attention.BWD_SOURCE, "flash_attention_bwd_kernel_info",
+                       (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    queries = [("fwd", fwd)]
+    queries += [(name, lambda d, out, i=i: bwd(i, d, out)) for i, name in enumerate(("dq", "dkv"))]
     report = {}
-    for kernel, name in enumerate(("dq", "dkv")):
+    for name, query in queries:
         for d in (64, 128):
             out = (ctypes.c_int * 5)()
-            status = fn(kernel, d, ctypes.addressof(out))
+            status = query(d, ctypes.addressof(out))
             assert status == 0, f"kernel_info({name}, D={d}): cudaError {status}"
             info = dict(zip(("registers", "static_smem", "dynamic_smem", "spill_bytes",
                              "blocks_per_sm"), list(out)))
@@ -153,8 +174,8 @@ def bwd_kernel_info() -> dict:
 def phase_build() -> dict:
     """Build every kernel source at once (one nvcc per source, each in its
     own thread: the builds hold per-source locks) and log each source's
-    nvcc seconds, registers and spills, and the bf16 backward kernels'
-    shared memory and blocks per SM."""
+    nvcc seconds, registers and spills, and the bf16 kernels' shared
+    memory and blocks per SM."""
     from concurrent.futures import ThreadPoolExecutor
 
     from elasticdl_tpu_torch.ops import flash_attention, kernels
@@ -173,21 +194,28 @@ def phase_build() -> dict:
                 log(f"[build]   {line.strip()}")
         report["sources"][source] = {"nvcc_s": seconds}
     log(f"[build] {len(sources)} sources built concurrently in {wall:.2f}s")
-    report["bwd_kernels"] = bwd_kernel_info()
+    report["kernels"] = kernel_info()
     return report
 
 
-def _plain_skipping_a_tile(q, k, v, causal):
-    """The plain version's arithmetic with the first 64-key tile masked for
-    every query row past it: what a kernel that skipped that tile would
-    give.  A wrong reading each limit in TOL must reject."""
+def _plain_wrong(q, k, v, causal, fault):
+    """The plain version's arithmetic with one fault: "tile_skipped", the
+    first 64-key tile masked for every query row past it (what a kernel
+    that skipped that tile would give; each limit in TOL must reject it);
+    or "diagonal_unmasked", the causal mask dropped on the diagonal 64x64
+    tile, so the later keys inside it leak into each row (the lse and o_max
+    limits must reject it)."""
     b, l, h, d = q.shape
     qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))
     s = torch.matmul(qf, kf.transpose(-1, -2)) * d**-0.5
     keep = torch.ones(l, l, dtype=torch.bool, device=q.device)
-    keep[64:, :64] = False
+    if fault == "tile_skipped":
+        keep[64:, :64] = False
     if causal:
-        keep &= torch.ones_like(keep).tril()
+        tile = torch.arange(l, device=q.device) // 64
+        diagonal = tile[:, None] == tile[None, :]
+        unmasked = diagonal & (fault == "diagonal_unmasked")
+        keep &= torch.ones_like(keep).tril() | unmasked
     s = s.masked_fill(~keep, float("-inf"))
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
@@ -225,6 +253,14 @@ def phase_kernel_check() -> dict:
         ("f32_causal", (B, L, H, D), f32, True, 0.5, False),
         ("f32_full", (B, L, H, D), f32, False, 0.5, False),
         ("bf16_causal_L128", (2, 128, 3, 64), bf16, True, 0.5, False),
+        ("train", (BT, LT, HT, DT), bf16, True, 0.5, True),
+        ("bf16_causal_D128", (2, 256, 2, 128), bf16, True, 0.5, True),
+        ("f32_full_D128", (2, 256, 2, 128), f32, False, 0.5, False),
+        # The serving shape's bytes at D=128 (timed: the D=128 tile choice).
+        ("bf16_causal_D128_wide", (B, L, H // 2, 2 * D), bf16, True, 0.5, True),
+        # D=36: the wrapper's route through a head dim padded to 40.
+        ("bf16_causal_D36", (2, 256, 2, 36), bf16, True, 0.5, True),
+        ("bf16_causal_L8192", (1, 8192, 2, 64), bf16, True, 0.5, True),
     ]
     for name, (b, l, h, d), dtype, causal, scale, fused in cases:
         if fused:
@@ -240,18 +276,29 @@ def phase_kernel_check() -> dict:
         ref, ref_lse = fa.flash_attention_plain(q, k, v, causal)
         tol = TOL[dtype]
         got = _readings(out, lse, ref, ref_lse)
-        wrong = _readings(*_plain_skipping_a_tile(q, k, v, causal), ref, ref_lse)
+        wrong = {"tile_skipped": _readings(*_plain_wrong(q, k, v, causal, "tile_skipped"),
+                                           ref, ref_lse)}
+        if causal:
+            wrong["diagonal_unmasked"] = _readings(
+                *_plain_wrong(q, k, v, causal, "diagonal_unmasked"), ref, ref_lse)
         row = {"shape": [b, l, h, d], "dtype": str(dtype).split(".")[-1], "causal": causal,
                "input_scale": scale, "fused_qkv_views": fused, "tol": tol,
-               "kernel": got, "tile_skipped": wrong}
-        log(f"[kernel] flash_attention_fwd {name}: kernel {json.dumps(got)}; "
-            f"one tile skipped {json.dumps(wrong)}; limits {json.dumps(tol)}")
+               "kernel": got, "wrong": wrong}
+        log(f"[kernel] flash_attention_fwd {name}: kernel {json.dumps(got)}; limits "
+            f"{json.dumps(tol)}; wrong versions {json.dumps(wrong)}")
         for key, limit in tol.items():
             assert got[key] <= limit, f"{name}: kernel {key} {got[key]:.3g} over {limit:.3g}"
-            assert wrong[key] > limit, (
+            assert wrong["tile_skipped"][key] > limit, (
                 f"{name}: limit {key} {limit:.3g} does not reject a skipped tile "
-                f"({wrong[key]:.3g})")
-        if (b, l) == (B, L) and scale == 0.5:
+                f"({wrong['tile_skipped'][key]:.3g})")
+        if causal:
+            for key in ("lse", "o_max"):
+                assert wrong["diagonal_unmasked"][key] > tol[key], (
+                    f"{name}: limit {key} {tol[key]:.3g} does not reject an unmasked diagonal "
+                    f"tile ({wrong['diagonal_unmasked'][key]:.3g})")
+            row["diagonal_unmasked_rejected_by"] = [
+                key for key, limit in tol.items() if wrong["diagonal_unmasked"][key] > limit]
+        if (b, l) in ((B, L), (BT, LT)) and scale == 0.5:
             row["ms"] = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal))
             row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal), iters=5)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -266,8 +313,6 @@ def phase_kernel_check() -> dict:
     return results
 
 
-# The training path's attention shape (GPT-2-small width, batch 16).
-BT, LT, HT, DT = 16, 1024, 12, 64
 # Backward kernels against the plain version, per dtype: for each of dq,
 # dk, dv the error norm over the reference's norm ("rel") and the largest
 # error over the largest element ("max"); delta's largest error over its
@@ -420,7 +465,7 @@ def _count(name: str) -> int:
 
 # Profiler kernel-name fragments of each group of a device breakdown.
 _GROUPS = (
-    ("flash_fwd", ("fwd_bf16_kernel", "fwd_f32_kernel")),
+    ("flash_fwd", ("fwd_wgmma_kernel", "fwd_f32_kernel")),
     ("flash_dq", ("dq_wgmma_kernel", "dq_f32_kernel")),
     ("flash_dkv", ("dkv_wgmma_kernel", "dkv_f32_kernel")),
     ("matmul", ("nvjet", "gemm", "xmma", "cutlass", "matmul")),
@@ -810,7 +855,8 @@ def main() -> int:
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
-    fwd, bwd = report["kernel"]["serve"], report["kernel_bwd"]["train"]
+    fwd, fwd_train = report["kernel"]["serve"], report["kernel"]["train"]
+    bwd = report["kernel_bwd"]["train"]
     train_launches = report["train"]["launches"]
     source = "elasticdl_tpu_torch/csrc/"
     kernels_line = {"kernels": [
@@ -822,6 +868,9 @@ def main() -> int:
             "max_abs_err": fwd["kernel"]["o_max_abs"], "ms": fwd["ms"],
             "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
             "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
+            # The same at the training path's shape (B=16).
+            "train_ms": fwd_train["ms"], "train_library_ms": fwd_train["library_ms"],
+            "train_bound_ms": fwd_train["bound_ms"],
         },
         {
             "name": fa.DQ_KERNEL, "route": "cuda", "source": source + fa.BWD_SOURCE,

@@ -2,88 +2,123 @@
 // interface and loaded with ctypes (elasticdl_tpu_torch/ops/kernels.py).
 //
 // Replaces: the Pallas TPU kernel elasticdl_tpu/ops/flash_attention.py
-// `_fwd_kernel` (driven by `_fwd_impl`, pallas_call at l.225).  It computes
+// `_fwd_kernel` (l.72; driven by `_fwd_impl`, pallas_call at l.225).  It
+// computes
 //     O   = softmax(Q K^T * D^-1/2 [+ causal mask]) V
 //     lse = m + log(sum p)
 // with scores and softmax statistics in f32, p rounded to the input type
 // before the PV product (the TPU kernel's rounding), the all-masked-row
 // guard (-inf max -> 0) and the max(l, 1e-30) clamps.
 //
-// What bounds it on the card: at the serving shape (B=4, L=1024, H=12,
-// D=64, bf16, causal) the kernel must read q, k, v and write o (25 MB, about
-// 7.5 us at 3.35 TB/s) and do 6.4 GFLOP of tensor-core work (about 6.5 us
-// at 989 TFLOP/s): it sits near the ridge, so neither bytes nor FLOPs may be
-// wasted.  The TPU kernel keeps all of K and V in VMEM; at L=1024, D=64 in
-// bf16 that alone is 256 KB, over the 227 KB of shared memory a Hopper
-// block may use.  So this kernel streams K/V tiles of 64 keys through
-// shared memory and keeps an online softmax (running max m, running sum l,
-// rescaled accumulator: the math of elasticdl_tpu/ops/ring_attention.py
+// What bounds it on the card: it must read q, k and v and write o once
+// (plus the f32 lse).  At the serving shape (B=4, L=1024, H=12, D=64, bf16,
+// causal) that is 25.4 MB, 7.6 us at 3.35 TB/s, against 4*D flops per
+// (query, key) pair on or below the diagonal (6.4 GFLOP, 6.5 us at 989
+// TFLOP/s); at the training shape (B=16) 101 MB, 30 us.  Both sit at the
+// ridge, so what the kernel can reach is set by how well the tile loads,
+// the two products and the exponentials overlap.  The TPU kernel keeps all
+// of K and V in VMEM; at L=1024, D=64 in bf16 that alone is 256 KB, over
+// the 227 KB of shared memory a Hopper block may use.  So K/V tiles stream
+// through shared memory with an online softmax (running max m, running sum
+// l, rescaled accumulator: the math of elasticdl_tpu/ops/ring_attention.py
 // `accumulate`).  Scores never leave registers, so no O(L^2) tensor touches
 // device memory.  Under causal masking a query tile stops at the diagonal
-// and skips every key tile past it (half the FLOPs).
+// tile (half the FLOPs).
 //
-// Design: one block per (batch*head, 64-row query tile); four warps, each
-// owning 16 query rows.  bf16 uses mma.sync m16n8k16 (f32 accumulate): the
-// score tile's accumulator fragments are re-packed in registers as the A
-// operand of the PV product, so P never goes through shared memory.  V is
-// stored transposed in shared memory so both products read their B
-// operands as aligned 32-bit pairs without bank conflicts.  f32 (the
-// parity type) runs a plain FMA kernel, one thread per query row, because
-// the tensor cores would round its operands to TF32.  The public layout is
-// [B, L, H, D] in and out, read with the head stride directly (no
-// transposes, no head-dim padding in device memory); q, k and v may be
-// views into one fused [B, L, 3*H*D] projection (row stride `rs`, head
-// stride D, unit element stride), so the model hands over its qkv matmul's
-// output without copying it apart; o is written contiguous; lse is f32
-// [B*H, L].
-// Simple first: no TMA, no wgmma, no cp.async pipelining yet.
+// Design (bf16), the backward's (flash_attention_bwd.cu), from hopper.cuh:
+// - One warpgroup (128 threads) per (batch*head, 64-row query tile): 64 is
+//   wgmma's M.  Blocks run longest-first under causal masking.
+// - The Q tile is resident in shared memory; K and V tiles of BN keys arrive
+//   by TMA into a two-stage ring, each stage with an mbarrier that counts
+//   the bytes in: thread 0 loads tile j+1 while the warpgroup works on tile
+//   j, and refills a stage only after the __syncthreads that follows the
+//   last wgmma wait that read it.  The tensor maps read q, k and v in place
+//   with their row stride (views into the fused qkv projection).
+// - Each tile is kept once, in the 128-byte-swizzled layout TMA writes: S =
+//   Q K^T reads Q and K K-major; O += P V reads V MN-major from the same
+//   kind of tile (no transposed copy of V, no fragment loads).  At D=128 a
+//   tile is two 64-column halves.
+// - Every product is wgmma.mma_async m64nNk16 (bf16 in, f32 accumulate).
+//   P never touches shared memory: the accumulator layout of S is, warp by
+//   warp, the A layout of the register form, so p is re-packed in place as
+//   bf16 pairs (rounded where the TPU rounds) for O += P V.
+// - Softmax in registers: a row's scores sit on the four threads of a quad
+//   (max and sum by two shuffles); exp2 on the special-function unit
+//   (ex2.approx.ftz) with log2(e) folded into the scale, m kept in log2
+//   units and lse written in natural-log units (m ln 2 + log l: the
+//   backward reads exp(S - lse)); the causal mask only on tiles that cross
+//   the diagonal; the row sum in f32 from the unrounded p.  The O
+//   accumulator is rescaled between two wgmma groups, with the register
+//   fences the backward's ordering notes require.
+// - O / l is staged through shared memory (the ring, once free) and written
+//   with 16-byte stores.
+// - What sets its speed is how many blocks share an SM: each runs S,
+//   softmax, PV in series, and the other blocks fill the gaps.  D=64 runs
+//   64-key tiles (41 KB of shared memory, 92 registers: five blocks an SM);
+//   D=128 runs 32-key tiles (49 KB, four blocks).  A deeper ring, 128-key
+//   tiles, or issuing the next tile's S before this tile's softmax each
+//   cost more in blocks an SM than they saved (PERF.md §6).  TMA needs
+//   16-byte rows (D % 8 == 0, row strides a multiple of 8 elements,
+//   16-byte-aligned pointers); the Python wrapper runs other bf16 inputs
+//   over copies padded to such a head dim.
+// f32 (the parity type) runs a plain FMA kernel, one thread per query row,
+// because the tensor cores would round its operands to TF32.
+//
+// Layout: q, k and v are [B, L, H, D] read with one row stride `rs` (views
+// into the fused [B, L, 3*H*D] qkv projection, or contiguous); o is written
+// contiguous [B, L, H, D]; lse is f32 [B*H, L].
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"  // TMA, mbarrier, wgmma and epilogue helpers
 
 namespace {
 
-constexpr int kBlockM = 64;    // query rows per block (bf16 kernel)
-constexpr int kBlockN = 64;    // keys per shared-memory tile (bf16 kernel)
-constexpr int kWarps = 4;
+constexpr int kRing = 2;  // TMA ring depth: the next K/V tile loads under this one
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kF32BlockM = 64; // query rows per block (f32 kernel, one per thread)
 constexpr int kF32BlockN = 32; // keys per shared-memory tile (f32 kernel)
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
-  return *reinterpret_cast<uint32_t*>(&v);
+template <int DP, int BN>
+constexpr int fwd_smem_bytes() {
+  // alignment slack + the resident Q tile + the ring (a K and a V tile a stage)
+  return 1024 + kBlockM * DP * 2 + kRing * 2 * BN * DP * 2;
 }
 
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
+// Blocks an SM can hold by shared memory (228 KB an SM, 1 KB of it kept per
+// block, and the static barriers): the register allocator is held to it.
+template <int DP, int BN>
+constexpr int fwd_blocks_per_sm() {
+  return 233472 / (fwd_smem_bytes<DP, BN>() + 1024 + 64);
 }
 
-// D[16x8] += A[16x16] (row) * B[16x8] (col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 2^x on the special-function unit; results below 2^-126 flush to zero
+// (they add nothing to a row sum that holds the row's maximum term, 1).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// DP: the head dim padded to a multiple of 16 in registers and shared
-// memory (zeros past D), 64 or 128.
-template <int DP>
-__global__ void __launch_bounds__(kWarps * 32)
-fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                int L, int H, int D, long rs, float scale, int causal, int vec) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockN][DP + 8];
-  __shared__ __align__(16) __nv_bfloat16 vts[DP][kBlockN + 8];
+// ---------------------------------------------------------------- bf16
+// DP: the head dim padded to 64 or 128 (TMA fills the columns past D with
+// zeros); BN: keys a tile.
+
+template <int DP, int BN>
+__global__ void __launch_bounds__(kThreads, fwd_blocks_per_sm<DP, BN>())
+fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int L, int H, int D, float scale, int causal) {
+  static_assert(kBlockM % BN == 0, "a causal block ends on a tile boundary");
+  constexpr int kRes = kBlockM * DP * 2;  // bytes of the resident Q tile
+  constexpr int kTile = BN * DP * 2;      // bytes of a streamed K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[kRing + 1];  // ring stages, then Q's load
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t qs = smem_u32(smem);  // Q, resident (A of Q K^T)
+  const uint32_t ring = qs + kRes;     // stage s: K tile, then V tile
+  const uint32_t bar0 = smem_u32(bars);
+  const uint32_t bar_q = bar0 + 8 * kRing;
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -93,151 +128,128 @@ fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const long base = (long)b * L * rs + (long)h * D;  // q/k/v element (b, 0, h, 0)
-  const long ors = (long)H * D;                      // o's row stride
-  const long obase = (long)b * L * ors + (long)h * D;
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row_b = b * L;  // row of (b, 0) in the [B*L, H, D] tensor maps
+  const int n_tiles = (causal ? q0 + kBlockM : L) / BN;
 
-  // This warp's 16 query rows as mma A fragments, for every 16-wide slice
-  // of the head dim.
-  const int r0 = q0 + warp * 16 + g;
-  const int r1 = r0 + 8;
-  uint32_t qf[DP / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const int c0 = kk * 16 + t * 2;
-    const int c1 = c0 + 8;
-    __nv_bfloat16 e[8];
-    const int cols[4] = {c0, c0 + 1, c1, c1 + 1};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      e[i] = cols[i] < D ? q[base + r0 * rs + cols[i]] : zero;
-      e[4 + i] = cols[i] < D ? q[base + r1 * rs + cols[i]] : zero;
-    }
-    qf[kk][0] = pack_raw(e[0], e[1]);
-    qf[kk][1] = pack_raw(e[4], e[5]);
-    qf[kk][2] = pack_raw(e[2], e[3]);
-    qf[kk][3] = pack_raw(e[6], e[7]);
+  if (tid == 0) {
+    for (int s = 0; s <= kRing; ++s) mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Tile j's K and V rows into stage j % kRing (issued by thread 0).
+  auto load_tile = [&](int j) {
+    const int s = j % kRing;
+    const uint32_t st = ring + s * 2 * kTile;
+    mbar_expect_tx(bar0 + 8 * s, 2 * kTile);
+    load_rows<DP, BN>(st, &tm_k, h, row_b + j * BN, BN, bar0 + 8 * s);
+    load_rows<DP, BN>(st + kTile, &tm_v, h, row_b + j * BN, BN, bar0 + 8 * s);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, kRes);
+    load_rows<DP, kBlockM>(qs, &tm_q, h, row_b + q0, kBlockM, bar_q);
+    for (int j = 0; j < kRing - 1 && j < n_tiles; ++j) load_tile(j);
   }
 
-  float acc[DP / 8][4];
+  const int r0 = warp * 16 + g;  // this thread's rows q0 + r0 and q0 + r0 + 8
+  const float scale_log2 = scale * kLog2e;
+  float acc[DP / 2], sc[BN / 2];
 #pragma unroll
-  for (int dt = 0; dt < DP / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.0f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max, rows r0 and r1
-  float l0 = 0.0f, l1 = 0.0f;            // this thread's share of the row sums
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) sc[i] = 0.0f;
+  // Running max (log2 units, of scores times scale * log2 e) and this
+  // thread's share of the running sum, for rows r0 and r0 + 8.
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+  mbar_wait(bar_q, 0);
 
-  const int n_end = causal ? min(L, q0 + kBlockM) : L;
-  for (int n0 = 0; n0 < n_end; n0 += kBlockN) {
-    __syncthreads();  // every warp is done with the previous tile
-    if (vec) {
-      // 16-byte loads: D % 8 == 0 and 16-byte aligned rows.
-      for (int idx = tid; idx < kBlockN * (DP / 8); idx += kWarps * 32) {
-        const int r = idx / (DP / 8);
-        const int c = (idx % (DP / 8)) * 8;
-        uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-        if (c < D) {
-          const long off = base + (long)(n0 + r) * rs + c;
-          kv = *reinterpret_cast<const uint4*>(k + off);
-          vv = *reinterpret_cast<const uint4*>(v + off);
-        }
-        *reinterpret_cast<uint4*>(&ks[r][c]) = kv;
-        const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) vts[c + i][r] = ve[i];
-      }
-    } else {
-      for (int idx = tid; idx < kBlockN * DP; idx += kWarps * 32) {
-        const int r = idx / DP;
-        const int c = idx % DP;
-        const long off = base + (long)(n0 + r) * rs + c;
-        ks[r][c] = c < D ? k[off] : zero;
-        vts[c][r] = c < D ? v[off] : zero;
-      }
-    }
-    __syncthreads();
+  for (int j = 0; j < n_tiles; ++j) {
+    // Refill the stage the previous tile used (every thread is past it).
+    if (tid == 0 && j + kRing - 1 < n_tiles) load_tile(j + kRing - 1);
+    const int s = j % kRing;
+    const uint32_t ks = ring + s * 2 * kTile;
+    const uint32_t vs = ks + kTile;
+    mbar_wait(bar0 + 8 * s, (j / kRing) & 1);
 
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
-    float s[kBlockN / 8][4];
+    // S = Q K^T.
+    fence_regs(sc);
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
+    for (int kk = 0; kk < DP / 16; ++kk)
+      Wgmma<BN>::ss(sc, sw128_desc(qs + kslice(kk, kBlockM), 16),
+                    sw128_desc(ks + kslice(kk, BN), 16), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // Keys past the query masked (only tiles that cross the diagonal), then
+    // the tile's row maxima over the four threads of the quad.
+    const int n0 = j * BN;
+    if (causal && n0 + BN - 1 > q0) {
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        const __nv_bfloat16* kp = &ks[nt * 8 + g][kk * 16 + t * 2];
-        mma_bf16(s[nt], qf[kk], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
+      for (int i = 0; i < BN / 2; ++i) {
+        const int row = q0 + r0 + ((i & 2) ? 8 : 0);
+        const int col = n0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        if (col > row) sc[i] = -INFINITY;
       }
     }
-
-    // Scale, mask on global positions, and this tile's row maxima.
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1;
-        const int col = n0 + nt * 8 + t * 2 + (e & 1);
-        float x = s[nt][e] * scale;
-        if (causal && col > row) x = -INFINITY;
-        s[nt][e] = x;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+    for (int i = 0; i < BN / 2; i += 4) {
+      mx0 = fmaxf(mx0, fmaxf(sc[i], sc[i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[i + 2], sc[i + 3]));
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
-    const float mn0 = fmaxf(m0, mx0);
-    const float mn1 = fmaxf(m1, mx1);
+    const float mn0 = fmaxf(m0, mx0 * scale_log2);
+    const float mn1 = fmaxf(m1, mx1 * scale_log2);
     // All-masked-row guard: a row with no key yet keeps m = -inf.
     const float sm0 = mn0 == -INFINITY ? 0.0f : mn0;
     const float sm1 = mn1 == -INFINITY ? 0.0f : mn1;
-    const float corr0 = m0 == -INFINITY ? 0.0f : expf(m0 - sm0);
-    const float corr1 = m1 == -INFINITY ? 0.0f : expf(m1 - sm1);
+    const float corr0 = m0 == -INFINITY ? 0.0f : ex2(m0 - sm0);
+    const float corr1 = m1 == -INFINITY ? 0.0f : ex2(m1 - sm1);
     m0 = mn0;
     m1 = mn1;
-    l0 *= corr0;
-    l1 *= corr1;
-#pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt) {
-      acc[dt][0] *= corr0;
-      acc[dt][1] *= corr0;
-      acc[dt][2] *= corr1;
-      acc[dt][3] *= corr1;
-    }
 
-    // p = exp(s - m) in f32 (summed unrounded), then rounded to bf16 as
-    // the A operand of O += P V: the accumulator layout of two adjacent
-    // 8-key score tiles is exactly the A layout of one 16-key slice.
+    // p = exp(s - m) in f32, summed unrounded; masked scores give 0.
+    float ps0 = 0.0f, ps1 = 0.0f;
 #pragma unroll
-    for (int kt = 0; kt < kBlockN / 16; ++kt) {
-      float p[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        p[j][0] = expf(s[2 * kt + j][0] - sm0);
-        p[j][1] = expf(s[2 * kt + j][1] - sm0);
-        p[j][2] = expf(s[2 * kt + j][2] - sm1);
-        p[j][3] = expf(s[2 * kt + j][3] - sm1);
-        l0 += p[j][0] + p[j][1];
-        l1 += p[j][2] + p[j][3];
-      }
-      const uint32_t a[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
-                             pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
-#pragma unroll
-      for (int dt = 0; dt < DP / 8; ++dt) {
-        const __nv_bfloat16* vp = &vts[dt * 8 + g][kt * 16 + t * 2];
-        mma_bf16(acc[dt], a, *reinterpret_cast<const uint32_t*>(vp),
-                 *reinterpret_cast<const uint32_t*>(vp + 8));
-      }
+    for (int i = 0; i < BN / 2; i += 4) {
+      sc[i] = ex2(fmaf(sc[i], scale_log2, -sm0));
+      sc[i + 1] = ex2(fmaf(sc[i + 1], scale_log2, -sm0));
+      sc[i + 2] = ex2(fmaf(sc[i + 2], scale_log2, -sm1));
+      sc[i + 3] = ex2(fmaf(sc[i + 3], scale_log2, -sm1));
+      ps0 += sc[i] + sc[i + 1];
+      ps1 += sc[i + 2] + sc[i + 3];
     }
+    l0 = fmaf(l0, corr0, ps0);
+    l1 = fmaf(l1, corr1, ps1);
+    // p rounded to bf16 as the A operand of O += P V.
+    uint32_t a[BN / 16][4];
+    pack_a<BN>(a, sc);
+
+    // The previous group that wrote acc was waited out; rescale it, then
+    // O += P V with V's tile read MN-major (keys are the contraction).
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= (i & 2) ? corr1 : corr0;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < BN / 16; ++kt)
+      Wgmma<DP>::rs(acc, a[kt], sw128_desc(vs + kt * 16 * 128, BN * 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // every thread is done with stage s
   }
 
-  // Row sums across the four threads that share a row.
+  // Row sums across the quad; O / l through shared memory (the ring is
+  // free) to 16-byte stores; lse = m ln 2 + log l.
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
@@ -245,28 +257,25 @@ fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float d0 = fmaxf(l0, 1e-30f);
   const float d1 = fmaxf(l1, 1e-30f);
+  const float inv0 = __frcp_rn(d0), inv1 = __frcp_rn(d1);
 #pragma unroll
-  for (int dt = 0; dt < DP / 8; ++dt) {
-    const int c = dt * 8 + t * 2;
-    if (c < D) {
-      o[obase + r0 * ors + c] = __float2bfloat16(acc[dt][0] / d0);
-      o[obase + r1 * ors + c] = __float2bfloat16(acc[dt][2] / d1);
-    }
-    if (c + 1 < D) {
-      o[obase + r0 * ors + c + 1] = __float2bfloat16(acc[dt][1] / d0);
-      o[obase + r1 * ors + c + 1] = __float2bfloat16(acc[dt][3] / d1);
-    }
-  }
+  for (int i = 0; i < DP / 2; ++i) acc[i] *= (i & 2) ? inv1 : inv0;
+  bf16* st = reinterpret_cast<bf16*>(smem + kRes);
+  stage_acc<DP>(st, r0, t, acc, 1.0f);
   if (t == 0) {
     const float sm0 = m0 == -INFINITY ? 0.0f : m0;
     const float sm1 = m1 == -INFINITY ? 0.0f : m1;
-    lse[(long)bh * L + r0] = sm0 + logf(d0);
-    lse[(long)bh * L + r1] = sm1 + logf(d1);
+    lse[(long)bh * L + q0 + r0] = fmaf(sm0, kLn2, logf(d0));
+    lse[(long)bh * L + q0 + r0 + 8] = fmaf(sm1, kLn2, logf(d1));
   }
+  __syncthreads();
+  const long ors = (long)H * D;  // o's row stride
+  store_rows<DP>(o, (long)b * L * ors + (long)h * D, ors, q0, D, st, tid);
 }
 
-// f32: one thread per query row, q and the accumulator in registers, K/V
-// tiles broadcast from shared memory.
+// ----------------------------------------------------------------- f32
+// One thread per query row, q and the accumulator in registers, K/V tiles
+// broadcast from shared memory.
 template <int DP>
 __global__ void __launch_bounds__(kF32BlockM)
 fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -341,15 +350,36 @@ fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   lse[(long)bh * L + row] = (m == -INFINITY ? 0.0f : m) + logf(den);
 }
 
+template <int DP, int BN>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, bf16* o, float* lse, int B,
+                       int L, int H, int D, long rs, float scale, int causal, cudaStream_t st) {
+  const long rows = (long)B * L;
+  CUtensorMap m[3];  // Q in boxes of the block's 64 rows, K and V of BN
+  if (!encode_rows(&m[0], q, D, H, rows, rs, kBlockM) ||
+      !encode_rows(&m[1], k, D, H, rows, rs, BN) || !encode_rows(&m[2], v, D, H, rows, rs, BN))
+    return cudaErrorInvalidValue;
+  auto kernel = fwd_wgmma_kernel<DP, BN>;
+  constexpr int smem = fwd_smem_bytes<DP, BN>();
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(B * H, L / kBlockM), kThreads, smem, st>>>(m[0], m[1], m[2], o, lse, L, H, D,
+                                                          scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q, k and v are [B, L, H, D] with
 // element (b, l, h, d) at b*L*row_stride + l*row_stride + h*D + d (row_stride
 // >= H*D: H*D when contiguous, 3*H*D for views into a fused qkv); o is
-// contiguous [B, L, H, D].  The caller guarantees L % 64 == 0 and D <= 128
-// (the Python wrapper checks the reference's contract, L % 128 == 0).
-// Launches on `stream` without synchronising and returns cudaGetLastError()
-// of the launch.
+// contiguous [B, L, H, D]; lse is f32 [B*H, L] (row b*H + h).  The caller
+// guarantees L % 64 == 0 and D <= 128 (the Python wrapper checks the
+// reference's contract, L % 128 == 0); for bfloat16 also D % 8 == 0, a row
+// stride that is a multiple of 8 and 16-byte-aligned q, k, v and o (the
+// wrapper pads the head dim otherwise).  Launches on `stream` without
+// synchronising and returns cudaGetLastError() of the launch
+// (cudaErrorInvalidValue for arguments outside the contract).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int B, int L, int H, int D,
                                    long row_stride, float scale, int causal, int dtype,
@@ -358,20 +388,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (D < 1 || D > 128 || L % kBlockM != 0 || row_stride < (long)H * D)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
-    const dim3 grid(B * H, L / kBlockM);
-    const auto* qb = static_cast<const __nv_bfloat16*>(q);
-    const auto* kb = static_cast<const __nv_bfloat16*>(k);
-    const auto* vb = static_cast<const __nv_bfloat16*>(v);
-    auto* ob = static_cast<__nv_bfloat16*>(o);
-    // 16-byte K/V loads need every row start 16-byte aligned.
-    const int vec = (D % 8 == 0) && (row_stride % 8 == 0) &&
-                    ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 == 0);
+    const void* ptrs[4] = {q, k, v, o};
+    if (!tma_ok(D, row_stride, (long)H * D, ptrs, 4)) return (int)cudaErrorInvalidValue;
+    auto* ob = static_cast<bf16*>(o);
+    auto* ls = static_cast<float*>(lse);
     if (D <= 64)
-      fwd_bf16_kernel<64><<<grid, kWarps * 32, 0, st>>>(qb, kb, vb, ob, static_cast<float*>(lse),
-                                                      L, H, D, row_stride, scale, causal, vec);
-    else
-      fwd_bf16_kernel<128><<<grid, kWarps * 32, 0, st>>>(qb, kb, vb, ob, static_cast<float*>(lse),
-                                                       L, H, D, row_stride, scale, causal, vec);
+      return (int)launch_fwd<64, 64>(q, k, v, ob, ls, B, L, H, D, row_stride, scale, causal, st);
+    return (int)launch_fwd<128, 32>(q, k, v, ob, ls, B, L, H, D, row_stride, scale, causal, st);
   } else if (dtype == 0) {
     const dim3 grid(B * H, L / kF32BlockM);
     const auto* qf = static_cast<const float*>(q);
@@ -388,4 +411,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// Occupancy report of the bf16 kernel for head dim D: out[5] = registers,
+// static shared bytes, dynamic shared bytes, local (spill) bytes, resident
+// blocks per SM.
+extern "C" int flash_attention_fwd_kernel_info(int D, int* out) {
+  return (int)(D <= 64 ? kernel_info(fwd_wgmma_kernel<64, 64>, fwd_smem_bytes<64, 64>(), out)
+                       : kernel_info(fwd_wgmma_kernel<128, 32>, fwd_smem_bytes<128, 32>(), out));
 }

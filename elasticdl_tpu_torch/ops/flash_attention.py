@@ -19,10 +19,10 @@ Routing: a CUDA tensor launches the kernel or raises; a CPU tensor runs the
 plain version, the same arithmetic in plain PyTorch (the tests hold it
 against the JAX kernels, and ``chip_smoke.py`` holds each kernel against it
 on the card).  There is no silent fallback from one to the other.  On the
-card the bf16 backward kernels load tiles by TMA, which needs 16-byte rows:
-inputs with a head dim that is not a multiple of 8 (or rows it cannot
-address) run the same kernels over copies padded to such a head dim, a
-routing by layout that the wrappers state and the tests cover.
+card the bf16 kernels, forward and backward, load tiles by TMA, which
+needs 16-byte rows: inputs with a head dim that is not a multiple of 8 (or
+rows it cannot address) run the same kernels over copies padded to such a
+head dim, a routing by layout that the wrappers state and the tests cover.
 
 :func:`flash_attention` is differentiable.  When q, k and v are views into
 one fused ``[B, L, 3*H*D]`` projection, as the model passes them, the
@@ -78,14 +78,15 @@ def _check(q, k, v):
 
 
 def flash_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False, scale=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch: (O ``[B, L, H, D]`` in the
     input dtype, lse f32 ``[B*H, L]``).  Scores and statistics in f32, p
     rounded to the input dtype before the PV product, the all-masked-row
-    guard and the 1e-30 clamps, as in the TPU kernel."""
+    guard and the 1e-30 clamps, as in the TPU kernel.  ``scale``: the
+    score scale, D^-1/2 by default."""
     b, l, h, d = q.shape
-    scale = d**-0.5
+    scale = d**-0.5 if scale is None else scale
     qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))  # [B, H, L, D]
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     if causal:
@@ -108,7 +109,7 @@ _ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (
 )
 
 
-def _launch(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(q, k, v, causal: bool, scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
     b, l, h, d = q.shape
     fn = kernels.bind(SOURCE, KERNEL, _ARGTYPES)
     o = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
@@ -116,7 +117,7 @@ def _launch(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, l, h, d, q.stride(1), float(d**-0.5), int(bool(causal)),
+        b, l, h, d, q.stride(1), float(d**-0.5 if scale is None else scale), int(bool(causal)),
         _DTYPE_CODES[q.dtype], stream,
     )
     kernels.count(KERNEL)
@@ -143,7 +144,14 @@ def _check_layout(*xs: torch.Tensor) -> None:
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(O, lse) of exact self-attention over ``[B, L, H, D]`` inputs."""
+    """(O, lse) of exact self-attention over ``[B, L, H, D]`` inputs.
+
+    Routing by layout on the card: bf16 inputs whose head dim is not a
+    multiple of 8 (or whose rows the kernel's TMA loads cannot address:
+    a row stride not a multiple of 8, data not 16-byte aligned) go to the
+    same kernel over copies padded to such a head dim, and O is sliced
+    back (``_fwd_padded``), as the TPU wrapper pads the head dim to its 128
+    lanes; f32 inputs go to the FMA kernel as they are."""
     _check(q, k, v)
     devices = {q.device, k.device, v.device}
     if len(devices) != 1:
@@ -159,6 +167,8 @@ def flash_attention_fwd(
     if device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {device}")
     _check_layout(q, k, v)
+    if q.dtype == torch.bfloat16 and not _tma_layout(q, k, v):
+        return _fwd_padded(q, k, v, causal, _launch)
     return _launch(q, k, v, causal)
 
 
@@ -280,6 +290,18 @@ def _pad_head(x: torch.Tensor, dp: int) -> torch.Tensor:
     out = x.new_zeros((*x.shape[:-1], dp))
     out[..., : x.shape[-1]] = x
     return out
+
+
+def _fwd_padded(q, k, v, causal, fwd_fn):
+    """(O, lse) by ``fwd_fn`` (the forward kernel's launch, or its plain
+    version) over copies of q, k and v whose head dim is zero-padded to a
+    multiple of 8, at the original D^-1/2 scale; O sliced back to D,
+    contiguous.  Zero columns add nothing to a score, and the output
+    columns past D are dropped."""
+    d = q.shape[-1]
+    dp = -(-d // 8) * 8
+    o, lse = fwd_fn(*(_pad_head(x, dp) for x in (q, k, v)), causal, scale=d**-0.5)
+    return o[..., :d].contiguous(), lse
 
 
 def _bwd_dq_padded(q, k, v, o, lse, do, causal, dq_fn):

@@ -4,8 +4,9 @@ Each kernel source under ``elasticdl_tpu_torch/csrc/`` is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library with a plain C
 interface and loaded with ``ctypes``.  The build happens at first use, on
 the machine with the card, into ``elasticdl_tpu_torch/csrc/build/`` (listed
-in ``.gitignore``); the library's file name carries a hash of its source, so
-an edited source rebuilds and processes sharing a checkout share one build.
+in ``.gitignore``); the library's file name carries a hash of its source and
+of the shared headers (``csrc/*.cuh``), so an edited source or header
+rebuilds and processes sharing a checkout share one build.
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines with no ``nvcc``.
 
@@ -60,12 +61,23 @@ def nvcc_path() -> str:
     )
 
 
+def _digest(source: str) -> str:
+    """Hash of ``csrc/<source>``, every header under ``csrc/`` (a source
+    may include any of them) and the nvcc flags."""
+    h = hashlib.sha256()
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for name in (source, *headers):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def _build(source: str) -> Tuple[str, float, str]:
-    """Compile ``csrc/<source>`` unless a library of this exact source
-    exists.  Returns (library path, build seconds, compiler log)."""
+    """Compile ``csrc/<source>`` unless a library of this exact source and
+    headers exists.  Returns (library path, build seconds, compiler log)."""
     src_path = os.path.join(CSRC_DIR, source)
-    with open(src_path, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = _digest(source)
     stem = os.path.splitext(source)[0]
     lib_path = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
     if os.path.exists(lib_path):

@@ -61,18 +61,30 @@ def _assert_fwd_close(out, lse, ref, ref_lse):
     assert (lse - ref_lse).abs().max().item() <= lse_abs
 
 
+@pytest.mark.parametrize("d", [64, 128, 36])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_kernel_matches_plain_version(card, causal, dtype):
-    q, k, v = (torch.from_numpy(a).to(_DTYPES[dtype]).cuda() for a in _arrays((2, 256, 3, 64), 0))
+def test_cuda_kernel_matches_plain_version(card, dtype, causal, d):
+    """Contiguous q, k, v; D=36 takes the bf16 kernel's padded route."""
+    q, k, v = (torch.from_numpy(a).to(_DTYPES[dtype]).cuda() for a in _arrays((2, 256, 3, d), 0))
     out, lse = tfa.flash_attention_fwd(q, k, v, causal)
     torch.cuda.synchronize()
     _assert_fwd_close(out, lse, *tfa.flash_attention_plain(q, k, v, causal))
 
 
+@pytest.mark.parametrize("d", [64, 128, 36])
+@pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_kernel_reads_fused_qkv_views(card, dtype):
-    q, k, v = _qkv_views(2, 256, 3, 64, _DTYPES[dtype])
+def test_cuda_kernel_reads_fused_qkv_views(card, dtype, causal, d):
+    q, k, v = _qkv_views(2, 256, 3, d, _DTYPES[dtype])
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    _assert_fwd_close(out, lse, *tfa.flash_attention_plain(q, k, v, causal))
+
+
+def test_cuda_kernel_long_sequence(card):
+    """L=8192, the contract's longest: 128 key tiles through the ring."""
+    q, k, v = _qkv_views(1, 8192, 2, 64, torch.bfloat16, seed=3)
     out, lse = tfa.flash_attention_fwd(q, k, v, True)
     torch.cuda.synchronize()
     _assert_fwd_close(out, lse, *tfa.flash_attention_plain(q, k, v, True))

@@ -110,3 +110,51 @@ def test_layout_check_takes_contiguous_and_fused_qkv_views():
         tfa._check_layout(t, t, t)
     with pytest.raises(ValueError, match="strides"):
         tfa._check_layout(q, k.contiguous(), v)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padded_head_route_matches_plain_and_jax_kernel(dtype):
+    """D=36, which the bf16 kernel's TMA loads cannot read: the wrapper's
+    route (q, k, v copied into a head dim zero-padded to 40, the D=36
+    scale, O sliced back), run through the plain version, gives the
+    unpadded plain version's O and lse, and both match the Pallas kernel
+    in interpret mode at this file's tolerance."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv((2, 128, 2, 36), seed=36), dtype)
+    tol = _DTYPES[dtype][2]
+    out, lse = tfa._fwd_padded(tq, tk, tv, True, tfa.flash_attention_plain)
+    plain, plain_lse = tfa.flash_attention_plain(tq, tk, tv, True)
+    assert out.shape == tq.shape and out.dtype == tq.dtype and out.is_contiguous()
+    assert lse.shape == (2 * 2, 128) and lse.dtype == torch.float32
+    # The zero columns change only the f32 summation order.
+    torch.testing.assert_close(lse, plain_lse, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
+    ref, res = jfa._fwd_impl(jq, jk, jv, True)
+    jlse = np.asarray(res[4])[:, :, 0, :].reshape(lse.shape)
+    ref = np.asarray(ref, np.float32)
+    for o, ls in ((out, lse), (plain, plain_lse)):
+        np.testing.assert_allclose(o.float().numpy(), ref, atol=tol, rtol=tol)
+        np.testing.assert_allclose(ls.numpy(), jlse, atol=tol, rtol=tol)
+
+
+def test_tma_layout_routes_the_forward_by_head_dim_strides_and_alignment():
+    """Which bf16 inputs ``flash_attention_fwd`` hands the kernel as they
+    are on the card (``_tma_layout`` true) and which go through
+    ``_fwd_padded`` (false); the padded copies always qualify."""
+    bf16 = torch.bfloat16
+    kernel = [_qkv_views(1, 128, 2, 64, bf16),  # the model's fused qkv views
+              *([torch.zeros((1, 128, 2, d), dtype=bf16)] * 3 for d in (64, 128))]
+    # A row stride of 132 elements (264 bytes): rows TMA cannot step over.
+    wide = torch.zeros((1, 128, 2 * 64 + 4), dtype=bf16)[..., :128].view(1, 128, 2, 64)
+    shifted = torch.zeros(128 * 2 * 64 + 1, dtype=bf16)[1:].view(1, 128, 2, 64)
+    padded = [_qkv_views(1, 128, 2, 36, bf16),  # 72-byte rows
+              [torch.zeros((1, 128, 2, 36), dtype=bf16)] * 3,
+              [wide] * 3,
+              [torch.zeros((1, 128, 2, 64), dtype=bf16), shifted, shifted]]
+    for qkv in kernel:
+        tfa._check_layout(*qkv)
+        assert tfa._tma_layout(*qkv)
+    for qkv in padded:
+        tfa._check_layout(*qkv)
+        assert not tfa._tma_layout(*qkv)
+        d = qkv[0].shape[-1]
+        assert tfa._tma_layout(*(tfa._pad_head(x, -(-d // 8) * 8) for x in qkv))

@@ -3,9 +3,12 @@
 ``nvcc`` is not needed: the build and the library load are replaced by
 stand-ins that record when they ran.  The loader's locking is what is
 under test (one lock per source, taken outside the module lock), so
-``chip_smoke.py`` can build every kernel source at once.
+``chip_smoke.py`` can build every kernel source at once; and the build's
+digest, which must cover the headers a source includes.
 """
 
+import os
+import subprocess
 import threading
 import time
 
@@ -56,3 +59,42 @@ def test_one_source_builds_once_under_concurrent_loads(monkeypatch):
     monkeypatch.setattr(kernels, "_build_info", {})
     _load_all(["fake_c.cu"] * 4)
     assert [s for s, _, _ in spans] == ["fake_c.cu"]
+
+
+def _fake_nvcc(monkeypatch, tmp_path):
+    """A ``csrc`` tree in ``tmp_path`` with one source and one shared
+    header, and an ``nvcc`` stand-in that writes the library it is asked
+    for and records each call."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "shared.cuh"\n')
+    (csrc / "shared.cuh").write_text("// v1\n")
+    calls = []
+
+    def run(cmd, **kwargs):
+        out = cmd[cmd.index("-o") + 1]
+        with open(out, "w") as f:
+            f.write("lib")
+        calls.append(out)
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(kernels, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(csrc / "build"))
+    monkeypatch.setattr(kernels, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(kernels.subprocess, "run", run)
+    return csrc, calls
+
+
+def test_build_digest_covers_the_shared_headers(monkeypatch, tmp_path):
+    """An edit to a header alone names (and builds) a new library; an
+    unchanged tree reuses the one it built."""
+    csrc, calls = _fake_nvcc(monkeypatch, tmp_path)
+    first, _, _ = kernels._build("k.cu")
+    again, seconds, log = kernels._build("k.cu")
+    assert again == first and (seconds, log) == (0.0, "(cached build)") and len(calls) == 1
+    (csrc / "shared.cuh").write_text("// v2\n")
+    edited, _, _ = kernels._build("k.cu")
+    assert edited != first and len(calls) == 2
+    assert os.path.exists(first) and os.path.exists(edited)
+    (csrc / "other.cuh").write_text("// a header the source may include\n")
+    assert kernels._build("k.cu")[0] not in (first, edited) and len(calls) == 3
