@@ -31,6 +31,15 @@ exits non-zero without its result line:
 6. start a replica through ``serving/main.py`` in a subprocess (zoo-default
    width, 128 tokens) and answer gRPC Predict and ModelInfo with the wire
    sanitizer armed.
+7. run the elastic job at phase 4's width: RecordIO shards of
+   ``synthetic_lm`` records, a ``MasterServer`` on localhost gRPC, one
+   ``Worker`` over ``RpcMasterProxy`` (8 training tasks, 32 steps, eval
+   rounds with a masked tail, background checkpoints every 16 steps), a
+   ``ServingServer`` hot-reloading each published step, with the launch
+   counts zeroed just before and read just after; the last save must equal
+   the live state exactly; then a second job over the same checkpoint
+   directory resumes at step 32 with bit-exact arrays, and its state's next
+   train step matches the live state's.
 
 Prints the card's name and power limit first, a ``{"kernels": [...]}``
 line before the last, and ``{"ok": true, "device": {...}}`` last.  The
@@ -761,6 +770,307 @@ def phase_train_full_width(card: str) -> dict:
     }
 
 
+# The job phase: the same width and batch as phase 4, run as the elastic
+# job a user submits: 512 training records (8 tasks of 4 minibatches of 16,
+# one epoch: 32 steps), 72 validation records (not a multiple of 16: every
+# eval round ends on a masked tail), an eval round every 16 steps, a
+# checkpoint every 16 steps (two kept), a replica hot-reloading each
+# publish.  The replica's logits against the worker's final module:
+# error norm over norm, the bf16 limit of TOL.
+JOB_TRAIN, JOB_VAL = 512, 72
+JOB = dict(minibatch_size=16, num_minibatches_per_task=4, num_epochs=1,
+           evaluation_steps=16, checkpoint_steps=16, keep_checkpoint_max=2)
+JOB_LOGITS_REL = 1e-2
+# The step after the resume against the live state's step: the same
+# weights, moments and batch through the same kernels.
+JOB_RESUME_REL = 1e-5
+
+
+class _RecordingMaster:
+    """A master proxy that keeps the task reports it forwards."""
+
+    def __init__(self, proxy):
+        self._proxy = proxy
+        self.reports = []
+
+    def call(self, method, request):
+        if method == "ReportTaskResult":
+            self.reports.append(dict(request))
+        return self._proxy.call(method, request)
+
+
+def _check_job_launches(counts: dict, layers: int, train_steps: int, forwards: int) -> None:
+    """12 forwards an eval step or reload forward, 12/12/12 a train step."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    want = {fa.KERNEL: layers * (train_steps + forwards), fa.DQ_KERNEL: layers * train_steps,
+            fa.DKV_KERNEL: layers * train_steps}
+    assert counts == want, (counts, want)
+
+
+def _step_end_events(trainer) -> list:
+    """Record an event on the stream before ``trainer``'s first train step
+    and after each one: the step time as the device sees it, gaps between
+    steps included."""
+    events = []
+    step = trainer.train_step
+
+    def timed_step(state, batch):
+        if not events:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        result = step(state, batch)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        return result
+
+    trainer.train_step = timed_step
+    return events
+
+
+def _event_intervals_ms(events: list) -> list:
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def phase_job(card: str, train_p50_ms: float) -> dict:
+    """The elastic job on the card: RecordIO shards -> a MasterServer on
+    localhost gRPC (TaskDispatcher, EvaluationService) -> one Worker over
+    RpcMasterProxy -> train and eval steps through the kernels -> background
+    checkpoints -> the published manifest -> a ServingServer hot-reloading
+    it.  Then a second job over the same checkpoint directory resumes at
+    the last step."""
+    import shutil
+
+    from elasticdl_tpu_torch.common.checkpoint import CheckpointManager, read_manifest
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.data.reader import create_data_reader
+    from elasticdl_tpu_torch.data.synthetic import synthetic_lm
+    from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
+    from elasticdl_tpu_torch.master.servicer import MasterServer, MasterServicer
+    from elasticdl_tpu_torch.master.task_dispatcher import TASK_EVALUATION, TaskDispatcher
+    from elasticdl_tpu_torch.models import transformer_lm
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.ops import kernels
+    from elasticdl_tpu_torch.parallel.trainer import Trainer, outputs_to_numpy
+    from elasticdl_tpu_torch.serving.server import ServingServer
+    from elasticdl_tpu_torch.worker.worker import RpcMasterProxy, Worker
+
+    out = os.path.join(REPO, "chiprun_out", "job")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    width = TRAIN_WIDTH
+    seq, vocab, layers = width["seq_len"], width["vocab"], width["n_layers"]
+    train = synthetic_lm(os.path.join(out, "train.rio"), JOB_TRAIN, seed=0, seq_len=seq,
+                         vocab=vocab)
+    val = synthetic_lm(os.path.join(out, "val.rio"), JOB_VAL, seed=1, seq_len=seq, vocab=vocab)
+    ckpt = os.path.join(out, "ckpt")
+    mb, per_task = JOB["minibatch_size"], JOB["minibatch_size"] * JOB["num_minibatches_per_task"]
+    reader, eval_reader = create_data_reader(train), create_data_reader(val)
+
+    class Mux:
+        def read_records(self, shard):
+            return (reader if shard.name == train else eval_reader).read_records(shard)
+
+    def master(dispatcher, evaluation=None):
+        servicer = MasterServicer(dispatcher, evaluation=evaluation)
+        return servicer, MasterServer(servicer, port=0).start()
+
+    # The yardstick in this call: the bare loop, run_train_steps over 12 of
+    # the job's minibatches with no synchronisation, as the job runs them.
+    spec = transformer_lm.model_spec(compute_dtype="bfloat16", remat=False, **width)
+    bare = Trainer(spec)
+    bare_state = bare.init_state(0)
+    records = list(reader.read_records(reader.create_shards(12 * mb)[0]))
+    batches = [spec.feed(records[i * mb:(i + 1) * mb]) for i in range(12)]
+    bare_state, _ = bare.run_train_steps(bare_state, batches[:2])
+    bare_events = _step_end_events(bare)
+    bare.run_train_steps(bare_state, batches[2:])
+    bare_ms = _event_intervals_ms(bare_events)
+    bare_p50 = statistics.median(bare_ms)
+    del bare, bare_state
+
+    servicer, server = master(
+        TaskDispatcher(reader.create_shards(per_task), num_epochs=JOB["num_epochs"]),
+        EvaluationService(eval_reader.create_shards(per_task), JOB["evaluation_steps"]))
+    replica = ServingServer(spec, checkpoint_dir=ckpt, max_batch=4, batch_buckets=[1, 4],
+                            poll_interval_s=0.1)
+    replica.warmup()
+    replica.start()
+    config = JobConfig(model_def="transformer_lm.model_spec", training_data=train,
+                       validation_data=val, checkpoint_dir=ckpt, **JOB)
+    proxy = RpcMasterProxy(server.address, timeout_s=60.0)
+    worker = Worker(config, proxy, Mux(), worker_id="chip-w0", spec=spec)
+    step_events = _step_end_events(worker.trainer)
+    try:
+        kernels.reset_counts()  # the job's run starts here
+        t0 = time.perf_counter()
+        result = worker.run()
+        job_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 120
+        while replica.live_step != result["step"] and time.monotonic() < deadline:
+            time.sleep(0.05)
+        counts = {n: _count(n) for n in (fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL)}  # ... and ends here
+        status = servicer.JobStatus({})
+        reloads = list(replica.reload_log)
+    finally:
+        proxy.close()
+        server.stop()
+    steps = result["step"]
+    n_tasks = JOB_TRAIN // per_task
+    eval_steps = status["eval_rounds"] * -(-JOB_VAL // mb)
+    assert status["done"] == n_tasks and status["duplicate_done"] == 0, status
+    assert steps == JOB_TRAIN // mb, result
+    assert status["eval_rounds"] >= 2 and np.isfinite(status["eval_metrics"]["loss"]), status
+    manifest = read_manifest(ckpt)
+    assert manifest is not None and manifest["step"] == steps, manifest
+    applied = [r[0] for r in reloads]
+    assert applied == [JOB["checkpoint_steps"], steps], applied
+    _check_job_launches(counts, layers, steps, eval_steps + len(reloads))
+
+    # The replica's answer against the worker's final module.
+    toks = np.random.default_rng(3).integers(0, vocab, (1, seq)).astype(np.int32)
+    served = replica._batcher.submit({"tokens": toks}).result(timeout_s=300.0)[0]
+    ref = outputs_to_numpy(worker.trainer.run_predict_step(worker.state.model, {"tokens": toks}))
+    logits_rel = float(np.linalg.norm(served - ref) / np.linalg.norm(ref))
+    replica.stop(grace=0.5)
+    assert np.isfinite(served).all() and logits_rel <= JOB_LOGITS_REL, logits_rel
+
+    # The step time inside the job, the tokens, the phases, the checkpoints.
+    step_ms = _event_intervals_ms(step_events)
+    assert len(step_ms) == steps, (len(step_ms), steps)
+    p50 = statistics.median(step_ms)
+    tokens = steps * mb * seq
+    train_window_s = sum(step_ms) / 1e3
+    ckpt_log = sorted(worker.checkpoint_log, key=lambda r: r["step"])
+    live_at = {r[0]: r[3] for r in reloads}
+    publish_to_live = {r["step"]: live_at[r["step"]] - r["published_at"] for r in ckpt_log
+                       if r["step"] in live_at}
+    # The device snapshot on its own, synchronised (the loop only enqueues it).
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    snap = worker.trainer.snapshot_state(worker.state)
+    torch.cuda.synchronize()
+    snapshot_sync_s = time.perf_counter() - t
+    del snap
+    log(f"[job] {n_tasks} tasks, {steps} steps, {status['eval_rounds']} eval rounds "
+        f"(eval loss {status['eval_metrics']['loss']:.4f}), duplicates "
+        f"{status['duplicate_done']}; manifest step {manifest['step']}; replica applied "
+        f"{applied}; logits vs worker {logits_rel:.3g} (limit {JOB_LOGITS_REL})")
+    log(f"[job] {tokens / job_s:,.0f} tokens/s over the job's wall ({job_s:.2f}s); "
+        f"{tokens / train_window_s:,.0f} tokens/s over its steps; step p50 inside the job "
+        f"{p50:.2f} ms (device events) vs the bare loop's {bare_p50:.2f} ms (device events, "
+        f"{mb * seq / bare_p50 * 1e3:,.0f} tokens/s) and phase 4's {train_p50_ms:.2f} ms "
+        f"(synchronised) on {card}")
+    log("[job] bare loop step ms " + ", ".join(f"{x:.1f}" for x in bare_ms))
+    log("[job] step ms (device events, step ends) " + ", ".join(f"{x:.1f}" for x in step_ms))
+    log("[job] worker phases (s): " + json.dumps(result["phase_times"]))
+    log("[job] launches " + json.dumps(counts) + f" = {layers} x ({steps} train steps; "
+        f"{eval_steps} eval steps + {len(reloads)} reload forwards)")
+    for r in ckpt_log:
+        log(f"[job] checkpoint step {r['step']}: {r['bytes'] / 1e9:.3f} GB; device snapshot "
+            f"enqueue {r['snapshot_s']:.4f}s, host copy {r['host_s']:.3f}s, "
+            f"write {r['write_s']:.3f}s; publish-to-live "
+            f"{publish_to_live[r['step']]:.3f}s")
+    log(f"[job] device snapshot synchronised: {snapshot_sync_s * 1e3:.2f} ms; replica "
+        f"restores (load + warm forward, s): "
+        + ", ".join(f"step {r[0]}: {r[1]:.3f} (swap {r[2]:.3f} ms)" for r in reloads))
+
+    # The last save is the final state: what the background save wrote
+    # (snapshot, pinned host copy on a side stream while steps ran) equals
+    # the live state exactly.
+    saved = CheckpointManager(ckpt).restore(steps)
+    live = worker.trainer.host_state(worker.state)
+    assert sorted(live) == sorted(saved), (sorted(live), sorted(saved))
+    torn = [k for k in saved if not np.array_equal(live[k], saved[k])]
+    assert not torn, torn
+
+    # A second job over the same checkpoint directory resumes at the last
+    # step: an evaluation job, whose restored arrays must equal the saved
+    # ones exactly.
+    eval_servicer, eval_server = master(
+        TaskDispatcher(eval_reader.create_shards(per_task), task_type=TASK_EVALUATION))
+    eval_proxy = RpcMasterProxy(eval_server.address, timeout_s=60.0)
+    recording = _RecordingMaster(eval_proxy)
+    resumed = Worker(JobConfig(model_def="transformer_lm.model_spec", job_type="evaluation",
+                               validation_data=val, checkpoint_dir=ckpt, **JOB),
+                     recording, Mux(), worker_id="chip-w1", spec=spec)
+    restore = {}
+    restore_at_start = resumed._restore_at_start
+
+    def spy():
+        t = time.perf_counter()
+        restore_at_start()
+        restore["s"] = time.perf_counter() - t
+        restore["arrays"] = resumed.trainer.host_state(resumed.state)
+
+    resumed._restore_at_start = spy
+    try:
+        resumed_result = resumed.run()
+    finally:
+        eval_proxy.close()
+        eval_server.stop()
+    restored = restore["arrays"]
+    exact = sorted(restored) == sorted(saved) and all(
+        np.array_equal(restored[k], saved[k]) for k in saved)
+    eval_loss = [r["metrics"]["loss"] for r in recording.reports if r["success"]]
+    log(f"[job] resumed job: step {resumed_result['step']}, restore {restore['s']:.3f}s, "
+        f"arrays equal the saved ones: {exact}; eval task losses "
+        + ", ".join(f"{x:.4f}" for x in eval_loss))
+    # Its eval round scores the same state on the same records as the first
+    # job's last round: the count-weighted means agree (bf16, same kernels).
+    weights = [r["weight"] for r in recording.reports if r["success"]]
+    resumed_loss = float(np.dot(eval_loss, weights) / np.sum(weights))
+    log(f"[job] resumed eval loss {resumed_loss:.6f} vs the first job's last round "
+        f"{status['eval_metrics']['loss']:.6f}")
+    assert resumed_result["step"] == steps and exact
+    assert abs(resumed_loss - status["eval_metrics"]["loss"]) <= 1e-3 * abs(resumed_loss)
+    assert eval_servicer.JobStatus({})["done"] == -(-JOB_VAL // per_task)
+
+    # The restored state trains on: its step 33 against the live state's on
+    # the same batch.  The same loss (the same parameters), and the same
+    # parameters and AdamW moments after the step (limit on the error norm
+    # over the norm; restored moments or count that were wrong would miss
+    # by orders of magnitude more).
+    step_fn = resumed.trainer.run_train_step
+    live_state, live_m = step_fn(worker.state, batches[0])
+    resumed_state, resumed_m = step_fn(resumed.state, batches[0])
+    live_loss, resumed_step_loss = float(live_m["loss"]), float(resumed_m["loss"])
+    after_live = resumed.trainer.host_state(live_state)
+    after_resumed = resumed.trainer.host_state(resumed_state)
+    after_rel = max(
+        float(np.linalg.norm(after_resumed[k] - after_live[k].astype(np.float64))
+              / max(np.linalg.norm(after_live[k].astype(np.float64)), 1e-30))
+        for k in after_live)
+    log(f"[job] step {resumed_state.step} after the restore: loss {resumed_step_loss:.6f} vs "
+        f"the live state's {live_loss:.6f}; state after it vs the live one's: worst error "
+        f"norm over norm {after_rel:.3g} (limit {JOB_RESUME_REL})")
+    assert resumed_state.step == live_state.step == steps + 1
+    assert abs(resumed_step_loss - live_loss) <= JOB_RESUME_REL * abs(live_loss)
+    assert after_rel <= JOB_RESUME_REL, after_rel
+    del worker, resumed, live_state, resumed_state
+    # 2.7 GB of checkpoints: too much to keep in chiprun_out/.
+    shutil.rmtree(ckpt)
+    return {
+        "config": dict(width, **JOB, train_records=JOB_TRAIN, val_records=JOB_VAL,
+                       compute_dtype="bfloat16", remat=False),
+        "tasks": n_tasks, "steps": steps, "eval_rounds": status["eval_rounds"],
+        "eval_metrics": status["eval_metrics"], "duplicate_done": status["duplicate_done"],
+        "manifest_step": manifest["step"], "replica_applied": applied,
+        "logits_rel": logits_rel, "launches": counts, "eval_steps": eval_steps,
+        "job_s": job_s, "tokens": tokens, "tokens_per_s_job": tokens / job_s,
+        "tokens_per_s_steps": tokens / train_window_s, "step_ms": step_ms,
+        "p50_step_ms": p50, "phase4_p50_step_ms": train_p50_ms,
+        "bare_step_ms": bare_ms, "bare_p50_step_ms": bare_p50,
+        "phase_times": result["phase_times"], "checkpoints": ckpt_log,
+        "publish_to_live_s": publish_to_live, "snapshot_sync_s": snapshot_sync_s,
+        "replica_reloads": reloads, "restore_s": restore["s"],
+        "resumed_step": resumed_result["step"], "resumed_eval_losses": eval_loss,
+        "resumed_eval_loss": resumed_loss, "step_after_restore_loss": resumed_step_loss,
+        "live_step_loss": live_loss, "state_after_restore_rel": after_rel,
+    }
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -851,6 +1161,7 @@ def main() -> int:
     report["train"] = phase_train_full_width(card)
     report["serve"] = phase_serve_full_width(card)
     report["grpc"] = phase_grpc_replica()
+    report["job"] = phase_job(card, report["train"]["p50_step_ms"])
     report["wall_s"] = time.perf_counter() - t0
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -858,13 +1169,16 @@ def main() -> int:
     fwd, fwd_train = report["kernel"]["serve"], report["kernel"]["train"]
     bwd = report["kernel_bwd"]["train"]
     train_launches = report["train"]["launches"]
+    job_launches = report["job"]["launches"]
     source = "elasticdl_tpu_torch/csrc/"
     kernels_line = {"kernels": [
         {
             "name": fa.KERNEL, "route": "cuda", "source": source + fa.SOURCE,
             "replaces": "elasticdl_tpu/ops/flash_attention.py:72",
-            # Launches on both main paths: serving flushes and training steps.
-            "launches": report["serve"]["flash_launches"] + train_launches[fa.KERNEL],
+            # Launches on the main paths: serving flushes, training steps,
+            # and the job (train and eval steps, reload forwards).
+            "launches": (report["serve"]["flash_launches"] + train_launches[fa.KERNEL]
+                         + job_launches[fa.KERNEL]),
             "max_abs_err": fwd["kernel"]["o_max_abs"], "ms": fwd["ms"],
             "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
             "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
@@ -875,7 +1189,7 @@ def main() -> int:
         {
             "name": fa.DQ_KERNEL, "route": "cuda", "source": source + fa.BWD_SOURCE,
             "replaces": "elasticdl_tpu/ops/flash_attention.py:87",
-            "launches": train_launches[fa.DQ_KERNEL],
+            "launches": train_launches[fa.DQ_KERNEL] + job_launches[fa.DQ_KERNEL],
             "max_abs_err": bwd["kernel"]["dq"]["max_abs"], "ms": bwd["dq_ms"],
             "plain_ms": bwd["dq_plain_ms"], "bound_ms": bwd["dq_bound_ms"],
             "bound_by": bwd["dq_bound_by"], "library_ms": bwd["library_ms"],
@@ -883,7 +1197,7 @@ def main() -> int:
         {
             "name": fa.DKV_KERNEL, "route": "cuda", "source": source + fa.BWD_SOURCE,
             "replaces": "elasticdl_tpu/ops/flash_attention.py:108",
-            "launches": train_launches[fa.DKV_KERNEL],
+            "launches": train_launches[fa.DKV_KERNEL] + job_launches[fa.DKV_KERNEL],
             "max_abs_err": max(bwd["kernel"]["dk"]["max_abs"], bwd["kernel"]["dv"]["max_abs"]),
             "ms": bwd["dkv_ms"], "plain_ms": bwd["dkv_plain_ms"],
             "bound_ms": bwd["dkv_bound_ms"], "bound_by": bwd["dkv_bound_by"],

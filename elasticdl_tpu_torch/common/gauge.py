@@ -1,5 +1,5 @@
 # The PyTorch port's own copy of elasticdl_tpu/common/gauge.py: the port imports
-# nothing of the JAX package.
+# nothing of the JAX package (the jitsan compile bridge is left out).
 """graftgauge — the live metrics plane's recording half.
 
 Everything this repo measured before r14 was post-hoc: the JSONL
@@ -53,6 +53,8 @@ process recorded.
 from __future__ import annotations
 
 import bisect
+import threading
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from elasticdl_tpu_torch.common import locksan
@@ -439,7 +441,11 @@ def _fmt(v: float) -> str:
 def render_families(families: Dict[str, dict]) -> str:
     """Prometheus text from a ``Registry.snapshot()``-shaped family dict.
 
-    Malformed samples are skipped, never a scrape 500."""
+    A module function (not a Registry method) on purpose: the master's
+    fleet view renders MERGED per-worker snapshots (``merge_snapshots``)
+    that never lived in a local registry, and both paths must produce
+    byte-identical exposition for the same families.  Malformed samples
+    (an envelope is remote input) are skipped, never a scrape 500."""
     lines: List[str] = []
     for name, fam in families.items():
         if not isinstance(fam, dict):
@@ -559,3 +565,82 @@ def install_wire_collector(registry: Registry) -> Callable[[], None]:
 
     registry.add_collector(_collect)
     return _collect
+
+
+# -- fleet-view helpers (jax-free; the master's aggregation math) ----------
+
+
+def merge_snapshots(snapshots: Dict[str, Dict[str, dict]]) -> Dict[str, dict]:
+    """Fold per-process ``Registry.snapshot()`` payloads into ONE family
+    view with a ``worker`` label per series — the master's fleet page.
+    Series are RELABELED, never summed: per-worker visibility is the
+    point (a straggler hides inside a fleet-summed histogram), and the
+    fleet-level numbers that matter are the goodput computer's own
+    gauges, derived from the scalar counters (master/fleet_metrics.py).
+    Cross-worker sums stay the scraper's job — Prometheus sums a
+    ``worker``-labeled family in one expression."""
+    out: Dict[str, dict] = {}
+    for worker, families in sorted(snapshots.items()):
+        if not isinstance(families, dict):
+            continue
+        for name, fam in families.items():
+            if not isinstance(fam, dict) or "samples" not in fam:
+                continue
+            slot = out.setdefault(
+                name,
+                {"type": fam.get("type", "gauge"),
+                 "help": fam.get("help", ""), "samples": []},
+            )
+            for s in fam.get("samples") or []:
+                labels = dict(s.get("labels") or {})
+                labels["worker"] = worker
+                slot["samples"].append(
+                    {"labels": labels, "value": s.get("value")}
+                )
+    return out
+
+
+class RateWindow:
+    """Per-key (counter total, wall time) pairs -> live rate.
+
+    The goodput computer's primitive: feed it each worker's cumulative
+    ``edl_examples_trained_total`` as envelopes arrive; ``rate()`` is the
+    summed per-key delta over the observation window, robust to a worker
+    restarting (a total that went BACKWARDS re-anchors that key instead
+    of stamping a negative rate)."""
+
+    def __init__(self, window_s: float = 30.0, clock=time.monotonic):
+        self.window_s = float(window_s)
+        self._clock = clock
+        self._lock = locksan.lock("RateWindow._lock", leaf=True)  # lock-order: leaf
+        self._points: Dict[str, List[Tuple[float, float]]] = {}  # guarded-by: _lock
+
+    def update(self, key: str, total: float) -> None:
+        now = self._clock()
+        with self._lock:
+            pts = self._points.setdefault(key, [])
+            if pts and total < pts[-1][1]:
+                pts.clear()  # restarted counter: re-anchor, don't go negative
+            pts.append((now, float(total)))
+            cutoff = now - self.window_s
+            while len(pts) > 2 and pts[1][0] <= cutoff:
+                pts.pop(0)
+
+    def rates(self) -> Dict[str, float]:
+        """Per-key rate over each key's window (absent until a key has
+        two points).  Keys silent past the window drop out — a dead
+        worker's stale pair must not keep inflating the live rate."""
+        now = self._clock()
+        out: Dict[str, float] = {}
+        with self._lock:
+            for key, pts in self._points.items():
+                if len(pts) < 2 or now - pts[-1][0] > self.window_s:
+                    continue
+                dt = pts[-1][0] - pts[0][0]
+                if dt > 0:
+                    out[key] = (pts[-1][1] - pts[0][1]) / dt
+        return out
+
+    def rate(self) -> float:
+        """Summed per-key rate (the fleet total)."""
+        return sum(self.rates().values())

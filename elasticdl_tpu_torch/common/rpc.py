@@ -1,11 +1,15 @@
-"""JSON-over-gRPC plumbing: the serving half of ``elasticdl_tpu/common/rpc.py``.
+"""JSON-over-gRPC plumbing — the PyTorch port's copy of
+``elasticdl_tpu/common/rpc.py`` (the port imports nothing of the JAX
+package).  Field for field, its tables are the reference's, so the two
+packages speak one wire: a worker of either package completes a job
+against a master of the other.
 
-The PyTorch port keeps its own copy (it imports nothing of the JAX
-package).  Only what the serving tier uses is here: the message caps, the
-``MessageSchema`` grammar with the serving request and response tables,
-the generic server handler, the JSON client, and the shared backoff helper
-behind the client's readiness wait.  The master tables and the fault
-injector's client hook belong to later slices of the port.
+The reference defines its master/PS contract in protobuf (SURVEY.md §2 #12
+[U]).  This image ships ``grpcio`` but not ``grpc_tools`` (no protoc python
+plugin), so the rebuild keeps gRPC as the wire protocol — HTTP/2, the same
+operational surface — with JSON message bodies registered through generic
+method handlers instead of generated stubs.  The method table in
+``master/servicer.py`` is the contract.
 """
 
 from __future__ import annotations
@@ -18,11 +22,14 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import grpc
 
+from elasticdl_tpu_torch import chaos
 from elasticdl_tpu_torch.common import gauge as gaugelib
 from elasticdl_tpu_torch.common import trace
 from elasticdl_tpu_torch.common import wiresan
 
-#: gRPC message cap, BOTH sides (same stance as the
+SERVICE_NAME = "elasticdl.Master"
+
+#: gRPC message cap for the master service, BOTH sides (same stance as the
 #: PS tier's GRPC_MAX_MESSAGE_BYTES): the control-plane default of 4 MB
 #: was fine for task/report traffic, but a DumpTrace response carries up
 #: to a full 65536-event ring per process (~10-16 MB of JSON) — the
@@ -50,6 +57,14 @@ GRPC_CLIENT_CHANNEL_OPTIONS = GRPC_MESSAGE_OPTIONS + [
     ("grpc.min_reconnect_backoff_ms", 500),
     ("grpc.max_reconnect_backoff_ms", 5000),
 ]
+
+#: Wire-contract version, negotiated at RegisterWorker (the one RPC every
+#: worker must issue first).  Bump when a message's shape changes
+#: incompatibly; the master rejects a mismatched worker AT REGISTRATION with
+#: a structured error naming both versions — not N tasks later with a
+#: schema violation mid-job.  A request without the field is accepted
+#: (proto3 unknown-field stance: absent = pre-versioning peer).
+PROTOCOL_VERSION = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,10 +98,164 @@ _BOOL = (bool,)
 _DICT = (dict,)
 _LIST = (list,)
 
+#: The master wire contract (kept in lockstep with MasterServicer's method
+#: table — asserted by tests).  Unknown fields pass through (forward
+#: compatibility, like proto3 unknown fields).
+MASTER_SCHEMAS: Dict[str, MessageSchema] = {
+    # lease (r9): how many tasks the caller can accept in one response —
+    # the master may return up to that many in the response's "tasks"
+    # (GetTask) / "entries" (GetGroupTask) list, amortizing one RPC RTT
+    # over the batch.  Optional and additive: an absent field means 1,
+    # and old callers ignore the extra response keys, so no PROTOCOL_VERSION
+    # bump (proto3 unknown-field stance on both sides).
+    "GetTask": MessageSchema(
+        required={"worker_id": _STR}, optional={"lease": _INT},
+        since={"lease": 9},
+    ),
+    "GetGroupTask": MessageSchema(
+        required={"worker_id": _STR, "seq": _INT, "version": _INT},
+        optional={"lease": _INT},
+        since={"lease": 9},
+    ),
+    "ReportTaskResult": MessageSchema(
+        required={"worker_id": _STR, "task_id": _INT, "success": _BOOL},
+        optional={
+            "task_type": _STR,
+            # requeue (r9): success=False with requeue=True means the task
+            # was returned UNSTARTED (lease/prep abandon on preemption or
+            # membership change) — the dispatcher requeues it without
+            # charging the retry budget, so routine elastic churn cannot
+            # poison-abandon a healthy task.  Additive; absent = a real
+            # failure.
+            "requeue": _BOOL,
+            "metrics": _DICT,
+            "weight": _NUM,
+            "model_version": _INT,
+            # Cumulative task-loop wall decomposition (common/metrics.py
+            # PhaseTimers.snapshot): {phase_name: seconds}.  Rides every
+            # report so the master's JobStatus and the train-job artifact
+            # can attribute throughput to named phases without a new RPC.
+            "phase_times": _DICT,
+            # seq (r18): per-worker monotonically increasing report
+            # sequence number.  The master journals the highest seq seen
+            # per worker (master/journal.py) and DEDUPES a replayed seq
+            # — the exactly-once guard that lets the proxy's outage
+            # ride-through retry a report whose first attempt the dying
+            # master may or may not have applied.  Additive and
+            # optional: an absent field keeps the pre-r18 at-least-once
+            # semantics, so no PROTOCOL_VERSION bump (the r9 stance).
+            "seq": _INT,
+        },
+        since={"requeue": 9, "seq": 18},
+    ),
+    "ReportVersion": MessageSchema(
+        required={"model_version": _INT}, optional={"worker_id": _STR}
+    ),
+    # incarnation/held_tasks (r18): the lease-reconciliation handshake a
+    # worker runs after its proxy rode out a master outage (and, with an
+    # empty list, at every fresh boot).  ``held_tasks`` is the exact set
+    # of training-task ids the worker still holds (buffered leases,
+    # in-flight preps, the pipelined pending slot); the master requeues
+    # its journal-replayed ``doing`` entries for this worker that the
+    # worker does NOT hold (handouts lost in flight during the crash,
+    # requeued now instead of after task_timeout_s) and answers with
+    # ``stale_tasks`` — held ids the master no longer attributes to this
+    # worker, which the worker must drop unstarted (training them would
+    # double-train records the master already re-leased).  Additive:
+    # absent fields skip the reconcile entirely.
+    "RegisterWorker": MessageSchema(
+        required={"worker_id": _STR},
+        optional={
+            "address": _STR, "proto": _INT,
+            "incarnation": _STR, "held_tasks": _LIST,
+        },
+        since={"proto": 9, "incarnation": 18, "held_tasks": 18},
+    ),
+    "DeregisterWorker": MessageSchema(required={"worker_id": _STR}),
+    "Heartbeat": MessageSchema(
+        required={"worker_id": _STR},
+        # phase_times: group-mode non-rank-0 members never send task
+        # reports (rank-0-gated), so their phase snapshot rides the
+        # heartbeat — without it the master's per-worker decomposition
+        # only ever held rank 0 and a straggler rank was invisible.
+        # gang_seq (r13): the rank's lockstep ARRIVAL progress (entries
+        # whose device dispatch it has begun), the deadline-bounded gang
+        # boundary's per-rank signal.  Consumption counters (boundary
+        # ask seq) cannot carry it: prep-ahead and lease batching freeze
+        # every rank's consumption at the same value when the gang
+        # wedges, so only begun-dispatch — riding the background beat,
+        # the one RPC a wedged gang still sends — tells the straggler
+        # from the ranks blocked in the collective on it.
+        # collective_skips (r15): cumulative in-collective straggler
+        # exclusions charged by the worker's in-step deadline gate
+        # (graftreduce) — the master banks the newest value per worker
+        # into the same bounded-skip ledger the r13 boundary deadline
+        # feeds (JobStatus).  Additive and optional: no PROTOCOL_VERSION
+        # bump, the r9/r12/r14 stance.
+        optional={
+            "version": _INT, "phase_times": _DICT, "gang_seq": _INT,
+            "collective_skips": _INT,
+        },
+        since={"gang_seq": 13, "collective_skips": 15},
+    ),
+    "GetMembership": MessageSchema(),
+    "GetCheckpoint": MessageSchema(),
+    "ReportCheckpoint": MessageSchema(
+        required={"path": _STR, "step": _INT},
+        # Same phase snapshot as ReportTaskResult: the final/periodic
+        # checkpoint report is the last word a worker sends, so it carries
+        # the checkpoint-wire time the task reports cannot yet include.
+        # worker_id keys the snapshot to the SAME per-worker slot the task
+        # reports fill — without it the master would hold one worker's
+        # cumulative timers under two keys and consumers would double-count.
+        optional={"phase_times": _DICT, "worker_id": _STR},
+    ),
+    "JobStatus": MessageSchema(),
+    # DumpTrace (r12): the live-job introspection pull — returns every
+    # process's shipped trace buffer plus the master's own recorder window
+    # (tools/trace_dump.py merges them into one Chrome-trace JSON with
+    # clock alignment).  Non-draining: repeated dumps see the same window.
+    # A new METHOD is additive by construction (an old master returns
+    # UNIMPLEMENTED, an old worker never calls it) — no PROTOCOL_VERSION
+    # bump, the same stance as r9's lease field.
+    "DumpTrace": MessageSchema(),
+}
+
+# trace (r12): the cross-process trace envelope, additive and optional on
+# EVERY master method (same no-version-bump stance as r9's lease):
+#   {"ctx": [span_id]}            — the caller's live span, injected by
+#                                   JsonRpcClient so the servicer's span
+#                                   can name its remote parent;
+#   {"events": [...],             — a bounded slice of the worker's ring
+#    "clock_offset_us": float,      buffer riding the Heartbeat/Report
+#    "dropped": int}                channel (the pull path's supply side),
+#                                   with the worker's RTT-midpoint clock
+#                                   offset vs the master.
+# phase_counts rides beside phase_times on the report/heartbeat methods:
+# PhaseTimers.counts() — per-phase entry counts, so consumers can compute
+# per-phase AVERAGES, not just cumulative sums, from artifacts.
+for _method_schema in MASTER_SCHEMAS.values():
+    _method_schema.optional.setdefault("trace", _DICT)
+    _method_schema.since.setdefault("trace", 12)
+for _method in ("ReportTaskResult", "Heartbeat", "ReportCheckpoint"):
+    MASTER_SCHEMAS[_method].optional.setdefault("phase_counts", _DICT)
+    MASTER_SCHEMAS[_method].since.setdefault("phase_counts", 12)
+# gauge (r14): the live-metrics envelope — a worker/PS process's
+# ``gauge.Registry.snapshot()`` ({"families": {...}}) riding the same
+# heartbeat/report channel as the trace slices, so the master's /metrics
+# endpoint can serve the FLEET view (aggregated examples/sec, per-rank
+# gang lag, goodput) without a new RPC.  Additive and optional on the
+# same three methods as phase_counts — no PROTOCOL_VERSION bump (the
+# r9/r12 stance: old peers ignore the field in either direction).
+for _method in ("ReportTaskResult", "Heartbeat", "ReportCheckpoint"):
+    MASTER_SCHEMAS[_method].optional.setdefault("gauge", _DICT)
+    MASTER_SCHEMAS[_method].since.setdefault("gauge", 14)
+
+
 SERVING_SERVICE_NAME = "elasticdl.Serving"
 
 #: The serving tier's wire contract (serving/server.py's method table —
-#: asserted in lockstep by tests).  Feature
+#: asserted in lockstep by tests, like MASTER_SCHEMAS above).  Feature
 #: values ride as JSON lists: online requests are a handful of examples, so
 #: JSON's ~4x float inflation is noise here (the bulk-tensor path that
 #: justified the PS tier's binary frames moves 6.8 MB pulls; a Predict
@@ -106,6 +275,105 @@ SERVING_SCHEMAS: Dict[str, MessageSchema] = {
 }
 
 
+#: Response contracts (r22): the other half of every method's wire shape.
+#: Until r22 only REQUESTS were schema-checked — a master returning a
+#: malformed response surfaced as a KeyError deep in the worker's task
+#: loop, the exact failure mode validate_message exists to prevent.  The
+#: same additive-compat grammar applies: every post-baseline field is
+#: OPTIONAL with a ``since`` revision (old masters omit it; consumers use
+#: ``.get()``, which graftlint's wire-discipline rule enforces), unknown
+#: fields pass through counted-not-rejected (common/wiresan.py), and
+#: shape violations raise deterministically when GRAFT_WIRESAN=1 arms
+#: the checks on both ends of the wire.
+MASTER_RESPONSE_SCHEMAS: Dict[str, MessageSchema] = {
+    # task is optional because "no task right now" is encoded as an
+    # explicit null; tasks (r9) batches up to ``lease`` task dicts with
+    # task mirroring the first entry for pre-lease consumers.
+    "GetTask": MessageSchema(
+        required={"finished": _BOOL},
+        optional={"task": _DICT, "tasks": _LIST},
+        since={"tasks": 9},
+    ),
+    "GetGroupTask": MessageSchema(
+        required={"finished": _BOOL, "stale": _BOOL},
+        optional={"task": _DICT, "entries": _LIST},
+        since={"entries": 9},
+    ),
+    # duplicate (r18): accepted=True with duplicate=True marks a
+    # seq-deduped replay — the retried report was already applied before
+    # the master restart; the worker treats it as a normal ack.
+    "ReportTaskResult": MessageSchema(
+        required={"accepted": _BOOL},
+        optional={"duplicate": _BOOL},
+        since={"duplicate": 18},
+    ),
+    "ReportVersion": MessageSchema(),
+    # The rendezvous membership view; stale_tasks (r18) rides only the
+    # reconcile path (a register that declared held_tasks).
+    "RegisterWorker": MessageSchema(
+        required={
+            "version": _INT, "workers": _LIST, "ranks": _DICT,
+            "world_size": _INT, "expected": _INT, "confirmed": _DICT,
+            "addresses": _DICT,
+        },
+        optional={"stale_tasks": _LIST},
+        since={"stale_tasks": 18},
+    ),
+    "DeregisterWorker": MessageSchema(required={"version": _INT}),
+    # The beat's reply carries every master->worker hint: eval_pending /
+    # draining (r9, the lease-recall hints), server_ts_us (r12, the
+    # clock-offset stamp), standby_pool (r13).  All optional — a worker
+    # masked to an older revision still gets the one field it needs
+    # (the membership version driving restart decisions).
+    "Heartbeat": MessageSchema(
+        required={"version": _INT},
+        optional={
+            "server_ts_us": _NUM, "eval_pending": _BOOL,
+            "standby_pool": _INT, "draining": _BOOL,
+        },
+        since={
+            "eval_pending": 9, "draining": 9, "server_ts_us": 12,
+            "standby_pool": 13,
+        },
+    ),
+    "GetMembership": MessageSchema(
+        required={
+            "version": _INT, "workers": _LIST, "ranks": _DICT,
+            "world_size": _INT, "expected": _INT, "confirmed": _DICT,
+            "addresses": _DICT,
+        },
+    ),
+    # path is optional because "no checkpoint yet" is an explicit null.
+    "GetCheckpoint": MessageSchema(
+        required={"step": _INT}, optional={"path": _STR}
+    ),
+    "ReportCheckpoint": MessageSchema(),
+    # The dispatcher counts plus every banked per-worker view.  The
+    # conditional sections (journal replay stats, standby depth, eval
+    # aggregates) are optional; the rest rides every response.
+    "JobStatus": MessageSchema(
+        required={
+            "todo": _INT, "doing": _INT, "done": _INT, "abandoned": _INT,
+            "epoch": _INT, "skipped": _INT, "skip_counts": _DICT,
+            "duplicate_done": _INT, "finished": _BOOL,
+            "model_version": _INT, "phase_times": _DICT,
+            "phase_counts": _DICT, "skipped_ranks": _DICT,
+            "collective_skips": _DICT, "stale_reports": _INT,
+        },
+        optional={
+            "journal": _DICT, "standby_pool": _INT,
+            "eval_metrics": _DICT, "eval_rounds": _INT,
+        },
+        since={"journal": 18, "standby_pool": 13, "eval_rounds": 9},
+    ),
+    "DumpTrace": MessageSchema(
+        required={
+            "processes": _DICT, "master_events": _LIST,
+            "master_dropped": _INT, "master_now_us": _NUM,
+        },
+    ),
+}
+
 #: Serving responses: outputs may be a list (the common case) or a dict
 #: of named output heads (_listify preserves dict-shaped model outputs).
 SERVING_RESPONSE_SCHEMAS: Dict[str, MessageSchema] = {
@@ -124,8 +392,11 @@ SERVING_RESPONSE_SCHEMAS: Dict[str, MessageSchema] = {
 }
 
 #: service name -> (request schemas, response schemas): the lookup both
-#: JsonRpcClient and make_generic_handler default from.
+#: JsonRpcClient and make_generic_handler default from, so every client
+#: and server of a known service validates both directions without each
+#: call site wiring the tables through.
 SERVICE_SCHEMAS: Dict[str, Tuple[Dict[str, MessageSchema], Dict[str, MessageSchema]]] = {
+    SERVICE_NAME: (MASTER_SCHEMAS, MASTER_RESPONSE_SCHEMAS),
     SERVING_SERVICE_NAME: (SERVING_SCHEMAS, SERVING_RESPONSE_SCHEMAS),
 }
 
@@ -140,6 +411,23 @@ class RpcOverloaded(RuntimeError):
     subclass as RESOURCE_EXHAUSTED — the structured back-off-or-add-
     capacity signal callers branch on (e.g. the serving fleet client
     never retries it) — instead of an unstructured UNKNOWN."""
+
+
+# -- the ONE retry/backoff policy (r18) -------------------------------------
+#
+# Before r18 the repo had three hand-rolled retry loops — the PS client's
+# fixed backoff table, the worker's transient-collective retry, and a
+# hard-failing channel-readiness wait — each with its own schedule, its own
+# (or no) jitter, and its own observability.  They are now ONE code path:
+# ``call_with_backoff`` owns exponential backoff + jitter + max-attempts +
+# a wall budget, emits ``edl_rpc_retry_total{service=}`` into the
+# process-default gauge registry and an ``rpc:retry`` trace instant per
+# retry, and every adopter (PS ``RemoteEmbeddingStore._retry``, the
+# worker's ``_retry_transient_collective``, ``RpcMasterProxy``'s outage
+# ride-through and every readiness wait via ``wait_channel_ready``) just
+# declares its schedule and its transience predicate.  The graftlint
+# ``rpc-discipline`` rule enforces the readiness half: the raw
+# ``grpc.channel_ready_future`` primitive is legal only in this module.
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,14 +452,25 @@ def call_with_backoff(
     service: str,
     is_transient: Callable[[BaseException], bool],
     policy: BackoffPolicy,
+    on_retry: Optional[Callable[[BaseException, int, float], None]] = None,
+    terminal: Optional[Callable[[BaseException, int, float], BaseException]] = None,
+    sleep: Callable[[float], None] = time.sleep,
+    clock: Callable[[], float] = time.monotonic,
+    budget_s_fn: Optional[Callable[[], float]] = None,
 ) -> Any:
     """Run ``fn()``, retrying errors ``is_transient`` accepts under
-    ``policy``.  Non-transient errors surface immediately; on exhaustion
-    the original error re-raises.  Every retry counts into
-    ``edl_rpc_retry_total{service=}`` and leaves an ``rpc:retry`` trace
-    instant."""
+    ``policy``.  Non-transient errors surface immediately.  On exhaustion
+    the ORIGINAL error re-raises (so adopters' callers keep their error
+    contracts), unless ``terminal`` builds a clearer one — it is raised
+    ``from`` the original.  ``on_retry(error, attempt, delay_s)`` runs
+    before each sleep (adopter-specific logging/instants); the shared
+    ``edl_rpc_retry_total{service=}`` counter and ``rpc:retry`` instant
+    fire here for every adopter.  ``budget_s_fn`` makes the wall budget
+    DYNAMIC — re-read every attempt, so a caller can shrink it under an
+    in-flight retry loop (the preemption path cutting a parked
+    ride-through short); it overrides ``policy.budget_s``."""
     attempt = 0
-    start = time.monotonic()
+    start = clock()
     while True:
         try:
             return fn()
@@ -179,11 +478,23 @@ def call_with_backoff(
             if not is_transient(e):
                 raise
             attempt += 1
-            elapsed = time.monotonic() - start
+            elapsed = clock() - start
+            # A STATIC budget of 0 means "no wall budget" (attempts bound
+            # the loop); a DYNAMIC budget is always active — its 0 means
+            # "exhausted NOW" (the preemption path shrinking an in-flight
+            # ride-through must fail it fast, never unbound it).
+            if budget_s_fn is not None:
+                budget_s = budget_s_fn()
+                budget_active = True
+            else:
+                budget_s = policy.budget_s
+                budget_active = bool(budget_s)
             exhausted = (
                 policy.max_attempts and attempt >= policy.max_attempts
-            ) or (policy.budget_s and elapsed >= policy.budget_s)
+            ) or (budget_active and elapsed >= budget_s)
             if exhausted:
+                if terminal is not None:
+                    raise terminal(e, attempt, elapsed) from e
                 raise
             delay = min(
                 policy.base_s * policy.multiplier ** (attempt - 1),
@@ -191,8 +502,8 @@ def call_with_backoff(
             )
             if policy.jitter:
                 delay *= 1.0 + random.uniform(-policy.jitter, policy.jitter)
-            if policy.budget_s:
-                delay = min(delay, max(0.0, policy.budget_s - elapsed))
+            if budget_active:
+                delay = min(delay, max(0.0, budget_s - elapsed))
             gaugelib.default().counter(
                 "edl_rpc_retry_total",
                 "transient-error retries through the shared backoff helper",
@@ -203,14 +514,27 @@ def call_with_backoff(
                 attempt=attempt, delay_ms=round(delay * 1e3, 1),
                 error=type(e).__name__,
             )
-            time.sleep(delay)
+            if on_retry is not None:
+                on_retry(e, attempt, delay)
+            sleep(delay)
 
 
 def wait_channel_ready(
-    channel, *, service: str, budget_s: float, per_try_s: float = 5.0
+    channel,
+    *,
+    service: str,
+    budget_s: float,
+    per_try_s: float = 5.0,
+    terminal: Optional[Callable[[BaseException, int, float], BaseException]] = None,
+    sleep: Callable[[float], None] = time.sleep,
 ) -> None:
     """THE readiness wait: short ``channel_ready_future`` probes under the
-    shared backoff until the channel is ready or ``budget_s`` elapses."""
+    shared backoff until the channel is ready or ``budget_s`` elapses.
+    One hard ``result(timeout=budget)`` (the pre-r18 shape) spends the
+    whole budget inside grpc with no retry accounting and no jitter — a
+    thundering herd of relaunched workers all re-dialing a restarting
+    master at once is exactly when the jitter matters.  graftlint's
+    rpc-discipline rule pins every readiness wait to this helper."""
 
     def probe():
         grpc.channel_ready_future(channel).result(
@@ -225,6 +549,8 @@ def wait_channel_ready(
             base_s=0.2, multiplier=2.0, max_s=2.0, jitter=0.2,
             budget_s=budget_s,
         ),
+        terminal=terminal,
+        sleep=sleep,
     )
 
 
@@ -354,7 +680,7 @@ def make_generic_handler(
 class JsonRpcClient:
     """Typed-enough client for a JSON-over-gRPC service.
 
-    Requests are validated against the service's request schemas
+    Requests to the master service are validated against MASTER_SCHEMAS
     BEFORE they hit the wire, so a malformed message fails in the caller's
     stack frame with a field-naming SchemaError rather than as a remote
     INVALID_ARGUMENT (the server still enforces the same schemas)."""
@@ -362,7 +688,7 @@ class JsonRpcClient:
     def __init__(
         self,
         address: str,
-        service_name: str,
+        service_name: str = SERVICE_NAME,
         schemas: Optional[Dict[str, MessageSchema]] = None,
         response_schemas: Optional[Dict[str, MessageSchema]] = None,
     ):
@@ -388,8 +714,7 @@ class JsonRpcClient:
         if self._schemas is not None:
             validate_message(method, request, self._schemas)
         if method not in self._stubs:
-            # Idempotent per-method stub memo: racing creators build
-            # equivalent stubs and the dict item set is atomic.
+            # graftlint: allow[shared-state] idempotent per-method stub memo: racing creators (loop + beat threads) build equivalent stubs and the dict item set is atomic
             self._stubs[method] = self._channel.unary_unary(
                 f"/{self._service}/{method}",
                 request_serializer=_serialize,
@@ -410,6 +735,12 @@ class JsonRpcClient:
                 envelope["ctx"] = [sp.span_id]
                 request = dict(request)
                 request["trace"] = envelope
+            # graftchaos hook (no-op when disabled): an armed delay_rpc
+            # sleeps HERE — inside the client span, so the injected
+            # latency shows in the trace exactly where real network
+            # latency would — and a drop_rpc raises ChaosRpcDropped, which
+            # the call site sees as a failed RPC (lossy-network shape).
+            chaos.hook("rpc:client", method=method)
             if wiresan.active():
                 # Outgoing: count undeclared request fields (validation
                 # is already always-on above) and apply the version mask

@@ -278,7 +278,7 @@ def _check_batch(model: TransformerLM, batch: Dict[str, Any]) -> None:
 
 
 def _init(
-    seed: int,
+    seed: Optional[int],
     device: Any = None,
     vocab: int = 8192,
     dim: int = 256,
@@ -289,7 +289,8 @@ def _init(
 ) -> TransformerLM:
     dev = resolve_device(device)
     model = TransformerLM(vocab, dim, n_heads, n_layers, max_seq, compute_dtype, dev)
-    model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+    if seed is not None:
+        model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
     return model
 
 

@@ -15,8 +15,9 @@ contract:
 Boot order is bind -> WARMUP ALL BUCKETS -> serve: the gRPC port accepts
 only after every batch bucket has run once (kernel build, library handles,
 allocator growth), so a replica that answers its readiness probe serves
-its first request at forward speed.  Checkpoint restore is a later slice
-of the port: a config naming ``checkpoint_dir`` fails at startup.
+its first request at forward speed.  With ``checkpoint_dir`` the replica
+serves the newest published step and hot-reloads every later publish
+(polling every ``poll_interval_s``, default 0.5 s).
 
 Exit contract: SIGTERM drains within the grace window and exits 0.
 """
@@ -107,6 +108,7 @@ def main() -> int:
         ps_addresses=cfg.get("ps_addresses", ""),
         max_batch=int(cfg.get("max_batch", 64)),
         max_delay_ms=float(cfg.get("max_delay_ms", 5.0)),
+        poll_interval_s=float(cfg.get("poll_interval_s", 0.5)),
         port=port,
         gauge_port=gauge_port,
         seed=int(cfg.get("seed", 0)),

@@ -10,11 +10,16 @@ ModelInfo wire contract (``common/rpc.py`` SERVING_SCHEMAS):
 - **Micro-batching**: ``serving/micro_batcher.MicroBatcher``, unchanged —
   deadline-or-full flush, bucketed padding, priority lanes, per-request
   fan-back.
-- **Weights**: fresh (from ``seed``) or carried in through ``state`` (for
-  example a JAX model's weights via ``transformer_lm.params_from_jax``).
-  Checkpoint restore with hot reload (``CheckpointWatcher``) and the PS
-  host tier with its hot-id cache are later slices of the port; asking for
-  them raises.
+- **Weights**: a training job's checkpoint directory — the newest
+  PUBLISHED step loads at startup and ``CheckpointWatcher`` hot-reloads
+  every later publish (any change of step, backwards too) — or fresh
+  (from ``seed``), or carried in through ``state`` (for example a JAX
+  model's weights via ``transformer_lm.params_from_jax``).  A reload
+  builds a private module on the watcher thread (restore, device
+  placement, one forward at the smallest bucket so the first request after
+  the cut-over pays no weight casts) while serving continues; the cut-over
+  is one reference swap under a leaf lock.  The PS host tier with its
+  hot-id cache is a later slice of the port; asking for it raises.
 
 Live metrics as in the reference, plus ``edl_kernel_launches_total{kernel=}``
 — the hand-written kernels' launch counts (``ops/kernels.py``), read at
@@ -33,6 +38,7 @@ import torch
 
 from elasticdl_tpu_torch.common import gauge as gaugelib
 from elasticdl_tpu_torch.common import locksan
+from elasticdl_tpu_torch.common.checkpoint import CheckpointManager, read_manifest
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.rpc import (
     SERVING_SCHEMAS,
@@ -41,7 +47,14 @@ from elasticdl_tpu_torch.common.rpc import (
     make_generic_handler,
 )
 from elasticdl_tpu_torch.ops import kernels
-from elasticdl_tpu_torch.parallel.trainer import Trainer, outputs_to_numpy
+from elasticdl_tpu_torch.parallel.trainer import (
+    PARAMS,
+    STEP_KEY,
+    Trainer,
+    TrainState,
+    outputs_to_numpy,
+)
+from elasticdl_tpu_torch.serving.checkpoint_watcher import CheckpointWatcher
 from elasticdl_tpu_torch.serving.micro_batcher import (
     DEFAULT_LANE,
     LANES,
@@ -50,6 +63,10 @@ from elasticdl_tpu_torch.serving.micro_batcher import (
 )
 
 logger = get_logger("serving.server")
+
+#: The canonical-state paths a replica reads: the parameters and the step
+#: (the optimizer's moments stay on disk).
+SERVED_PATHS = (PARAMS, STEP_KEY)
 
 #: Feature keys of the model's example batch that are NOT client features.
 _NON_FEATURE_KEYS = ("labels", MASK_KEY)
@@ -64,8 +81,9 @@ def _listify(outputs: Any) -> Any:
 
 
 class _LiveModel:
-    """One immutable serving snapshot: requests in flight keep the
-    instance they were handed."""
+    """One immutable serving snapshot: the unit the hot reload swaps.
+    Requests in flight keep the instance they were handed — the swap can
+    never tear a half-old/half-new forward."""
 
     __slots__ = ("step", "state")
 
@@ -78,8 +96,12 @@ class ServingServer:
     """Micro-batched prediction service over one model-zoo model.
 
     ``device``: ``"cuda"`` unless the caller asks for ``"cpu"`` (no CUDA
-    and no explicit ``"cpu"`` raises).  ``state``: weights to serve
-    instead of fresh ones from ``seed``, already on that device.
+    and no explicit ``"cpu"`` raises).  ``checkpoint_dir``: a training
+    job's checkpoint directory; the newest published step loads at startup
+    (fresh weights otherwise, logged loudly) and the watcher, polling every
+    ``poll_interval_s``, hot-reloads each later publish.  ``state``:
+    weights to serve instead of fresh ones from ``seed``, already on that
+    device.
     """
 
     def __init__(
@@ -89,6 +111,7 @@ class ServingServer:
         ps_addresses: str = "",
         max_batch: int = 64,
         max_delay_ms: float = 5.0,
+        poll_interval_s: float = 0.5,
         port: int = 0,
         max_workers: int = 16,
         seed: int = 0,
@@ -101,11 +124,6 @@ class ServingServer:
         state: Optional[torch.nn.Module] = None,
         device: Any = None,
     ):
-        if checkpoint_dir:
-            raise NotImplementedError(
-                "checkpoint restore and hot reload are not ported yet "
-                "(ROADMAP, PyTorch port queue: checkpoint publish and reload)"
-            )
         if ps_addresses:
             raise NotImplementedError(
                 "the PS host tier is not ported yet (ROADMAP, PyTorch port "
@@ -120,16 +138,43 @@ class ServingServer:
         self._shape_buckets = tuple(
             sorted(set(int(b) for b in (batch_buckets or ())) | {max_batch})
         )
-        if state is None:
-            state = self.trainer.init_state(seed).model
-            logger.warning(
-                "serving fresh weights from seed %d (no checkpoint restore "
-                "in this port yet)", seed,
-            )
-        state = state.eval()
+        # The step to serve from checkpoint_dir at startup, if any: its
+        # restore builds the module, and no fresh weights are made.
+        self._ckpt: Optional[CheckpointManager] = None
+        start: Optional[Tuple[int, Dict[str, Any]]] = None
+        if checkpoint_dir:
+            self._ckpt = CheckpointManager(checkpoint_dir)
+            manifest = read_manifest(checkpoint_dir)
+            if manifest is not None:
+                start = (int(manifest["step"]), manifest)
+            else:
+                # No published manifest: serve the newest complete step
+                # once, loudly; the watcher keys strictly off the manifest
+                # from here on.
+                step = self._ckpt.latest_step()
+                if step is not None:
+                    logger.warning(
+                        "no published manifest under %s; serving the newest "
+                        "step %d", checkpoint_dir, step,
+                    )
+                    start = (int(step), {})
+                else:
+                    logger.warning(
+                        "no checkpoint under %s: serving FRESHLY "
+                        "INITIALIZED weights", checkpoint_dir,
+                    )
+        if state is None and start is None:
+            state = self.spec.init(seed=seed, device=self.trainer.device)
         self._state_lock = locksan.lock("ServingServer._state_lock", leaf=True)  # lock-order: leaf
-        self._live = _LiveModel(-1, state)  # guarded-by: _state_lock
+        # None until the startup restore below swaps its module in.
+        self._live = _LiveModel(-1, None if state is None else state.eval())  # guarded-by: _state_lock
         self._requests = 0  # guarded-by: _state_lock
+        self._reloads = 0  # guarded-by: _state_lock
+        self._last_swap_ms = 0.0  # guarded-by: _state_lock
+        self._last_load_s = 0.0  # guarded-by: _state_lock
+        # (step, load seconds, swap ms, wall clock of the cut-over) per
+        # reload: the publish-to-live reading.
+        self.reload_log: list = []  # guarded-by: _state_lock
 
         # Client-facing feature template (dtype/shape contract, ModelInfo).
         example = spec.example_batch(max_batch) if spec.example_batch else None
@@ -156,6 +201,22 @@ class ServingServer:
             # request count, or excess load parks invisibly in the executor.
             max_queue_rows=max_queue_rows,
         )
+
+        self._watcher: Optional[CheckpointWatcher] = None
+        if checkpoint_dir:
+            if start is not None:
+                self._reload(*start)
+            with self._state_lock:
+                loaded = self._live.step
+            self._watcher = CheckpointWatcher(
+                checkpoint_dir, self._reload, poll_interval_s, name=spec.name,
+                initial_step=None if loaded < 0 else loaded,
+            )
+        else:
+            logger.warning(
+                "serving without checkpoint_dir: fixed weights, no hot "
+                "reload (smoke/bench mode)"
+            )
 
         self.target_p99_ms = float(target_p99_ms)
         self.gauges = gauges if gauges is not None else gaugelib.default()
@@ -220,6 +281,51 @@ class ServingServer:
             batch[MASK_KEY] = np.zeros((bucket,), np.float32)
             self._run_batch(batch, 0)
         return time.perf_counter() - t0
+
+    def _reload(self, step: int, manifest: Dict[str, Any]) -> None:
+        """Load checkpoint ``step`` and swap it live (the watcher callback).
+
+        The expensive half — the read (parameters only), device placement,
+        and one forward at the smallest bucket (weight casts, allocator
+        growth) — runs on the CALLING thread against a private module while
+        serving continues on the old snapshot.  The live path is touched only by
+        the reference swap at the end."""
+        t0 = time.perf_counter()
+        arrays = self._ckpt.restore(step, prefixes=SERVED_PATHS)
+        # On the card, on a side stream: the compute stream carries the
+        # flushes (and, sharing a card, a trainer's steps), which must not
+        # queue behind the upload.  The warm forward's host copy waits for
+        # the side stream's work, so the module is whole before the swap.
+        stream = torch.cuda.Stream(self.trainer.device) if self.trainer.device.type == "cuda" else None
+        with torch.cuda.stream(stream):
+            model = self.spec.init(seed=None, device=self.trainer.device)
+            model = self.trainer.adopt_restored(arrays, TrainState(0, model, None)).model.eval()
+            bucket = self._shape_buckets[0]
+            batch = {
+                k: np.zeros((bucket,) + t.shape[1:], t.dtype)
+                for k, t in self._batcher._template.items()
+            }
+            outputs_to_numpy(self.trainer.run_predict_step(model, batch))
+        load_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        with self._state_lock:
+            self._live = _LiveModel(step, model)
+        swap_ms = (time.perf_counter() - t1) * 1e3
+        with self._state_lock:
+            self._reloads += 1
+            self._last_swap_ms = swap_ms
+            self._last_load_s = load_s
+            self.reload_log.append((step, load_s, swap_ms, time.time()))
+        logger.info(
+            "serving step %d live (load %.2fs off-path, swap %.3fms)",
+            step, load_s, swap_ms,
+        )
+
+    @property
+    def live_step(self) -> int:
+        """The step of the weights being served (-1: not a checkpoint)."""
+        with self._state_lock:
+            return self._live.step
 
     # ---- request path ----
 
@@ -352,8 +458,11 @@ class ServingServer:
                 labels={"kernel": name},
             ).set_total(float(n))
         with self._state_lock:
-            step = self._live.step
+            step, reloads = self._live.step, self._reloads
         g.gauge("edl_serving_step", "live model step").set(float(step))
+        g.gauge("edl_serving_reloads", "hot reloads performed").set(
+            float(reloads)
+        )
         p99 = self._g_request_ms["online"].quantile(0.99)
         if p99 is not None:
             g.gauge(
@@ -373,8 +482,11 @@ class ServingServer:
         with self._state_lock:
             step = self._live.step
             requests = self._requests
-        # reloads / swap / load / cache: the reference's reload and
-        # host-tier fields, zero and empty until those slices are ported.
+            reloads = self._reloads
+            last_swap_ms = self._last_swap_ms
+            last_load_s = self._last_load_s
+        # cache: the reference's host-tier field, empty until that slice
+        # is ported.
         return {
             "model": self.spec.name,
             "step": step,
@@ -386,9 +498,9 @@ class ServingServer:
                 for k, v in self._features.items()
             },
             "requests": requests,
-            "reloads": 0,
-            "last_swap_ms": 0.0,
-            "last_load_s": 0.0,
+            "reloads": reloads,
+            "last_swap_ms": round(last_swap_ms, 3),
+            "last_load_s": round(last_load_s, 3),
             "batcher": self._batcher.stats(),
             "cache": {},
         }
@@ -410,6 +522,8 @@ class ServingServer:
 
     def start(self) -> "ServingServer":
         self._server.start()
+        if self._watcher is not None:
+            self._watcher.start()
         from elasticdl_tpu_torch.common.metrics_http import maybe_start
 
         self._metrics_server = maybe_start(
@@ -429,6 +543,8 @@ class ServingServer:
         self._server.wait_for_termination()
 
     def stop(self, grace: float = 1.0) -> None:
+        if self._watcher is not None:
+            self._watcher.stop()
         if self._metrics_server is not None:
             self._metrics_server.stop()
             self._metrics_server = None

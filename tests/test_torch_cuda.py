@@ -151,3 +151,107 @@ def test_cuda_transformer_lm_trains_through_the_kernels(card, remat):
     assert all(np.isfinite(losses)) and losses[1] < losses[0]
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in state.model.parameters())
+
+
+def test_cuda_tiny_job_over_the_direct_master(card, tmp_path):
+    """A tiny elastic job on the card: 4 training tasks through the
+    kernels, eval rounds over a ragged validation file (each eval step's
+    forward through the kernel), checkpoints published, a replica's hot
+    reload of the last one serving the worker's final module."""
+    from elasticdl_tpu_torch.common.checkpoint import read_manifest
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.data.reader import create_data_reader
+    from elasticdl_tpu_torch.data.synthetic import generate
+    from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
+    from elasticdl_tpu_torch.master.servicer import MasterServicer
+    from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+    from elasticdl_tpu_torch.parallel.trainer import outputs_to_numpy
+    from elasticdl_tpu_torch.serving.server import ServingServer
+    from elasticdl_tpu_torch.worker.worker import DirectMasterProxy, Worker
+
+    seq, vocab, layers, mb = 256, 512, 2, 4
+    model = dict(compute_dtype="bfloat16", vocab=vocab, dim=128, n_heads=2, n_layers=layers,
+                 max_seq=seq, seq_len=seq, remat=False)
+    train, val = str(tmp_path / "train.rio"), str(tmp_path / "val.rio")
+    generate("lm", train, 32, seed=0, seq_len=seq, vocab=vocab)
+    generate("lm", val, 10, seed=1, seq_len=seq, vocab=vocab)
+    ckpt = str(tmp_path / "ckpt")
+    config = JobConfig(model_def="transformer_lm.model_spec", minibatch_size=mb,
+                       num_minibatches_per_task=2, evaluation_steps=4, checkpoint_dir=ckpt,
+                       checkpoint_steps=4, keep_checkpoint_max=2)
+    reader, eval_reader = create_data_reader(train), create_data_reader(val)
+    servicer = MasterServicer(
+        TaskDispatcher(reader.create_shards(2 * mb)),
+        evaluation=EvaluationService(eval_reader.create_shards(2 * mb), 4),
+    )
+
+    class Mux:
+        def read_records(self, shard):
+            return (reader if shard.name == train else eval_reader).read_records(shard)
+
+    spec = tlm.model_spec(**model)
+    worker = Worker(config, DirectMasterProxy(servicer), Mux(), spec=spec)
+    assert worker.trainer.device.type == "cuda"
+    kernels.reset_counts()
+    result = worker.run()
+    counts = kernels.counts()
+    status = servicer.JobStatus({})
+    assert status["done"] == 4 and status["duplicate_done"] == 0 and result["step"] == 8
+    eval_steps = status["eval_rounds"] * 3  # 10 records: 2 tasks, 3 minibatches a round
+    assert status["eval_rounds"] >= 1 and np.isfinite(status["eval_metrics"]["loss"])
+    assert counts.get(tfa.DQ_KERNEL, 0) == counts.get(tfa.DKV_KERNEL, 0) == 8 * layers
+    assert counts.get(tfa.KERNEL, 0) == (8 + eval_steps) * layers
+    assert read_manifest(ckpt)["step"] == 8
+    server = ServingServer(spec, checkpoint_dir=ckpt, max_batch=2, batch_buckets=[2])
+    try:
+        assert server.live_step == 8
+        toks = np.random.default_rng(2).integers(0, vocab, (2, seq)).astype(np.int32)
+        served = server._run_batch({"tokens": toks}, 2)[0]
+        ref = outputs_to_numpy(server.trainer.run_predict_step(worker.state.model, {"tokens": toks}))
+        # The same weights through the same kernels: chip_smoke.py's bf16
+        # limit on the error norm over the norm.
+        assert np.linalg.norm(served - ref) / np.linalg.norm(ref) <= 1e-2
+    finally:
+        server.stop(grace=0)
+
+
+def test_cuda_checkpoint_round_trip_of_a_cuda_state(card, tmp_path):
+    """Snapshot -> host -> disk -> card, bit-exact, with a train step
+    updating the live state in place between the snapshot and its host
+    copy; the restored state's next step matches the live run's."""
+    from elasticdl_tpu_torch.common.checkpoint import CheckpointManager
+
+    spec = tlm.model_spec(compute_dtype="bfloat16", vocab=512, dim=128, n_heads=2,
+                          n_layers=2, max_seq=256, seq_len=256)
+    trainer = Trainer(spec, device="cuda")
+    state = trainer.init_state(0)
+    toks = np.random.default_rng(0).integers(0, 512, (4, 257)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    state, _ = trainer.run_train_steps(state, [batch, batch])
+    want = trainer.host_state(state)
+    mgr = CheckpointManager(str(tmp_path))
+    snap = trainer.snapshot_state(state)
+    assert all(v.is_cuda for k, v in snap.items() if k.startswith("params/"))
+    state, live = trainer.run_train_steps(state, [batch])  # in place, after the snapshot
+    saved = trainer.to_host(snap)  # the background host copy
+    assert sorted(saved) == sorted(want)
+    for key in want:
+        assert np.array_equal(saved[key], want[key]), key
+    mgr.save(2, saved)
+    mgr.publish(2)
+    restored = trainer.adopt_restored(mgr.restore(2), trainer.init_state(1))
+    got = trainer.host_state(restored)
+    assert sorted(got) == sorted(want) and restored.step == 2
+    for key in want:
+        assert np.array_equal(got[key], want[key]), key
+    assert all(p.is_cuda for p in restored.model.parameters())
+    assert all(st["exp_avg"].is_cuda for st in restored.optimizer.state.values())
+    # The restored state's step 3 against the live one's: the same loss,
+    # and the same parameters and moments after it (limit 1e-5 on the
+    # error norm over the norm; wrong moments or count miss by far more).
+    restored, resumed = trainer.run_train_steps(restored, [batch])
+    assert float(resumed[0]["loss"]) == pytest.approx(float(live[0]["loss"]), rel=1e-6)
+    a, b = trainer.host_state(state), trainer.host_state(restored)
+    for key in a:
+        ref = a[key].astype(np.float64)
+        assert np.linalg.norm(b[key] - ref) <= 1e-5 * max(np.linalg.norm(ref), 1e-30), key

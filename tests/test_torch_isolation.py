@@ -30,6 +30,15 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     mods = _modules()
     assert "elasticdl_tpu_torch.serving.server" in mods
     assert "elasticdl_tpu_torch.ops.flash_attention" in mods
+    # The job's modules: the copies and the ports.
+    for name in (
+        "chaos", "chaos.inject", "common.checkpoint", "common.config", "common.crashsan",
+        "common.durable", "common.metrics", "common.racesan", "data.prefetch",
+        "data.reader", "data.recordio", "data.synthetic", "master.evaluation_service",
+        "master.fleet_metrics", "master.rendezvous", "master.servicer",
+        "master.task_dispatcher", "serving.checkpoint_watcher", "worker.worker",
+    ):
+        assert f"elasticdl_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -69,12 +78,14 @@ def test_source_scan_finds_no_jax_or_reference_import():
     assert not _IMPORT.search("from elasticdl_tpu_torch.common import rpc")
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it():
+def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
+    from elasticdl_tpu_torch.common.config import JobConfig
     from elasticdl_tpu_torch.models import transformer_lm
     from elasticdl_tpu_torch.parallel.trainer import Trainer
     from elasticdl_tpu_torch.serving.server import ServingServer
+    from elasticdl_tpu_torch.worker.worker import Worker
 
     spec = transformer_lm.model_spec(vocab=32, dim=16, n_heads=2, n_layers=1, max_seq=8, seq_len=8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -85,5 +96,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         spec.init(seed=0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         transformer_lm.params_from_jax({}, n_heads=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Worker(JobConfig(model_def="transformer_lm.model_spec"), master=None, reader=None,
+               spec=spec)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingServer(spec, checkpoint_dir=str(tmp_path), max_batch=2)
     # Asked for explicitly, the CPU works.
     assert Trainer(spec, device="cpu").device.type == "cpu"
+    worker = Worker(JobConfig(), master=None, reader=None, spec=spec, device="cpu")
+    assert worker.trainer.device.type == "cpu"
