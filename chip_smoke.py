@@ -39,7 +39,24 @@ exits non-zero without its result line:
    counts zeroed just before and read just after; the last save must equal
    the live state exactly; then a second job over the same checkpoint
    directory resumes at step 32 with bit-exact arrays, and its state's next
-   train step matches the live state's.
+   train step matches the live state's;
+8. run the process-level job at the same width on the same files through
+   the CLI's local mode (``python -m elasticdl_tpu_torch.client.main
+   train`` in a subprocess: a ``Master`` with a ``ProcessPodBackend`` and
+   one worker process on the card) with a ``ServingServer`` in this
+   process polling the manifest: the first worker is SIGKILLed once the
+   manifest names the first checkpoint and its relaunch joins from that
+   step; the relaunch is SIGTERMed during a later task, snapshots, exits 3
+   and is relaunched without charging the budget, and the last
+   incarnation joins from the snapshot and finishes.  Every task done,
+   none abandoned, the relaunch counts, the replica's applied steps, and
+   the last worker process's launch counts (12 a forward, 12/12/12 a
+   train step; its ``[worker-event]`` summary line) are checked; the
+   recovery is timed from each signal to the next first step;
+9. phase 8's SIGKILL again, with a warm standby (``--warm_worker_standby``):
+   the pod manager adopts a parked spare that paid its imports under the
+   relaunch's name; the job finishes, the adopted process's launch counts
+   are checked, and the recovery is timed against phase 8's cold one.
 
 Prints the card's name and power limit first, a ``{"kernels": [...]}``
 line before the last, and ``{"ok": true, "device": {...}}`` last.  The
@@ -1071,6 +1088,310 @@ def phase_job(card: str, train_p50_ms: float) -> dict:
     }
 
 
+PROC_JOB = "chip8"
+# The first incarnation stalls at its first task boundary past the first
+# checkpoint (it is SIGKILLed there); the relaunch stalls 2 s at its first
+# boundary a task later (it is SIGTERMed there).  Chaos hooks of the worker
+# loop, each matching one pod name.
+PROC_CHAOS = (f"stall:worker={PROC_JOB}-worker-0,point=task,step={JOB['checkpoint_steps']},"
+              f"ms=600000;stall:worker={PROC_JOB}-worker-0-r1,point=task,"
+              f"step={JOB['checkpoint_steps'] + JOB['num_minibatches_per_task']},ms=2000")
+
+
+def _read(path: str) -> str:
+    if not os.path.exists(path):
+        return ""
+    with open(path, errors="replace") as f:
+        return f.read()
+
+
+def _worker_events(text: str) -> dict:
+    """A worker process's ``[worker-event]`` lines, by kind."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("[worker-event] "):
+            event = json.loads(line[len("[worker-event] "):])
+            out[event["event"]] = event
+    return out
+
+
+def _log_time(text: str, needle: str) -> float:
+    """The wall time of the first log line holding ``needle`` (the log
+    format's ``[YYYY-mm-dd HH:MM:SS,mmm]`` prefix, local time)."""
+    line = next(x for x in text.splitlines() if needle in x)
+    stamp = line[1:24]
+    return time.mktime(time.strptime(stamp[:19], "%Y-%m-%d %H:%M:%S")) + int(stamp[20:23]) / 1e3
+
+
+def _wait_for(cond, what: str, proc, timeout_s: float = 300.0):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        value = cond()
+        if value:
+            return value
+        if proc.poll() is not None:
+            raise AssertionError(f"the job exited {proc.returncode} before {what}")
+        time.sleep(0.02)
+    raise AssertionError(f"timed out after {timeout_s:.0f}s waiting for {what}")
+
+
+def _cli_job(job_name: str, ckpt: str, pods: str, chaos: str, *flags: str) -> list:
+    """The CLI's local-mode command for phase 7's files at phase 4's width."""
+    out = os.path.join(REPO, "chiprun_out", "job")
+    train, val = os.path.join(out, "train.rio"), os.path.join(out, "val.rio")
+    assert os.path.exists(train) and os.path.exists(val), "phase 7 writes the job's data"
+    params = ";".join(f"{k}={v}" for k, v in TRAIN_WIDTH.items())
+    cmd = [sys.executable, "-m", "elasticdl_tpu_torch.client.main", "train", "--local",
+           f"--job_name={job_name}", "--model_def=transformer_lm.model_spec",
+           f"--model_params={params};compute_dtype=bfloat16;remat=false",
+           "--learning_rate=3e-4", f"--training_data={train}", f"--validation_data={val}",
+           f"--checkpoint_dir={ckpt}", f"--pod_log_dir={pods}", "--max_worker_relaunch=2",
+           f"--chaos={chaos}", *flags]
+    return cmd + [f"--{k}={v}" for k, v in JOB.items()]
+
+
+def _start_cli(cmd: list, log_path: str):
+    """The CLI in its own session (so a failure can kill it and its worker
+    processes at once), on the card: no ``ELASTICDL_TORCH_DEVICE``."""
+    env = {k: v for k, v in os.environ.items() if k != "ELASTICDL_TORCH_DEVICE"}
+    with open(log_path, "w") as cli_log:
+        return subprocess.Popen(cmd, cwd=REPO, env=env, stdout=cli_log,
+                                stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def _stop_cli(proc) -> None:
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)  # the CLI and its worker processes
+        proc.wait()
+
+
+def phase_process_job(card: str, job_p50_ms: float) -> dict:
+    """The process-level elastic job on the card, through the CLI's local
+    mode: ``python -m elasticdl_tpu_torch.client.main train`` in a
+    subprocess (a ``Master`` with a ``ProcessPodBackend``, one worker
+    process on the card) over phase 7's RecordIO files at phase 4's width,
+    with a ``ServingServer`` in this process polling the manifest.  The
+    first worker is SIGKILLed once the manifest names the first checkpoint:
+    the pod manager relaunches it (budget charged), and the relaunch joins
+    from that step.  The relaunch is SIGTERMed during a later task: it
+    snapshots, exits 3, is relaunched without charging the budget, and the
+    last incarnation resumes from the snapshot and finishes the job."""
+    import ast
+    import shutil
+
+    from elasticdl_tpu_torch.common.checkpoint import read_manifest
+    from elasticdl_tpu_torch.models import transformer_lm
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.serving.server import ServingServer
+
+    out = os.path.join(REPO, "chiprun_out", "job")
+    ckpt, pods = os.path.join(out, "ckpt8"), os.path.join(out, "pods")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(pods, ignore_errors=True)
+    width = TRAIN_WIDTH
+    seq, layers, mb = width["seq_len"], width["n_layers"], JOB["minibatch_size"]
+    n_tasks = JOB_TRAIN // (mb * JOB["num_minibatches_per_task"])
+    every = JOB["checkpoint_steps"]
+    torch.cuda.empty_cache()  # the worker processes share the card with this one
+    spec = transformer_lm.model_spec(compute_dtype="bfloat16", remat=False, **width)
+    replica = ServingServer(spec, checkpoint_dir=ckpt, max_batch=4, batch_buckets=[1, 4],
+                            poll_interval_s=0.1)
+    replica.warmup()
+    replica.start()
+    first, second, third = (f"{PROC_JOB}-worker-0", f"{PROC_JOB}-worker-0-r1",
+                            f"{PROC_JOB}-worker-0-r2")
+    pod_log = {n: os.path.join(pods, f"{n}.log") for n in (first, second, third)}
+    cli_path = os.path.join(out, "cli.log")
+    t0 = time.time()
+    proc = _start_cli(_cli_job(PROC_JOB, ckpt, pods, PROC_CHAOS), cli_path)
+    try:
+        # SIGKILL the first worker once the manifest names the first
+        # checkpoint (it stalls at its next task boundary meanwhile).
+        _wait_for(lambda: (read_manifest(ckpt) or {}).get("step") == every,
+                  f"the step-{every} checkpoint", proc)
+        first_pid = _worker_events(_read(pod_log[first]))["ready"]["pid"]
+        t_kill = time.time()
+        os.kill(first_pid, signal.SIGKILL)
+        # SIGTERM the relaunch during a later task (its 2 s stall).
+        _wait_for(lambda: "[graftchaos] stall" in _read(pod_log[second]),
+                  "the relaunch's later task", proc)
+        second_pid = _worker_events(_read(pod_log[second]))["ready"]["pid"]
+        t_term = time.time()
+        os.kill(second_pid, signal.SIGTERM)
+        rc = proc.wait(timeout=600)
+        wall_s = time.time() - t0
+        deadline = time.monotonic() + 120
+        final = (read_manifest(ckpt) or {}).get("step")
+        while replica.live_step != final and time.monotonic() < deadline:
+            time.sleep(0.05)
+        reloads = list(replica.reload_log)
+        toks = np.random.default_rng(3).integers(0, width["vocab"], (1, seq)).astype(np.int32)
+        served = replica._batcher.submit({"tokens": toks}).result(timeout_s=300.0)[0]
+    finally:
+        _stop_cli(proc)
+        replica.stop(grace=0.5)
+    cli, logs = _read(cli_path), {n: _read(p) for n, p in pod_log.items()}
+    assert rc == 0, f"the job exited {rc}; see {cli_path}"
+    status = ast.literal_eval(cli.split("job finished: ", 1)[1].splitlines()[0])
+    ev = {n: _worker_events(text) for n, text in logs.items()}
+
+    # The job: every task done once, none abandoned; the relaunches.
+    assert status["finished"] and status["done"] == n_tasks, status
+    assert status["abandoned"] == 0 and status["duplicate_done"] == 0, status
+    assert np.isfinite(status["eval_metrics"]["loss"]), status
+    for needle in (f"pod {first} exited rc=-9 -> Failed",
+                   f"relaunching failed pod {first} as {second} (relaunch 1/2)",
+                   f"pod {second} exited rc=3 -> Restart",
+                   f"relaunching failed pod {second} as {third} (relaunch 1/2)",
+                   f"pod {third} exited rc=0 -> Succeeded"):
+        assert needle in cli, needle
+    # The SIGKILLed worker's relaunch joined from the published step; the
+    # SIGTERMed one snapshotted, and the last incarnation joined from it.
+    assert f"joined from checkpoint step {every}" in logs[second]
+    assert ev[second]["ready"]["joined_step"] == every, ev[second]
+    snap = int(logs[second].split("preemption snapshot at step ", 1)[1].split()[0])
+    assert snap > every and ev[third]["ready"]["joined_step"] == snap, (snap, ev[third])
+    assert f"joined from checkpoint step {snap}" in logs[third]
+    summary = ev[third]["summary"]
+    manifest = read_manifest(ckpt)
+    assert manifest["step"] == summary["step"] == snap + summary["steps"], (manifest, summary)
+    assert summary["step"] >= JOB_TRAIN // mb, summary
+    # The replica applied published steps only, in order, up to the last.
+    published = [int(line.rsplit(" ", 1)[1]) for name in (first, second, third)
+                 for line in logs[name].splitlines() if "published checkpoint step" in line]
+    applied = [r[0] for r in reloads]
+    assert applied and applied[-1] == manifest["step"], (applied, manifest)
+    assert applied == sorted(set(applied)) and set(applied) <= set(published), (
+        applied, published)
+    assert served.shape == (1, seq, width["vocab"]) and np.isfinite(served).all(), served.shape
+    # The last incarnation's launches: 12 a forward (train and eval steps),
+    # 12 dq and 12 dkv a train step.
+    launches = summary["launches"]
+    _check_job_launches(launches, layers, summary["steps"], summary["eval_steps"])
+
+    # Times: the kill's and the preemption's recovery, decomposed.
+    def recovery(pod: str, t_signal: float, first_key: str, first_at: float) -> dict:
+        ready = ev[pod]["ready"]
+        return dict({first_key: first_at - t_signal,
+                     "relaunch_start_s": ready["started_at"] - t_signal},
+                    **{k: ready[k] for k in ("boot_s", "device_init_s", "restore_s", "init_s",
+                                             "read_s", "load_s")},
+                    recover_s=ev[pod]["first_step"]["at"] - t_signal)
+
+    kill = recovery(second, t_kill, "detect_s", _log_time(cli, f"pod {first} exited"))
+    term = recovery(third, t_term, "exit_s", _log_time(cli, f"pod {second} exited"))
+    step_ms = summary["step_ms"]
+    assert len(step_ms) == summary["steps"] - 1, (len(step_ms), summary["steps"])
+    p50 = statistics.median(step_ms)
+    tokens = manifest["step"] * mb * seq
+    log(f"[proc] {n_tasks} tasks done, {status['abandoned']} abandoned, "
+        f"{status['duplicate_done']} duplicates, {status['eval_rounds']} eval rounds (eval loss "
+        f"{status['eval_metrics']['loss']:.4f}); SIGKILL at step-{every} publish -> {second} "
+        f"joined from {every}; SIGTERM -> snapshot at {snap}, exit 3 -> {third} joined from "
+        f"{snap}; final step {manifest['step']}; published {published}; replica applied "
+        f"{applied}")
+    for name, r, first_key in (("SIGKILL", kill, "detect"), ("SIGTERM", term, "exit")):
+        log(f"[proc] {name} recovery (s): {first_key} {r[first_key + '_s']:.3f}, relaunched "
+            f"process started {r['relaunch_start_s']:.3f}, boot {r['boot_s']:.3f}, CUDA "
+            f"context {r['device_init_s']:.3f}, restore {r['restore_s']:.3f} (seeded init "
+            f"{r['init_s']:.3f}, read {r['read_s']:.3f}, load {r['load_s']:.3f}), first step "
+            f"done {r['recover_s']:.3f} after the signal; on {card}")
+    log(f"[proc] job wall {wall_s:.2f}s (three worker boots, the injected stalls, the "
+        f"saves); {tokens / wall_s:,.0f} tokens/s of the final model's {manifest['step']} "
+        f"steps over it; last incarnation: {summary['steps']} steps, {summary['eval_steps']} "
+        f"eval steps, {(len(step_ms)) * mb * seq / (sum(step_ms) / 1e3):,.0f} tokens/s over "
+        f"its steps, step p50 {p50:.2f} ms (device events) vs phase 7's job "
+        f"{job_p50_ms:.2f} ms; on {card}")
+    log("[proc] last incarnation step ms " + ", ".join(f"{x:.1f}" for x in step_ms))
+    log("[proc] last incarnation launches " + json.dumps(launches) + f" = {layers} x "
+        f"({summary['steps']} train steps; {summary['eval_steps']} eval steps)")
+    log("[proc] last incarnation phases (s): " + json.dumps(summary["phase_times"]))
+    shutil.rmtree(ckpt)  # 2.7 GB of checkpoints: too much to keep in chiprun_out/
+    return {
+        "tasks": n_tasks, "status": {k: status[k] for k in (
+            "done", "abandoned", "duplicate_done", "eval_rounds", "eval_metrics")},
+        "snapshot_step": snap, "final_step": manifest["step"], "published": published,
+        "replica_applied": applied, "kill": kill, "term": term, "wall_s": wall_s,
+        "tokens_per_s_wall": tokens / wall_s, "last": summary, "p50_step_ms": p50,
+        "launches": launches,
+        "kernels": {n: launches.get(n, 0) for n in (fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL)},
+    }
+
+
+STANDBY_JOB = "chip9"
+
+
+def phase_process_job_standby(card: str, cold_recover_s: float) -> dict:
+    """Phase 8's SIGKILL with a warm standby (``--warm_worker_standby``):
+    the pod manager parks a spare worker process that has paid its imports
+    and, when the first worker is SIGKILLed at the first checkpoint (the
+    same chaos stall holds it there), adopts the spare under the relaunch's
+    name instead of booting a process.  The job finishes; the adopted
+    process's launch counts are its own steps'."""
+    import ast
+    import shutil
+
+    from elasticdl_tpu_torch.common.checkpoint import read_manifest
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    out = os.path.join(REPO, "chiprun_out", "job")
+    ckpt, pods = os.path.join(out, "ckpt9"), os.path.join(out, "pods9")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(pods, ignore_errors=True)
+    every, layers = JOB["checkpoint_steps"], TRAIN_WIDTH["n_layers"]
+    n_tasks = JOB_TRAIN // (JOB["minibatch_size"] * JOB["num_minibatches_per_task"])
+    first, second = f"{STANDBY_JOB}-worker-0", f"{STANDBY_JOB}-worker-0-r1"
+    cli_path = os.path.join(out, "cli9.log")
+    chaos = f"stall:worker={first},point=task,step={every},ms=600000"
+    proc = _start_cli(_cli_job(STANDBY_JOB, ckpt, pods, chaos, "--warm_worker_standby=true"),
+                      cli_path)
+    try:
+        _wait_for(lambda: (read_manifest(ckpt) or {}).get("step") == every,
+                  f"the step-{every} checkpoint", proc)
+        # Only a warmed spare is adopted (one still importing is replaced
+        # by a cold spawn); the first worker stalls meanwhile.
+        _wait_for(lambda: "standby warmed" in _read(os.path.join(pods, "standby.go.1.log")),
+                  "the warm spare", proc)
+        first_pid = _worker_events(_read(os.path.join(pods, f"{first}.log")))["ready"]["pid"]
+        t_kill = time.time()
+        os.kill(first_pid, signal.SIGKILL)
+        rc = proc.wait(timeout=600)
+    finally:
+        _stop_cli(proc)
+    cli, adopted = _read(cli_path), _read(os.path.join(pods, f"{second}.log"))
+    assert rc == 0, f"the job exited {rc}; see {cli_path}"
+    status = ast.literal_eval(cli.split("job finished: ", 1)[1].splitlines()[0])
+    assert status["finished"] and status["done"] == n_tasks, status
+    assert status["abandoned"] == 0 and status["duplicate_done"] == 0, status
+    for needle in (f"pod {first} exited rc=-9 -> Failed",
+                   f"relaunching failed pod {first} as {second} (relaunch 1/2)",
+                   f"as {second}", f"pod {second} exited rc=0 -> Succeeded"):
+        assert needle in cli, needle
+    assert f"standby adopted as {second}" in adopted and (
+        f"joined from checkpoint step {every}" in adopted), adopted[-3000:]
+    ev = _worker_events(adopted)
+    summary, ready = ev["summary"], ev["ready"]
+    assert ready["joined_step"] == every and summary["step"] >= JOB_TRAIN // JOB["minibatch_size"]
+    _check_job_launches(summary["launches"], layers, summary["steps"], summary["eval_steps"])
+    warm = dict({"detect_s": _log_time(cli, f"pod {first} exited") - t_kill,
+                 "adopted_s": _log_time(cli, "adopted warm standby") - t_kill},
+                **{k: ready[k] for k in ("device_init_s", "restore_s", "init_s", "read_s",
+                                         "load_s")},
+                recover_s=ev["first_step"]["at"] - t_kill)
+    log(f"[standby] SIGKILL recovery with a warm standby (s): detect {warm['detect_s']:.3f}, "
+        f"spare adopted {warm['adopted_s']:.3f}, CUDA context {warm['device_init_s']:.3f}, "
+        f"restore {warm['restore_s']:.3f} (seeded init {warm['init_s']:.3f}, read "
+        f"{warm['read_s']:.3f}, load {warm['load_s']:.3f}), first step done "
+        f"{warm['recover_s']:.3f} after the kill, against phase 8's cold relaunch "
+        f"{cold_recover_s:.3f}; {n_tasks} tasks done, final step {summary['step']}; "
+        f"launches {json.dumps(summary['launches'])} = {layers} x ({summary['steps']} train "
+        f"steps; {summary['eval_steps']} eval steps); on {card}")
+    shutil.rmtree(ckpt)
+    return {"warm": warm, "last": summary,
+            "kernels": {n: summary["launches"].get(n, 0)
+                        for n in (fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL)}}
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -1162,6 +1483,9 @@ def main() -> int:
     report["serve"] = phase_serve_full_width(card)
     report["grpc"] = phase_grpc_replica()
     report["job"] = phase_job(card, report["train"]["p50_step_ms"])
+    report["process_job"] = phase_process_job(card, report["job"]["p50_step_ms"])
+    report["process_job_standby"] = phase_process_job_standby(
+        card, report["process_job"]["kill"]["recover_s"])
     report["wall_s"] = time.perf_counter() - t0
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -1170,15 +1494,19 @@ def main() -> int:
     bwd = report["kernel_bwd"]["train"]
     train_launches = report["train"]["launches"]
     job_launches = report["job"]["launches"]
+    proc_launches = {n: report["process_job"]["kernels"][n]
+                     + report["process_job_standby"]["kernels"][n]
+                     for n in (fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL)}
     source = "elasticdl_tpu_torch/csrc/"
     kernels_line = {"kernels": [
         {
             "name": fa.KERNEL, "route": "cuda", "source": source + fa.SOURCE,
             "replaces": "elasticdl_tpu/ops/flash_attention.py:72",
             # Launches on the main paths: serving flushes, training steps,
-            # and the job (train and eval steps, reload forwards).
+            # the job (train and eval steps, reload forwards) and the
+            # process-level jobs' last worker processes (train and eval steps).
             "launches": (report["serve"]["flash_launches"] + train_launches[fa.KERNEL]
-                         + job_launches[fa.KERNEL]),
+                         + job_launches[fa.KERNEL] + proc_launches[fa.KERNEL]),
             "max_abs_err": fwd["kernel"]["o_max_abs"], "ms": fwd["ms"],
             "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
             "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
@@ -1189,7 +1517,8 @@ def main() -> int:
         {
             "name": fa.DQ_KERNEL, "route": "cuda", "source": source + fa.BWD_SOURCE,
             "replaces": "elasticdl_tpu/ops/flash_attention.py:87",
-            "launches": train_launches[fa.DQ_KERNEL] + job_launches[fa.DQ_KERNEL],
+            "launches": (train_launches[fa.DQ_KERNEL] + job_launches[fa.DQ_KERNEL]
+                         + proc_launches[fa.DQ_KERNEL]),
             "max_abs_err": bwd["kernel"]["dq"]["max_abs"], "ms": bwd["dq_ms"],
             "plain_ms": bwd["dq_plain_ms"], "bound_ms": bwd["dq_bound_ms"],
             "bound_by": bwd["dq_bound_by"], "library_ms": bwd["library_ms"],
@@ -1197,7 +1526,8 @@ def main() -> int:
         {
             "name": fa.DKV_KERNEL, "route": "cuda", "source": source + fa.BWD_SOURCE,
             "replaces": "elasticdl_tpu/ops/flash_attention.py:108",
-            "launches": train_launches[fa.DKV_KERNEL] + job_launches[fa.DKV_KERNEL],
+            "launches": (train_launches[fa.DKV_KERNEL] + job_launches[fa.DKV_KERNEL]
+                         + proc_launches[fa.DKV_KERNEL]),
             "max_abs_err": max(bwd["kernel"]["dk"]["max_abs"], bwd["kernel"]["dv"]["max_abs"]),
             "ms": bwd["dkv_ms"], "plain_ms": bwd["dkv_plain_ms"],
             "bound_ms": bwd["dkv_bound_ms"], "bound_by": bwd["dkv_bound_by"],

@@ -1,0 +1,128 @@
+"""Job submission API behind the PyTorch port's CLI
+(``python -m elasticdl_tpu_torch.client.main``).
+
+Reference parity (SURVEY.md §3.1 [U]): the reference client validates args,
+renders a master pod spec (image, command = master main, job config in
+args/env), and creates the pod via the Kubernetes API; everything after that
+(worker/PS fleet) is the master's job.  Here the config bus is
+``ELASTICDL_JOB_CONFIG`` (see ``common.config``), so the master manifest just
+carries that one env var.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Dict, Optional
+
+from elasticdl_tpu_torch.common.config import JobConfig
+from elasticdl_tpu_torch.common.log_utils import get_logger
+
+logger = get_logger("client.api")
+
+
+def render_master_pod_manifest(
+    config: JobConfig,
+    image: str = "elasticdl-tpu:latest",
+    extra_env: Optional[Dict[str, str]] = None,
+) -> dict:
+    """A Kubernetes V1Pod-shaped dict for the job's master.
+
+    The master is control-plane only (task dispatch, rendezvous, pod
+    management) — it requests no card and can land on any CPU node.  It
+    creates the worker pods, each with its card, itself (see
+    ``master.pod_manager.render_worker_pod_manifest``).
+    """
+    from elasticdl_tpu_torch.master.pod_manager import render_base_pod_manifest
+
+    env = dict(config.to_env())
+    env.update(extra_env or {})
+    manifest = render_base_pod_manifest(
+        config.job_name,
+        f"{config.job_name}-master",
+        "master",
+        image,
+        ["python", "-m", "elasticdl_tpu_torch.master.main"],
+        env,
+    )
+    # Control-plane only: no card, any CPU node; needs pod create/watch RBAC.
+    manifest["spec"]["serviceAccountName"] = "elasticdl-master"
+    manifest["spec"]["containers"][0]["resources"] = {
+        "requests": {"cpu": "1", "memory": "2Gi"},
+    }
+    return manifest
+
+
+def submit(
+    config: JobConfig,
+    image: str = "elasticdl-tpu:latest",
+    namespace: str = "default",
+    manifest_out: str = "",
+) -> dict:
+    """Submit the master pod to a cluster (or emit its manifest).
+
+    Returns the rendered manifest.  With the ``kubernetes`` package
+    installed the pod is created; otherwise the manifest is written to
+    ``manifest_out`` (or logged) for ``kubectl apply -f``.
+    """
+    config.validate()
+    manifest = render_master_pod_manifest(config, image=image)
+    if manifest_out:
+        with open(manifest_out, "w") as f:
+            json.dump(manifest, f, indent=2, sort_keys=True)
+        logger.info("wrote master pod manifest to %s", manifest_out)
+        return manifest
+    try:
+        import kubernetes  # type: ignore
+    except ImportError:
+        raise SystemExit(
+            "the 'kubernetes' package is not installed; re-run with "
+            "--manifest_out=master.json and `kubectl apply -f` it, or use "
+            "--local to run on this host"
+        )
+    kubernetes.config.load_kube_config()  # pragma: no cover - needs cluster
+    core = kubernetes.client.CoreV1Api()  # pragma: no cover
+    core.create_namespaced_pod(namespace, manifest)  # pragma: no cover
+    logger.info(  # pragma: no cover
+        "submitted master pod %s", manifest["metadata"]["name"]
+    )
+    return manifest  # pragma: no cover
+
+
+def _run_local(config: JobConfig) -> int:
+    """Run the whole job on this host: in-process master, subprocess workers.
+
+    Single-host deployment (one host drives its local cards) and the
+    default when no cluster flags are given — the reference has no strict
+    equivalent (its Local strategy skips the master entirely); keeping the
+    master in the loop preserves dynamic sharding + elasticity locally.
+    """
+    from elasticdl_tpu_torch.master.main import Master
+
+    status = Master(config).run()
+    return 0 if not status.get("abandoned") else 1
+
+
+def _run(config: JobConfig, job_type: str, **cluster) -> int:
+    config.job_type = job_type
+    config.validate()
+    if cluster.get("local", True):
+        return _run_local(config)
+    submit(
+        config,
+        image=cluster.get("image") or "elasticdl-tpu:latest",
+        namespace=cluster.get("namespace") or "default",
+        manifest_out=cluster.get("manifest_out") or "",
+    )
+    return 0
+
+
+def train(config: JobConfig, **cluster) -> int:
+    return _run(config, "training", **cluster)
+
+
+def evaluate(config: JobConfig, **cluster) -> int:
+    return _run(config, "evaluation", **cluster)
+
+
+def predict(config: JobConfig, **cluster) -> int:
+    return _run(config, "prediction", **cluster)

@@ -1,0 +1,106 @@
+"""The PyTorch port's CLI: ``python -m elasticdl_tpu_torch.client.main``
+(the JAX package's ``elasticdl`` console script, same verbs and flags).
+
+Reference parity (SURVEY.md §2 #1, §3.1): the reference CLI's verb surface —
+``zoo init|build|push`` and ``train|evaluate|predict`` — with the job flags
+shared with master/worker through the one ``JobConfig`` flag set
+(``common.config.build_arg_parser``), exactly the reference's
+client-validates/master-re-parses layering.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import List, Optional
+
+from elasticdl_tpu_torch.client import api, zoo
+from elasticdl_tpu_torch.common.config import JobConfig, build_arg_parser
+
+_PROG = "python -m elasticdl_tpu_torch.client.main"
+
+
+def _add_cluster_flags(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--local",
+        action="store_true",
+        default=None,
+        help="run master+workers on this host (default unless --image given)",
+    )
+    parser.add_argument("--image", default="", help="framework+zoo image for pods")
+    parser.add_argument(
+        "--manifest_out",
+        default="",
+        help="write the master pod manifest here instead of submitting",
+    )
+
+
+def _job_parser(prog: str) -> argparse.ArgumentParser:
+    # Job flags come from the shared JobConfig parser; cluster flags are
+    # client-only and stripped before the config is built.
+    parser = build_arg_parser()
+    parser.prog = prog
+    _add_cluster_flags(parser)
+    return parser
+
+
+def _run_job(verb: str, argv: List[str]) -> int:
+    ns = vars(_job_parser(f"{_PROG} {verb}").parse_args(argv))
+    cluster = {
+        "local": ns.pop("local"),
+        "image": ns.pop("image"),
+        "manifest_out": ns.pop("manifest_out"),
+    }
+    if cluster["local"] is None:
+        cluster["local"] = not (cluster["image"] or cluster["manifest_out"])
+    config = JobConfig(**ns)
+    if cluster["image"]:
+        config.worker_image = cluster["image"]
+    cluster["namespace"] = config.namespace
+    if not cluster["local"]:
+        config.pod_backend = "kubernetes"
+    return {"train": api.train, "evaluate": api.evaluate, "predict": api.predict}[
+        verb
+    ](config, **cluster)
+
+
+def _run_zoo(argv: List[str]) -> int:
+    parser = argparse.ArgumentParser(prog=f"{_PROG} zoo")
+    sub = parser.add_subparsers(dest="verb", required=True)
+    p_init = sub.add_parser("init", help="scaffold a model-zoo directory")
+    p_init.add_argument("directory", nargs="?", default=".")
+    p_init.add_argument("--base_image", default="elasticdl-tpu:latest")
+    p_build = sub.add_parser("build", help="validate (and docker-build) a zoo")
+    p_build.add_argument("directory", nargs="?", default=".")
+    p_build.add_argument("--image", default="")
+    p_build.add_argument("--validate_only", action="store_true")
+    p_push = sub.add_parser("push", help="push a built zoo image")
+    p_push.add_argument("image")
+    ns = parser.parse_args(argv)
+    if ns.verb == "init":
+        zoo.zoo_init(ns.directory, base_image=ns.base_image)
+        return 0
+    if ns.verb == "build":
+        return zoo.zoo_build(ns.directory, image=ns.image, validate_only=ns.validate_only)
+    return zoo.zoo_push(ns.image)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    verbs = ("train", "evaluate", "predict", "zoo")
+    if not argv or argv[0] in ("-h", "--help") or argv[0] not in verbs:
+        print(
+            f"usage: {_PROG} {{train|evaluate|predict|zoo}} [flags]\n"
+            "  train/evaluate/predict: submit or locally run a job "
+            "(see --help of each)\n"
+            "  zoo {init|build|push}: scaffold/validate/package a model zoo",
+            file=sys.stderr,
+        )
+        return 0 if argv and argv[0] in ("-h", "--help") else 2
+    if argv[0] == "zoo":
+        return _run_zoo(argv[1:])
+    return _run_job(argv[0], argv[1:])
+
+
+if __name__ == "__main__":
+    sys.exit(main())

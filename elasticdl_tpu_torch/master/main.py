@@ -1,0 +1,590 @@
+"""Master pod entry point — job orchestration.
+
+Reference parity (SURVEY.md §2 #2, §3.1-3.2 [U]): the master process wires
+together the task dispatcher (dynamic sharding), the rendezvous server
+(elastic membership), the evaluation service, the gRPC servicer, and the
+PodManager (worker fleet), then supervises the job to completion:
+
+- dead-worker reaping (stale heartbeats -> membership bump -> task requeue),
+- pod failure events -> membership removal + relaunch (PodManager policy),
+- end-of-job: final eval round, fleet teardown, job status summary.
+
+Run as ``python -m elasticdl_tpu_torch.master.main`` (the CLI's train/evaluate/
+predict subcommands spawn exactly this), or embed via ``Master`` for tests.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+from typing import Dict, List, Optional
+
+from elasticdl_tpu_torch.common.config import JobConfig, parse_args
+from elasticdl_tpu_torch.common.log_utils import get_logger
+
+# The master is a pure control-plane process: it imports no torch (nor
+# anything that does), so it starts in a fraction of a second and never
+# touches the card its workers share (tests/test_torch_isolation.py checks
+# it in a subprocess).  Worker subprocesses choose their device at startup.
+from elasticdl_tpu_torch.data.reader import create_data_reader
+from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
+from elasticdl_tpu_torch.master.pod_manager import (
+    PodBackend,
+    PodManager,
+    PodPhase,
+    ProcessPodBackend,
+)
+from elasticdl_tpu_torch.master.rendezvous import RendezvousServer
+from elasticdl_tpu_torch.master.servicer import MasterServer, MasterServicer
+from elasticdl_tpu_torch.master.task_dispatcher import (
+    TASK_EVALUATION,
+    TASK_PREDICTION,
+    TASK_TRAINING,
+    TaskDispatcher,
+)
+
+logger = get_logger("master.main")
+
+#: The coarse task-progress watermark under checkpoint_dir: the restart
+#: fallback when the journal is missing/corrupt, and the consistency
+#: anchor tying task progress to the restorable model step.
+PROGRESS_FILENAME = "job_progress.json"  # durable-file
+
+
+class Master:
+    """One training/evaluation/prediction job, master side."""
+
+    def __init__(
+        self,
+        config: JobConfig,
+        pod_backend: Optional[PodBackend] = None,
+        port: int = 0,
+        heartbeat_timeout_s: float = 30.0,
+    ):
+        config.validate()
+        if config.num_ps_pods > 0:
+            self._build_ps_backend(config)  # the host tier is not ported
+        self.config = config
+        if config.chaos:
+            # graftchaos (r18): the master is now a fault TARGET too
+            # (kill:target=master fires at the servicer's report hook).
+            # Worker-addressed faults can never match master hook points,
+            # so arming the whole plan here is safe.
+            from elasticdl_tpu_torch import chaos
+
+            chaos.configure(config.chaos)
+        if config.trace:
+            # Master-side spans (rpc.server handlers, dispatcher lease
+            # events) join the same merged trace the workers ship into —
+            # and the master clock is the reference every worker offset
+            # aims at (stdlib recorder: the control plane stays torch-free).
+            from elasticdl_tpu_torch.common import trace as _trace
+
+            _trace.configure(
+                enabled=True, capacity=config.trace_buffer_events
+            )
+        records_per_task = (
+            config.minibatch_size * config.num_minibatches_per_task
+        )
+
+        # -- task queues from the job's datasets --
+        if config.job_type == "training":
+            primary, task_type = config.training_data, TASK_TRAINING
+        elif config.job_type == "evaluation":
+            primary, task_type = config.validation_data, TASK_EVALUATION
+        else:
+            primary, task_type = config.prediction_data, TASK_PREDICTION
+        if not primary:
+            raise ValueError(f"no data path configured for {config.job_type}")
+        reader = create_data_reader(
+            primary, config.parsed_data_reader_params()
+        )
+        shards = reader.create_shards(records_per_task)
+        # Master-restart resume (SURVEY §5 "restore on master restart"): a
+        # training job with a checkpoint_dir persists its task-progress
+        # watermark (epoch + done shards); a restarted master skips finished
+        # work instead of re-running the epoch from the top — model state
+        # already resumes via the workers' checkpoint restore, so together a
+        # master restart loses at most the in-flight shards.  Persisted
+        # state is ignored when the job shape changed (different data/epoch
+        # config — the watermark would skip the wrong shards).
+        self._progress_path = (
+            os.path.join(config.checkpoint_dir, PROGRESS_FILENAME)
+            if config.job_type == "training" and config.checkpoint_dir
+            else ""
+        )
+        self._last_progress: Optional[str] = None
+        # Durable control-plane journal (r18, master/journal.py): the
+        # fsync'd WAL of every hand-out/report/requeue/gang-log-entry
+        # supersedes the coarse watermark on restart — a restarted master
+        # resumes the EXACT pre-crash dispatcher state (in-flight leases
+        # and all) and reconciles reconnecting workers against it.  The
+        # watermark stays as the fallback (journal missing/corrupt) and
+        # the model-checkpoint consistency anchor.
+        from elasticdl_tpu_torch.master.journal import JOURNAL_FILENAME
+
+        self._journal = None
+        self._journal_path = (
+            os.path.join(config.checkpoint_dir, JOURNAL_FILENAME)
+            if self._progress_path
+            else ""
+        )
+        num_epochs = config.num_epochs if config.job_type == "training" else 1
+        replayed = self._replay_journal(shards, num_epochs, task_type)
+        if replayed is not None:
+            self.dispatcher = replayed.dispatcher
+        else:
+            resume = self._load_progress(len(shards), config.num_epochs)
+            self.dispatcher = TaskDispatcher(
+                shards,
+                num_epochs=num_epochs,
+                task_type=task_type,
+                task_timeout_s=config.task_timeout_s,
+                task_skip_budget=config.gang_skip_budget,
+                resume=resume,
+            )
+        self.evaluation: Optional[EvaluationService] = None
+        if config.job_type == "training" and config.validation_data:
+            eval_reader = create_data_reader(
+                config.validation_data, config.parsed_data_reader_params()
+            )
+            self.evaluation = EvaluationService(
+                eval_reader.create_shards(records_per_task),
+                evaluation_steps=config.evaluation_steps,
+                task_timeout_s=config.task_timeout_s,
+            )
+
+        # -- control plane --
+        self.rendezvous = RendezvousServer(
+            heartbeat_timeout_s=heartbeat_timeout_s
+        )
+        self.metrics_writer = None
+        if config.metrics_dir:
+            from elasticdl_tpu_torch.common.metrics import MetricsWriter
+
+            self.metrics_writer = MetricsWriter(config.metrics_dir)
+        self.servicer = MasterServicer(
+            self.dispatcher,
+            rendezvous=self.rendezvous,
+            evaluation=self.evaluation,
+            final_eval=self.evaluation is not None,
+            metrics_writer=self.metrics_writer,
+            max_steps=config.max_steps,
+            # --evaluation_steps=0 means "eval at each epoch end" (the
+            # reference's semantics); >0 means interval-based rounds.
+            epoch_end_eval=config.evaluation_steps == 0,
+            # Deadline-bounded gang boundary (r13, docs/robustness.md).
+            gang_deadline_ms=config.gang_deadline_ms,
+        )
+        # Task watermark persists when a model checkpoint is REPORTED — the
+        # only moment the (model state, data progress) pair is consistent on
+        # disk (see _persist_progress).
+        self.servicer.set_checkpoint_callback(self._persist_progress)
+        if replayed is not None and config.chaos:
+            # A master kill must not crash-loop its own relaunch (the
+            # worker-kill family's incarnation guard, mirrored): the
+            # replayed dispatcher already satisfies step=N, so a restarted
+            # master re-arming the same plan would die at its first
+            # applied report, and the next, forever.  Master-targeted
+            # kills disarm on any journal-replayed restart.
+            from elasticdl_tpu_torch import chaos
+            from elasticdl_tpu_torch.chaos.inject import parse_plan
+
+            plan = parse_plan(config.chaos)
+            kept = [
+                f for f in plan
+                if not (f.kind == "kill" and f.target == "master")
+            ]
+            if len(kept) != len(plan):
+                logger.warning(
+                    "disarming %d master-kill chaos fault(s) on a "
+                    "restarted master (a kill must not crash-loop its "
+                    "own relaunch)", len(plan) - len(kept),
+                )
+                chaos.configure(plan=kept)
+        if replayed is not None:
+            # Version numbering continues from the pre-crash world: a
+            # reconnecting worker's re-registration must observe a BUMP
+            # (never a reused number its stale view could mistake for its
+            # own), and the replayed group log's version stays comparable.
+            self.rendezvous.seed_version(replayed.membership_version)
+            self.servicer.adopt_replayed(replayed)
+            reg = self.servicer.fleet.registry
+            reg.counter(
+                "edl_master_restarts_total",
+                "journal-replayed master restarts of this job",
+            ).inc(replayed.restarts + 1)
+            reg.gauge(
+                "edl_master_journal_replay_ms",
+                "wall time of the last journal replay",
+            ).set(self._journal_replay_ms)
+        if self._journal_path:
+            from elasticdl_tpu_torch.master.journal import MasterJournal
+
+            self._journal = MasterJournal(self._journal_path)
+            self.servicer.set_journal(self._journal)
+            self.dispatcher.attach_journal(self._journal)
+            if replayed is None or not replayed.events_applied:
+                # Fresh job / watermark fallback / base-only restart:
+                # start a clean WAL from the current (checkpoint-
+                # consistent) state.
+                self.servicer.rotate_journal()
+            else:
+                # FULL replay: deliberately NO rotation — the WAL's base
+                # must stay the last CHECKPOINT-COUPLED snapshot.  A base
+                # rotated here would bake the replayed post-checkpoint
+                # progress (live only in the surviving workers' memory)
+                # into the very record a LATER whole-node restart's
+                # base-only mode trusts as checkpoint-consistent — the
+                # rolled-forward-ledger hazard in a new coat.  Continued
+                # events append to the existing file (replay chains
+                # across master generations); the next checkpoint report
+                # compacts as usual.
+                logger.info(
+                    "continuing the existing WAL (full replay): the base "
+                    "stays checkpoint-coupled; next checkpoint compacts"
+                )
+                # The restart itself is an event (pre-server: no handler
+                # threads yet, so no lock discipline applies) — replay
+                # counts these on top of the base's restarts, keeping the
+                # counter honest across rotation-free restart chains.
+                self._journal.record({"kind": "restart"})
+        self.server = MasterServer(
+            self.servicer, port=port, advertise_host=self._advertise_host(config)
+        )
+        # Workers learn the master address through the config bus.
+        config.master_addr = self.server.address
+
+        # -- worker fleet --
+        self.pod_manager = PodManager(
+            pod_backend if pod_backend is not None else self._build_backend(config),
+            config,
+            # Pod reattach registry (r18): persisted beside the journal so
+            # worker supervision survives a master crash — the restarted
+            # master ADOPTS the live orphans instead of spawning a second
+            # fleet next to the workers riding out the restart.
+            state_path=(
+                os.path.join(
+                    config.checkpoint_dir, PodManager.REGISTRY_FILENAME
+                )
+                if self._journal_path
+                else None
+            ),
+        )
+        self.pod_manager.add_listener(self._on_pod_event)
+        # Resolves an adopted orphan's unknowable exit code: after the job
+        # finished a disappearance is the worker's clean exit.
+        self.pod_manager.set_job_finished_fn(self.servicer.job_finished)
+        # Warm-standby pool depth rides Heartbeat/JobStatus (r13): a
+        # drained pool must be visible BEFORE the next failure finds it
+        # empty and pays a cold relaunch.
+        self.servicer.set_standby_depth(self.pod_manager.standby_depth)
+
+        # graftgauge (r14): the master's live /metrics endpoint serves the
+        # fleet-aggregated view + goodput/SLO computer (servicer.fleet,
+        # master/fleet_metrics.py) — workers ship their registry snapshots
+        # on the heartbeat/report gauge envelope, this endpoint is where an
+        # operator (or tools/watch_job.py) reads them DURING the job.  The
+        # PodManager's fleet-churn scalars join as a collector, so the pod
+        # plane is visible on the same page (stdlib HTTP: the control
+        # plane stays torch-free).
+        from elasticdl_tpu_torch.common.metrics_http import maybe_start
+
+        self.servicer.fleet.registry.add_collector(self._collect_pod_gauges)
+        self.metrics_server = maybe_start(
+            config.gauge_port,
+            self.servicer.fleet.render,
+            health_fn=self.servicer.fleet.health,
+            registry=self.servicer.fleet.registry,
+        )
+
+    def _collect_pod_gauges(self) -> None:
+        """Scrape-time collector: PodManager fleet churn into the master
+        registry."""
+        reg = self.servicer.fleet.registry
+        for key, v in self.pod_manager.counts().items():
+            reg.gauge(
+                f"edl_pods_{key}",
+                "pod-fleet state (PodManager.counts)",
+                labels={"fleet": "worker"},
+            ).set(float(v))
+
+    def _fleet_died_with_old_master(self) -> Optional[bool]:
+        """Whole-job-restart probe: True when the pod reattach registry
+        POSITIVELY shows the previous fleet dead (>= 1 recorded pid, none
+        alive), False when at least one worker is riding the outage out,
+        None when the registry offers no evidence (absent/empty — fake
+        and k8s backends, in-process tests).  This is what decides
+        whether the journal's post-checkpoint events are trustworthy: a
+        surviving worker's in-memory model HAS those updates; a dead
+        fleet restores from the checkpoint and does not.  Liveness runs
+        through PodManager.scan_registry — the SAME zombie- and
+        cmdline-guarded probe the adoption path uses, so a recycled pid
+        cannot fake a live fleet and full-replay untrained shards away."""
+        from elasticdl_tpu_torch.master.pod_manager import PodManager
+
+        scan = PodManager.scan_registry(
+            os.path.join(
+                self.config.checkpoint_dir, PodManager.REGISTRY_FILENAME
+            )
+        )
+        if not scan["recorded"]:
+            return None
+        return not scan["alive"]
+
+    def _replay_journal(self, shards, num_epochs: int, task_type: str):
+        """Rebuild the pre-crash control plane from the WAL, or None to
+        fall back (no journal / corrupt / different job shape / any
+        unexpected shape skew — each falls back LOUDLY to the coarse
+        watermark, never half-replays and never crash-loops the restart
+        on a bad file)."""
+        self._journal_replay_ms = 0.0
+        if not self._journal_path or not os.path.exists(self._journal_path):
+            return None
+        from elasticdl_tpu_torch.master import journal as journal_mod
+
+        # Whole-job restart (fleet positively dead): the workers will
+        # restore the MODEL from the last checkpoint, so control-plane
+        # progress past the checkpoint-coupled journal BASE describes
+        # gradient updates that died with them — replaying it would skip
+        # shards the restored model never saw.  Base-only replay keeps
+        # the checkpoint-consistency contract; the skipped tail simply
+        # re-trains (at-least-once, the pre-r18 stance).  A live worker
+        # (master-only crash) keeps the full, exact replay.
+        base_only = self._fleet_died_with_old_master() is True
+        if base_only:
+            logger.warning(
+                "previous worker fleet is gone: replaying the journal "
+                "BASE only (checkpoint-consistent) — post-checkpoint "
+                "control-plane progress re-trains rather than pairing a "
+                "rolled-back model with a rolled-forward task ledger",
+            )
+        t0 = time.perf_counter()
+        try:
+            replayed = journal_mod.replay(
+                self._journal_path,
+                shards,
+                num_epochs=num_epochs,
+                task_type=task_type,
+                task_timeout_s=self.config.task_timeout_s,
+                task_skip_budget=self.config.gang_skip_budget,
+                base_only=base_only,
+            )
+        except Exception:
+            # Deliberately broad: a journal that PARSES but violates the
+            # expected shape (format skew, partial corruption) surfaces
+            # as KeyError/TypeError deep in the restore — any such file
+            # must degrade to the watermark once, loudly, not crash-loop
+            # every subsequent restart through the same exception.
+            logger.exception(
+                "journal %s unusable; falling back to the coarse "
+                "watermark", self._journal_path,
+            )
+            return None
+        self._journal_replay_ms = round((time.perf_counter() - t0) * 1e3, 2)
+        counts = replayed.dispatcher.counts()
+        logger.info(
+            "master restart: replayed %d journal event(s) in %.1f ms — "
+            "done=%d doing=%d todo=%d, group log %d entr%s, restart #%d%s",
+            replayed.events_applied, self._journal_replay_ms,
+            counts["done"], counts["doing"], counts["todo"],
+            len(replayed.group_log),
+            "y" if len(replayed.group_log) == 1 else "ies",
+            replayed.restarts + 1,
+            " (torn tail tolerated)" if replayed.torn_tail else "",
+        )
+        from elasticdl_tpu_torch.common import trace as _trace
+
+        # The masterfail bench's replay-stage clock (wall-anchored ts, so
+        # cross-process decomposition needs no alignment).
+        _trace.instant(
+            "master:replay", cat="elastic",
+            events=replayed.events_applied,
+            replay_ms=self._journal_replay_ms,
+            done=counts["done"], doing=counts["doing"],
+            restarts=replayed.restarts + 1,
+            torn_tail=replayed.torn_tail,
+        )
+        return replayed
+
+    # recovery-path
+    def _load_progress(self, num_shards: int, num_epochs: int):
+        if not self._progress_path or not os.path.exists(self._progress_path):
+            return None
+        from elasticdl_tpu_torch.common import durable
+
+        progress = durable.read_json_tolerant(self._progress_path)
+        if not isinstance(progress, dict):
+            logger.warning("unreadable job progress file; starting fresh")
+            return None
+        if (
+            progress.get("num_shards") != num_shards
+            or progress.get("num_epochs") != num_epochs
+        ):
+            logger.warning(
+                "job progress watermark is for a different job shape "
+                "(%s shards x %s epochs vs %d x %d); starting fresh",
+                progress.get("num_shards"), progress.get("num_epochs"),
+                num_shards, num_epochs,
+            )
+            return None
+        logger.info(
+            "resuming task progress: epoch %s, %s shards done in it, "
+            "%s tasks done total",
+            progress.get("epoch"), len(progress.get("done_shards", [])),
+            progress.get("done_count"),
+        )
+        return progress
+
+    def _persist_progress(self, _step: int = 0) -> None:
+        """Atomically write the dispatcher watermark when it changed.
+
+        Called from the servicer's ReportCheckpoint hook (and once at job
+        end) — NEVER on a timer: a watermark persisted ahead of the model
+        checkpoint would make a restarted master skip shards whose gradient
+        updates the restored (older) model never received.  Coupling the
+        write to the checkpoint report keeps the pair consistent to within
+        the report's network latency.
+        """
+        if not self._progress_path:
+            return
+        import json
+
+        from elasticdl_tpu_torch.common import durable
+
+        payload = json.dumps(self.dispatcher.progress(), sort_keys=True)
+        if payload == self._last_progress:
+            return
+        # The old hand-rolled temp+rename here skipped BOTH fsyncs: a
+        # power loss after the rename could surface an empty/old watermark
+        # under a newer checkpoint.  atomic_publish closes that.
+        durable.atomic_publish(self._progress_path, payload)
+        self._last_progress = payload
+        # Journal compaction rides the same checkpoint-coupled cadence:
+        # the WAL restarts from a fresh full-state base whenever the
+        # watermark advances, so it stays bounded by one checkpoint
+        # interval's control-plane traffic (master/journal.py).
+        if self._journal is not None:
+            self.servicer.rotate_journal()
+
+    @staticmethod
+    def _advertise_host(config: JobConfig) -> str:
+        """The address workers dial.  Cross-pod backends need a reachable
+        host: the pod IP via the downward API (``MY_POD_IP``) or this host's
+        FQDN; local backends keep localhost."""
+        if config.master_advertise_host:
+            return config.master_advertise_host
+        if config.pod_backend == "kubernetes":
+            import socket
+
+            return os.environ.get("MY_POD_IP") or socket.getfqdn()
+        return "localhost"
+
+    @staticmethod
+    def _build_ps_backend(config: JobConfig) -> PodBackend:
+        raise NotImplementedError(
+            "PS pods (num_ps_pods) are not ported yet (ROADMAP, PyTorch port "
+            "queue: the PS host tier)"
+        )
+
+    @staticmethod
+    def _build_backend(config: JobConfig) -> PodBackend:
+        if config.pod_backend == "kubernetes":
+            from elasticdl_tpu_torch.master.pod_manager import KubernetesPodBackend
+
+            return KubernetesPodBackend(
+                config, namespace=config.namespace, image=config.worker_image
+            )
+        if config.pod_backend == "fake":
+            from elasticdl_tpu_torch.master.pod_manager import FakePodBackend
+
+            return FakePodBackend()
+        return ProcessPodBackend(
+            warm_standby=config.warm_worker_standby,
+            standby_pool=config.standby_pool,
+            log_dir=config.pod_log_dir or None,
+        )
+
+    # Pod death cascades: membership bump -> servicer listener requeues tasks.
+    def _on_pod_event(self, pod_name: str, phase: str) -> None:
+        if phase in PodPhase.TERMINAL:
+            self.rendezvous.remove(pod_name)
+
+    def scale(self, n: int) -> None:
+        """Elastic resize (the 4->8->4 path): grow/shrink the worker fleet."""
+        # The rendezvous learns the target FIRST so workers registering
+        # during the resize wait for the full gang instead of forming
+        # worlds one member at a time (worker.main settle loop).
+        self.rendezvous.set_expected(n)
+        self.pod_manager.scale(n)
+
+    def run(self, poll_interval_s: float = 0.2, reap_every_s: float = 5.0) -> Dict:
+        """Supervise the job to completion; returns the final job status."""
+        self.server.start()
+        last_reap = time.monotonic()
+        try:
+            self.rendezvous.set_expected(self.config.num_workers)
+            self.pod_manager.start()
+            while not self.servicer.job_finished():
+                now = time.monotonic()
+                if now - last_reap >= reap_every_s:
+                    dead = self.rendezvous.reap_dead()
+                    if dead:
+                        logger.warning("reaped stale workers: %s", dead)
+                    last_reap = now
+                if self.pod_manager.all_finished() and self.pod_manager.desired() > 0:
+                    # Whole fleet exited (relaunch budgets burned) with work
+                    # left: fail the job instead of spinning forever.
+                    if not self.servicer.job_finished():
+                        raise RuntimeError(
+                            "all worker pods terminated before the job finished"
+                        )
+                time.sleep(poll_interval_s)
+            self._persist_progress()  # final watermark: job complete
+            # Grace period (--shutdown_grace_s): workers that just learned
+            # the job is finished are still writing their FINAL checkpoint;
+            # tearing the fleet down
+            # immediately would kill them mid-write.  They exit on their own
+            # right after, which ends the wait early.
+            deadline = time.monotonic() + self.config.shutdown_grace_s
+            while (
+                not self.pod_manager.all_finished()
+                and time.monotonic() < deadline
+            ):
+                time.sleep(poll_interval_s)
+            status = self.servicer.JobStatus({})
+            logger.info("job finished: %s", status)
+            return status
+        finally:
+            self.shutdown()
+
+    def shutdown(self) -> None:
+        if self.metrics_server is not None:
+            self.metrics_server.stop()
+        self.pod_manager.stop()
+        self.server.stop()
+        if self.metrics_writer is not None:
+            self.metrics_writer.close()
+        if self._journal is not None:
+            self._journal.close()
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    try:
+        config = JobConfig.from_env()
+    except KeyError:
+        config = parse_args(argv)
+    from elasticdl_tpu_torch.common.log_utils import set_level
+
+    set_level(config.log_level)
+    # --master_port (r18): a fixed port is what makes a master RESTART
+    # transparent to the fleet — workers ride out the outage redialing
+    # the address they already hold.  0 keeps the ephemeral-bind default.
+    master = Master(config, port=config.master_port)
+    status = master.run()
+    return 0 if not status.get("abandoned") else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

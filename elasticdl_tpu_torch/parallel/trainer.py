@@ -56,6 +56,23 @@ class TrainState:
     optimizer: Optional[torch.optim.Optimizer]
 
 
+class TrainLoopError(RuntimeError):
+    """A step failed mid-run of ``run_train_steps`` (the reference's
+    ``TrainLoopError``).
+
+    A step updates the module and the optimizer in place, so a failure
+    inside one leaves a state no one can vouch for.  ``state`` carries the
+    state after the last completed step when the failure came before the
+    failed step touched the module or the optimizer (the batch iterator or
+    its placement on the device), or None: the worker then rebuilds from
+    the checkpoint."""
+
+    def __init__(self, state: Optional[TrainState], cause: BaseException):
+        super().__init__(f"train loop failed: {cause!r}")
+        self.state = state
+        self.cause = cause
+
+
 class Snapshot(dict):
     """A canonical state of device copies (``Trainer.snapshot_state``);
     ``ready``: on the card, the event recorded after the copies."""
@@ -148,13 +165,28 @@ class Trainer:
         """Train over an iterable of host batches (``pre_sharded``: already
         on the device), synchronously: the reference's loop without
         host-tier tables, whose async pull pipeline is not ported yet.
-        Returns (state, [metrics per batch])."""
-        step = self.train_step if pre_sharded else self.run_train_step
+        Returns (state, [metrics per batch]); a failure raises
+        ``TrainLoopError``."""
         metrics_out = []
-        for batch in batches:
-            state, metrics = step(state, batch)
+        last_good: Optional[TrainState] = None  # after the last completed step
+        batches = iter(batches)
+        while True:
+            try:
+                batch = next(batches, None)
+                if batch is None:
+                    return state, metrics_out
+                if not pre_sharded:
+                    batch = self.shard_batch(batch)
+            except Exception as e:
+                # Nothing of this step ran: the last completed step's state
+                # is intact.
+                raise TrainLoopError(last_good, e) from e
+            try:
+                state, metrics = self.train_step(state, batch)
+            except Exception as e:
+                raise TrainLoopError(None, e) from e
             metrics_out.append(metrics)
-        return state, metrics_out
+            last_good = state
 
     # ---- evaluation ----
 

@@ -6,28 +6,34 @@ minibatches through ``Trainer.run_train_steps`` (the counterpart of the
 fused ``train_scan``) -> report; evaluation and prediction tasks between
 them; a background checkpoint every ``checkpoint_steps`` that the serving
 tier picks up from the published manifest; restore from the newest
-checkpoint at start and after a failed step.
+checkpoint at start, and after a failed step the newest live state
+(``TrainLoopError.state``) or else the newest checkpoint.
 
 What stays the reference's: the two master proxies (``DirectMasterProxy``,
 ``RpcMasterProxy`` with its outage ride-through), the lease loop
 (``_next_lease``, batched leases returned on an eval-pending or draining
 heartbeat), task-level pipelining (``_flush``: the previous task's
-metrics fetch and report after this task's steps are dispatched), the
-wrap-padded tails with their ``__mask__``, count-weighted eval means
-reported raw, report sequence numbers, phase timers, and the checkpoint
-watermark with its rollback on a failed background save.
+metrics fetch, report and checkpoint hook after this task's steps are
+dispatched), prep-ahead (``_prep_queue``: the host half of up to
+``prep_depth`` leased tasks read, decoded and stacked on prep threads, the
+oldest dispatched once the queue exceeds its depth), the wrap-padded tails
+with their ``__mask__``, count-weighted eval means reported raw, report
+sequence numbers, phase timers, the checkpoint watermark with its rollback
+on a failed background save, preemption snapshots (``preemption_snapshot``,
+driven by ``worker/main.py``'s SIGTERM handler), the one-task profiler
+(``profile_dir``, a ``torch.profiler`` Chrome trace) and the worker-loop
+chaos hooks (``worker:task``, ``worker:prep``, ``worker:step``).
 
 What is left out, each raising ``NotImplementedError`` that names its
 ROADMAP item: gang mode (``multihost``), a worker over more than one
 device (the membership reform over a mesh), the in-step collective gate
-(``collective_deadline_ms``), host-tier I/O (``use_async``, PS
-addresses), the profiler (``profile_dir``) and preemption snapshots.  The
-worker's one device is its whole mesh, so a membership change is adopted
-without re-forming, as the reference does when the mesh is unchanged.
-The host half of a task (read + decode) runs inline; prep-ahead and the
-parallel ingest pool (``prep_depth``, ``ingest_threads``) are a later
-slice.  The worker-loop chaos hooks (``worker:task/prep/step``) come with
-the process-level job.
+(``collective_deadline_ms``) and host-tier I/O (``use_async``, PS
+addresses).  The worker's one device is its whole mesh, so a membership
+change is adopted without re-forming, as the reference does when the mesh
+is unchanged.  The prep thread decodes a task serially: the chunk fan-out
+of the parallel ingest pool (``ingest_threads``) is a later slice.  Prep
+threads build host arrays only; every upload to the card runs on the task
+loop's thread.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, Iterable, List, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, Iterable, List, NamedTuple, Optional
 
 import grpc
 import numpy as np
@@ -64,9 +71,18 @@ from elasticdl_tpu_torch.master.task_dispatcher import (
     Task,
 )
 from elasticdl_tpu_torch.models.spec import ModelSpec, load_model_spec_for_job
-from elasticdl_tpu_torch.parallel.trainer import MASK_KEY, Trainer, outputs_to_numpy
+from elasticdl_tpu_torch.parallel.trainer import (
+    MASK_KEY,
+    Trainer,
+    TrainLoopError,
+    outputs_to_numpy,
+)
 
 logger = get_logger("worker")
+
+#: The exit code of a worker process that must be relaunched without
+#: charging its failure budget (a preemption snapshot, a SIGTERM).
+RESTART_EXIT_CODE = 3
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -224,6 +240,13 @@ class RpcMasterProxy:
         self._reconnected = False
         return True
 
+    def limit_outage_tolerance(self, budget_s: float) -> None:
+        """Shrink (never grow) the ride-through budget: the preemption path
+        calls this with a couple of seconds, since a process that must be
+        gone inside ``PREEMPTION_EXIT_S`` cannot park in the outage backoff
+        waiting for a master that may be restarting."""
+        self._tolerance_s = min(self._tolerance_s, max(0.0, budget_s))
+
     def close(self) -> None:
         self._client.close()
 
@@ -247,6 +270,20 @@ def _minibatches(
 def _real_mask(batch_size: int, true_count: int) -> np.ndarray:
     """The ``__mask__`` of a wrap-padded minibatch: real rows 1.0."""
     return (np.arange(batch_size) < true_count).astype(np.float32)
+
+
+class HostPrep(NamedTuple):
+    """The host half of a training task (read + decode + stack).
+
+    ``stacked``: the ``[T, mb, ...]`` host arrays of the ``n_full`` full
+    minibatches (None when the task has none); ``tail``: the decoded
+    wrap-padded minibatch past them, with its ``__mask__`` (None when the
+    records divide evenly); ``total``: the task's record count."""
+
+    total: int
+    n_full: int
+    stacked: Optional[dict]
+    tail: Optional[dict]
 
 
 class Worker:
@@ -275,8 +312,6 @@ class Worker:
             )
         if config.use_async or config.ps_addresses or config.num_ps_pods:
             raise _not_ported("host-tier I/O (use_async, PS pods)", "the PS host tier")
-        if config.profile_dir:
-            raise _not_ported("the per-task profiler (profile_dir)", "the process-level job")
         self.config = config
         self.master = master
         self.reader = reader
@@ -291,7 +326,8 @@ class Worker:
         self._rank = 0  # single-writer: main
         self._ckpt: Optional[CheckpointManager] = None
         # Checkpoint watermark + background-save thread handle: touched by
-        # the task loop and the background save thread (failure rollback).
+        # the task loop, the background save thread (failure rollback) and
+        # the preemption thread.
         self._ckpt_lock = locksan.lock("Worker._ckpt_lock", leaf=True)  # lock-order: leaf
         self._last_ckpt_step = 0  # guarded-by: _ckpt_lock
         self._ckpt_thread = None  # guarded-by: _ckpt_lock
@@ -300,10 +336,26 @@ class Worker:
         # host copy and the write, and the wall clock of the publish.
         self.checkpoint_log: List[Dict[str, float]] = []  # guarded-by: _ckpt_lock
         self.recoveries = 0  # failed steps rebuilt from a checkpoint
+        # Seconds of the restores: the seeded init of the state they fill,
+        # the checkpoint read, the load into the module and optimizer.
+        self.restore_times = {"init_s": 0.0, "read_s": 0.0, "load_s": 0.0}
+        self._training_tasks_done = 0  # gates the one-task profiler trace
         # Task-level pipeline: the previous training task's (report, device
         # metrics), fetched + reported only after the NEXT task's steps are
         # dispatched (see run()).
         self._pending: Optional[tuple] = None
+        # Prep-ahead: a bounded queue of (task, report, host-prep future)
+        # for leased tasks whose host half runs on the prep pool while
+        # earlier tasks' steps run (see run()).  The pool is built at the
+        # first submission.
+        self._prep_queue: deque = deque()
+        self._prep_pool: Optional[ThreadPoolExecutor] = None
+        # Set by preemption_snapshot (the SIGTERM thread): the task loop
+        # parks at its next boundary; _parked acknowledges the park, after
+        # which the loop only sleeps and the preemption thread alone touches
+        # the state and sends reports.
+        self._preempting = False  # single-writer: thread:preemption
+        self._parked = False  # single-writer: main
         # Locally buffered task leases (batched GetTask): tasks the master
         # leased in one RPC beyond the one being started, returned on an
         # eval-pending or draining heartbeat.
@@ -368,8 +420,15 @@ class Worker:
     def _restore_checkpoint(self, state_like, step: Optional[int] = None):
         """Restore a checkpoint step into ``state_like``: the canonical
         arrays the manager reads, laid into the live module and optimizer
-        (the reference's restore_template + adopt_restored pair)."""
-        return self.trainer.adopt_restored(self._ckpt.restore(step), state_like)
+        (the reference's restore_template + adopt_restored pair).  Adds the
+        seconds of the read and of the load to ``restore_times``."""
+        t0 = time.perf_counter()
+        arrays = self._ckpt.restore(step)
+        t1 = time.perf_counter()
+        state = self.trainer.adopt_restored(arrays, state_like)
+        self.restore_times["read_s"] += t1 - t0
+        self.restore_times["load_s"] += time.perf_counter() - t1
+        return state
 
     def _collect_gauges(self) -> None:
         """Scrape-time collector (never the task loop)."""
@@ -421,11 +480,21 @@ class Worker:
             payload["clock_offset_us"] = self._trace_clock_offset_us
         return payload
 
+    def death_watch_tick(self, state: dict, now: float, master_version=None) -> bool:
+        """One death-push decision of the liveness heartbeat thread
+        (``worker/main.py``): True when this process must exit RESTART
+        because a gang peer died while the task loop is blocked in a
+        collective.  A worker on one device has no collective to be
+        blocked in, so it never is (gang mode is not ported)."""
+        state["pending_since"] = None
+        return False
+
     def _held_task_ids(self) -> List[int]:
-        """Every training-task id this worker still HOLDS: buffered leases
-        and the pipelined pending slot — the reconcile handshake's
-        inventory."""
+        """Every training-task id this worker still HOLDS: buffered leases,
+        queued preps and the pipelined pending slot — the reconcile
+        handshake's inventory."""
         held = [int(e["task"]["task_id"]) for e in self._leased if e.get("task")]
+        held.extend(task.task_id for task, _r, _f in self._prep_queue)
         if self._pending is not None:
             held.append(int(self._pending[0]["task_id"]))
         return held
@@ -452,6 +521,16 @@ class Worker:
         )
         dropped = len(self._leased) - len(kept)
         self._leased = kept
+        # Stale preps are cancelled unstarted: training them would
+        # double-train records the restarted master already re-leased.
+        kept_prep: deque = deque()
+        for task, report, fut in self._prep_queue:
+            if task.task_id in stale:
+                fut.cancel()
+                dropped += 1
+            else:
+                kept_prep.append((task, report, fut))
+        self._prep_queue = kept_prep
         trace.instant(
             "worker:reconcile", cat="elastic",
             held=len(held), stale=len(stale), dropped=dropped,
@@ -480,12 +559,18 @@ class Worker:
         if server_ts is not None:
             # RTT-midpoint clock alignment for the merged trace.
             self._trace_clock_offset_us = server_ts - (t0_us + t1_us) / 2.0
-        if resp.get("draining") or (resp.get("eval_pending") and self._leased):
-            # Max-steps drain, or a pending eval round that buffered leases
-            # would delay: return the unstarted leases (requeue-flagged).
+        if resp.get("draining"):
+            # Max-steps drain: buffered leases and undispatched preps carry
+            # no device work yet — return them all (requeue-flagged).
+            self._abandon_prep()
+            self._abandon_leases()
+        elif resp.get("eval_pending") and self._leased:
+            # A pending eval round that buffered leases would delay: return
+            # them so the next lease pulls the eval task; prepped tasks
+            # keep their decode and still train.
             self._abandon_leases()
         if resp["version"] != self._membership_version:
-            self._flush_pending()
+            self._drain_prep()
             self._abandon_leases()
             self._apply_membership(self.master.call("GetMembership", {}))
 
@@ -527,6 +612,7 @@ class Worker:
             # trigger, so it must name a step that is completely on disk.
             self._ckpt.publish(step)
             record["published_at"] = time.time()
+            logger.info("published checkpoint step %d", step)
         with self._ckpt_lock:
             self._last_ckpt_step = step
             self.checkpoint_log.append(dict(record, step=step))
@@ -594,7 +680,110 @@ class Worker:
         t.start()
 
     def preemption_snapshot(self) -> bool:
-        raise _not_ported("preemption snapshots", "the process-level job")
+        """Best-effort save of the live state on SIGTERM (a preemption
+        notice), run on the preemption thread of ``worker/main.py``, not in
+        the signal frame.  Returns True when a snapshot was written and
+        published.  The task loop must acknowledge the park within 5 s
+        (``_parked``: from then on it only sleeps, so the state holds still
+        and this thread sends every report); only rank 0 with a checkpoint
+        directory saves, and a background save still running after a
+        bounded join means no fresh snapshot (the relaunch resumes from the
+        last periodic one)."""
+        self._preempting = True  # parks the task loop at its next boundary
+        # FIRST, before anything can block: every remaining master call of
+        # this exiting process fails fast instead of riding out an outage.
+        limit = getattr(self.master, "limit_outage_tolerance", None)
+        if limit is not None:
+            limit(2.0)
+        trace.instant("elastic:preempt", cat="elastic", rank=self._rank)
+        deadline = time.time() + 5.0
+        while not self._parked and time.time() < deadline:
+            time.sleep(0.05)
+        if self._parked:
+            # Every report from here on goes from this thread, so the
+            # master sees their sequence numbers in order (it drops a
+            # report whose number is not above the last it applied):
+            # undispatched preps and unstarted leases go back first.
+            self._abandon_prep()
+            self._abandon_leases()
+        if self._rank != 0 or self._ckpt is None or self.state is None:
+            logger.info(
+                "preemption snapshot skipped (rank=%d ckpt=%s state=%s)",
+                self._rank, self._ckpt is not None, self.state is not None,
+            )
+            return False
+        if not self._parked:
+            # A loop blocked in a master call would resume after we give up
+            # and race this thread on the state and the pending slot.
+            logger.warning(
+                "preemption snapshot skipped (task loop never parked "
+                "within 5s — likely blocked in a master RPC)",
+            )
+            return False
+        # The pipelined task's steps are in this state: report it now, or
+        # the master requeues work the snapshot already holds.
+        try:
+            self._flush_pending()
+        except Exception:
+            logger.exception("preemption flush of pending report failed")
+        step = self.state.step
+        try:
+            self._join_ckpt(timeout=10.0)
+            with self._ckpt_lock:
+                bg = self._ckpt_thread
+                saved_this_step = self._last_ckpt_step == step
+            if bg is not None and bg.is_alive():
+                # A fresh save beside it would tear both step directories.
+                logger.warning(
+                    "preemption: background checkpoint still in flight "
+                    "after 10s join; exiting without a fresh snapshot",
+                )
+                return False
+            if not saved_this_step:
+                self._save_snapshot(step, wait=True)
+        except Exception:
+            logger.exception("preemption snapshot incomplete")
+            return False
+        logger.info("preemption snapshot at step %d", step)
+        return True
+
+    # ---- profiling ----
+
+    def _maybe_start_profile(self):
+        """Trace the SECOND training task (the first pays the kernels'
+        build and the allocator's warm-up) into ``config.profile_dir`` with
+        ``torch.profiler``; returns the running profiler or None.  Counts
+        training tasks only, so eval and prediction tasks neither skip the
+        trace nor shift it."""
+        if not self.config.profile_dir or self._training_tasks_done != 1:
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.trainer.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        try:
+            prof = profile(activities=activities)
+            prof.start()
+        except Exception:
+            logger.exception("profiler start failed")
+            return None
+        logger.info("profiling this task into %s", self.config.profile_dir)
+        return prof
+
+    def _stop_profile(self, prof, task_id: int) -> None:
+        """Settle the profiled task's device work, stop the trace and write
+        it as a Chrome trace into ``config.profile_dir``."""
+        if self.trainer.device.type == "cuda":
+            torch.cuda.synchronize(self.trainer.device)
+        prof.stop()
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        path = os.path.join(
+            self.config.profile_dir,
+            f"{self.worker_id}-task-{task_id}.pt.trace.json",
+        )
+        prof.export_chrome_trace(path)
+        logger.info("profile of task %d written to %s", task_id, path)
 
     # ---- task execution ----
 
@@ -608,45 +797,103 @@ class Worker:
                 return records
         return list(self.reader.read_records(shard))
 
-    def _dispatch_training_task(self, task: Task) -> tuple:
+    def _stack_full_minibatches(self, records, mb: int, n_full: int) -> dict:
+        """Feed every full minibatch in ONE call and stack the result into
+        ``[T, mb, ...]`` host arrays (the reference's fused-scan wire
+        format)."""
+        big = self.spec.feed(records[: n_full * mb])
+        return {
+            k: np.ascontiguousarray(v).reshape((n_full, mb) + np.shape(v)[1:])
+            for k, v in dict(big).items()
+        }
+
+    def _train_feed(self, chunk, true_count: int) -> dict:
+        """Feed a training chunk; a wrap-padded tail gets the ``__mask__``
+        that gives its duplicated examples zero gradient."""
+        batch = self.spec.feed(chunk)
+        if true_count < self.config.minibatch_size:
+            batch = dict(batch)
+            batch[MASK_KEY] = _real_mask(self.config.minibatch_size, true_count)
+        return batch
+
+    # thread-role: pool:_prep_fused_host
+    def _prep_fused_host(self, task: Task) -> HostPrep:
+        """The host half of a fused training task: read, decode, stack the
+        full minibatches, decode and mask the tail.  Touches neither
+        ``self.state`` nor the device, so prep-ahead runs it on a prep
+        thread while earlier tasks' steps run."""
+        # graftchaos: stall(point=prep), the host-side straggler.
+        chaos.hook("worker:prep", rank=self._rank, step=self._steps_dispatched)
+        mb = self.config.minibatch_size
+        records = self._read_records(task.shard)
+        total = len(records)
+        n_full = total // mb
+        stacked = (
+            self._stack_full_minibatches(records, mb, n_full) if n_full else None
+        )
+        tail = None
+        if total > n_full * mb:
+            rest = records[n_full * mb:]
+            tail = self._train_feed(next(_minibatches(rest, mb, True))[0], len(rest))
+        return HostPrep(total, n_full, stacked, tail)
+
+    def _dispatch_training_task(
+        self, task: Task, prep: Optional[HostPrep] = None
+    ) -> tuple:
         """Dispatch every step of a training task through
         ``Trainer.run_train_steps``; returns (the started metrics fetch,
-        n_steps).  The minibatches are decoded ahead on the prefetch thread;
-        on the card the steps are enqueued without waiting for them (the
-        metrics fetch in ``_finalize_training_metrics`` is the wait).  A
-        wrap-padded tail carries ``__mask__`` so its duplicated examples
-        carry zero gradient."""
+        n_steps).  On the card the steps are enqueued without waiting for
+        them (the metrics fetch in ``_finalize_training_metrics`` is the
+        wait).
+
+        With ``fused_task_scan`` (the default) the task's host half is a
+        ``HostPrep``: ``prep`` when prep-ahead made it on a prep thread,
+        else made here.  Without it each minibatch is fed on the prefetch
+        thread as the steps consume them.  A failed step's task is reported
+        failed and requeued either way; the state goes on from
+        ``TrainLoopError.state`` when the failure came before a step
+        touched the module and the optimizer, else from the newest
+        checkpoint."""
+        # graftchaos: stall(point=step), a dispatch-side straggler.
+        chaos.hook("worker:step", rank=self._rank, step=self._steps_dispatched)
         mb = self.config.minibatch_size
-        with self.phases.phase("prep_wait"):
-            records = self._read_records(task.shard)
-        total = len(records)
-        n_steps = (total + mb - 1) // mb
-
-        def _gen():
-            for chunk, true_count in _minibatches(records, mb, True):
-                batch = self.spec.feed(chunk)
-                if true_count < mb:
-                    batch = dict(batch)
-                    batch[MASK_KEY] = _real_mask(mb, true_count)
-                yield batch
-
         try:
+            if prep is None and self.config.fused_task_scan:
+                with self.phases.phase("prep_wait"):
+                    prep = self._prep_fused_host(task)
+            if prep is not None:
+                total, n_full, stacked, tail = prep
+                batches = [
+                    {k: v[i] for k, v in stacked.items()} for i in range(n_full)
+                ]
+                if tail is not None:
+                    batches.append(tail)
+            else:
+                with self.phases.phase("prep_wait"):
+                    records = self._read_records(task.shard)
+                total = len(records)
+                batches = prefetch(
+                    (self._train_feed(chunk, n)
+                     for chunk, n in _minibatches(records, mb, True)),
+                    self.config.prefetch_depth,
+                    name=f"prefetch:{task.task_id}",
+                )
             with self.phases.phase("dispatch"):
                 self.state, metrics_list = self.trainer.run_train_steps(
-                    self.state,
-                    prefetch(
-                        _gen(), self.config.prefetch_depth,
-                        name=f"prefetch:{task.task_id}",
-                    ),
+                    self.state, batches
                 )
-        except Exception:
-            # The steps update the module and the optimizer in place, so a
-            # step that failed part-way leaves a state no one can vouch
-            # for: rebuild from the newest checkpoint.  The task is
-            # reported failed and requeued either way.
-            self._recover_state()
+        except TrainLoopError as e:
+            # The reference's recovery: the newest live state when no step
+            # touched it, else the newest checkpoint.  The python-side step
+            # mirror follows, since later reports derive model_version
+            # from it.
+            if e.state is not None:
+                self.state = e.state
+            else:
+                self._recover_state()
             self._steps_dispatched = self.state.step
             raise
+        n_steps = (total + mb - 1) // mb
         self._g_examples.inc(total)
         self._g_steps.inc(n_steps)
         return self._start_metrics_fetch(metrics_list), n_steps
@@ -753,6 +1000,89 @@ class Worker:
     def _flush_pending(self) -> None:
         pending, self._pending = self._pending, None
         self._flush(pending)
+
+    # ---- prep-ahead ----
+
+    def _prep_ahead_eligible(self) -> bool:
+        """Prep-ahead runs the next tasks' host half on prep threads while
+        the current task's steps run: only with task pipelining and the
+        fused path, and never in a profiling session (a profiled task is
+        traced in isolation)."""
+        return (
+            self.config.task_pipelining
+            and self.config.fused_task_scan
+            and not self.config.profile_dir
+        )
+
+    def _submit_prep(self, task: Task):
+        if self._prep_pool is None:
+            # One prep thread per pipeline slot, so a slow shard never
+            # serializes the preps queued behind it.
+            self._prep_pool = ThreadPoolExecutor(
+                max_workers=max(1, self.config.prep_depth),
+                thread_name_prefix="edl-prep",
+            )
+        return self._prep_pool.submit(self._prep_fused_host, task)
+
+    def _dispatch_prepped(self, prepped: tuple) -> None:
+        """Dispatch a prepped task's steps, rotate it into the pending
+        (report-deferred) slot, and settle the PREVIOUS pending task.  A
+        failure (prep or dispatch) fails THIS task's report and raises
+        nothing: the caller has often just queued a new task whose report
+        the run loop's handler would wrongly fail."""
+        task, report, fut = prepped
+        try:
+            with self.phases.phase("prep_wait"):
+                prep = fut.result()
+            fetch, n_steps = self._dispatch_training_task(task, prep=prep)
+        except Exception:
+            logger.exception("task %d failed", task.task_id)
+            report["success"] = False
+            try:
+                self._report_result(report)
+            except Exception:
+                logger.exception(
+                    "failure report for task %d lost (master task timeout "
+                    "will requeue it)", task.task_id,
+                )
+            return
+        self._steps_dispatched += n_steps
+        report["model_version"] = self._steps_dispatched
+        self._training_tasks_done += 1
+        prev, self._pending = self._pending, (report, fetch)
+        try:
+            self._flush(prev)
+        except Exception:
+            # What escapes _flush is the report call itself: the settled
+            # task's steps are in the state, and the master's task timeout
+            # requeues it if the report never landed.
+            logger.exception(
+                "report of previous pipelined task lost (master task "
+                "timeout will requeue it)",
+            )
+
+    def _drain_prep(self) -> None:
+        """Dispatch every prepped task, then settle the pending slot:
+        whenever something must see a settled task order (eval and
+        prediction tasks, membership changes, idle polls, the job's end)."""
+        while self._prep_queue:
+            self._dispatch_prepped(self._prep_queue.popleft())
+        self._flush_pending()
+
+    def _abandon_prep(self) -> None:
+        """Give every undispatched prepped task back to the master with a
+        requeue-flagged failure report (no device work ran: the retry
+        budget is not charged)."""
+        while self._prep_queue:
+            task, report, fut = self._prep_queue.popleft()
+            fut.cancel()
+            report["success"] = False
+            report["requeue"] = True
+            report["seq"] = self._next_report_seq()
+            try:
+                self.master.call("ReportTaskResult", report)
+            except Exception:
+                logger.exception("abandoning prepped task %d failed", task.task_id)
 
     def _abandon_leases(self) -> None:
         """Return locally buffered (never-started) task leases to the
@@ -881,7 +1211,9 @@ class Worker:
         directory (not gated on the master's GetCheckpoint: a fresh master
         has no reported checkpoint yet).  Evaluation and prediction jobs
         refuse to score freshly initialized weights."""
+        t0 = time.perf_counter()
         self.state = self.trainer.init_state(0)
+        self.restore_times["init_s"] += time.perf_counter() - t0
         steps = self._ckpt.all_steps() if self._ckpt is not None else []
         for step in steps:
             try:
@@ -946,19 +1278,31 @@ class Worker:
         self._tasks_done = 0
         self._steps_dispatched = self.state.step
         while True:
+            if self._preempting:
+                # SIGTERM: the preemption thread owns the exit and every
+                # report from here on; the loop acknowledges and idles.
+                self._parked = True
+                time.sleep(self._poll)
+                continue
             with self.phases.phase("control"):
                 self._check_membership()
                 resp = self._next_lease()
             if resp["task"] is None:
                 if resp["finished"]:
                     break
-                # Nothing to overlap with: settle the pipelined task now —
+                # Nothing to overlap with: settle the pipelined tasks now —
                 # the dispatcher cannot finish (or start an eval round
-                # gated on its model_version) until it lands.
-                self._flush_pending()
+                # gated on their model_version) until they land.
+                self._drain_prep()
                 time.sleep(self._poll)
                 continue
             task = Task.from_dict(resp["task"])
+            # graftchaos: kill / stall(point=task) at the task boundary —
+            # after the lease, before any device work.
+            chaos.hook(
+                "worker:task", rank=self._rank,
+                step=self._steps_dispatched, task_id=task.task_id,
+            )
             report = {
                 "worker_id": self.worker_id,
                 "task_id": task.task_id,
@@ -967,43 +1311,55 @@ class Worker:
             }
             try:
                 if task.type == TASK_TRAINING:
-                    if self.config.task_pipelining:
-                        # The periodic checkpoint at this task boundary,
-                        # before more steps are dispatched: the snapshot
-                        # then lands on the step the synchronous loop
-                        # would save (the flush below sees the next task's
-                        # steps in the mirror already).
-                        self._maybe_checkpoint()
-                        # Dispatch this task's steps, then settle the
-                        # PREVIOUS task's metrics fetch + report while they
-                        # run on the card.
-                        fetch, n_steps = self._dispatch_training_task(task)
-                        self._steps_dispatched += n_steps
-                        report["model_version"] = self._steps_dispatched
-                        prev, self._pending = self._pending, (report, fetch)
-                        try:
-                            self._flush(prev)
-                        except Exception:
-                            # A report-RPC failure must not fail THIS task's
-                            # report (its steps are already in the state).
-                            logger.exception(
-                                "report of previous pipelined task lost "
-                                "(master task timeout requeues)",
-                            )
-                        continue
-                    metrics = self._run_training_task(task)
+                    prof = self._maybe_start_profile()
+                    try:
+                        if prof is None and self.config.task_pipelining:
+                            if self._prep_ahead_eligible():
+                                # Queue this task's host half; dispatch the
+                                # OLDEST prepped task once the queue holds
+                                # more than prep_depth.
+                                self._prep_queue.append(
+                                    (task, report, self._submit_prep(task))
+                                )
+                                while len(self._prep_queue) > max(1, self.config.prep_depth):
+                                    self._dispatch_prepped(self._prep_queue.popleft())
+                                continue
+                            # Dispatch this task's steps, then settle the
+                            # PREVIOUS task's metrics fetch, report and
+                            # checkpoint hook while they run on the card.
+                            fetch, n_steps = self._dispatch_training_task(task)
+                            self._steps_dispatched += n_steps
+                            report["model_version"] = self._steps_dispatched
+                            self._training_tasks_done += 1
+                            prev, self._pending = self._pending, (report, fetch)
+                            try:
+                                self._flush(prev)
+                            except Exception:
+                                # A report-RPC failure must not fail THIS
+                                # task's report (its steps are in the state).
+                                logger.exception(
+                                    "report of previous pipelined task lost "
+                                    "(master task timeout requeues)",
+                                )
+                            continue
+                        metrics = self._run_training_task(task)
+                    finally:
+                        if prof is not None:
+                            self._stop_profile(prof, task.task_id)
+                    self._training_tasks_done += 1
                     report["metrics"] = metrics
                     report["model_version"] = self.state.step
                     self._steps_dispatched = self.state.step
                 elif task.type == TASK_EVALUATION:
-                    # The pipelined train task first: its report must not
-                    # trail this round, and the eval scores a settled state.
-                    self._flush_pending()
+                    # The pipelined train tasks first: their reports must
+                    # not trail this round, and the eval scores a settled
+                    # state.
+                    self._drain_prep()
                     metrics, weight = self._run_evaluation_task(task)
                     report["metrics"] = metrics
                     report["weight"] = weight
                 elif task.type == TASK_PREDICTION:
-                    self._flush_pending()
+                    self._drain_prep()
                     self._run_prediction_task(task)
                 else:
                     raise ValueError(f"unknown task type {task.type}")
@@ -1016,7 +1372,10 @@ class Worker:
                 self._g_tasks.inc()
                 self._maybe_checkpoint()
 
-        self._flush_pending()
+        self._drain_prep()
+        if self._prep_pool is not None:
+            self._prep_pool.shutdown(wait=True)
+            self._prep_pool = None
         if self._ckpt is not None and self._rank == 0:
             self._final_checkpoint()
         with self.phases.phase("control"):

@@ -37,6 +37,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         "data.reader", "data.recordio", "data.synthetic", "master.evaluation_service",
         "master.fleet_metrics", "master.rendezvous", "master.servicer",
         "master.task_dispatcher", "serving.checkpoint_watcher", "worker.worker",
+        # The process-level job.
+        "master.journal", "master.pod_manager", "master.main", "worker.main",
+        "client", "client.api", "client.main", "client.zoo",
     ):
         assert f"elasticdl_tpu_torch.{name}" in mods, name
     code = (
@@ -46,6 +49,30 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         " 'orbax') or m.split('.')[0] in ('jax', 'jaxlib') or m == 'elasticdl_tpu'"
         " or m.startswith('elasticdl_tpu.'))\n"
         "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = _REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=_REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "elasticdl_tpu_torch.master.main",
+    "elasticdl_tpu_torch.client.main",
+])
+def test_master_and_client_import_no_torch(module):
+    """The master is a control-plane process (the JAX package's master
+    stays jax-free the same way): it and the CLI that runs it in-process
+    import no torch."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'))\n"
+        "print('BAD', bad[:5])\n"
         "sys.exit(1 if bad else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -21,6 +21,7 @@ checkpoint steps and the manifest step are equal.
 """
 
 import os
+import time
 
 import jax
 import numpy as np
@@ -77,10 +78,14 @@ class _Recording:
     def __init__(self, proxy):
         self._proxy = proxy
         self.calls = []
+        self.worker = None
+        self.failed_at_step = []  # the worker's step at each failed report
 
     def call(self, method, request):
         if method in ("ReportTaskResult", "ReportCheckpoint"):
             self.calls.append((method, dict(request)))
+        if method == "ReportTaskResult" and not request["success"] and not request.get("requeue"):
+            self.failed_at_step.append(int(self.worker.state.step))
         return self._proxy.call(method, request)
 
     def training_losses(self):
@@ -131,11 +136,11 @@ def carried_init(monkeypatch):
     return params
 
 
-def _run_jax_job(tmp_path, train, val, ckpt_dir):
+def _run_jax_job(tmp_path, train, val, ckpt_dir, spec=None, **overrides):
     config = JaxJobConfig(training_data=train, validation_data=val,
-                          checkpoint_dir=ckpt_dir, **_JOB)
+                          checkpoint_dir=ckpt_dir, **dict(_JOB, **overrides))
     reader, eval_reader = jax_create_data_reader(train), jax_create_data_reader(val)
-    per_task = MB * PER_TASK
+    per_task = config.minibatch_size * config.num_minibatches_per_task
     servicer = JaxMasterServicer(
         JaxTaskDispatcher(reader.create_shards(per_task), num_epochs=1),
         evaluation=JaxEvaluationService(eval_reader.create_shards(per_task),
@@ -143,16 +148,17 @@ def _run_jax_job(tmp_path, train, val, ckpt_dir):
     )
     master = _Recording(JaxDirectMasterProxy(servicer))
     worker = JaxWorker(config, master, _Mux(reader, eval_reader), worker_id="w0",
-                       spec=_jax_spec(), devices=jax.devices()[:1])
+                       spec=spec or _jax_spec(), devices=jax.devices()[:1])
+    master.worker = worker
     result = worker.run()
     return result, servicer, master, worker
 
 
-def _run_port_job(train, val, ckpt_dir, **overrides):
+def _run_port_job(train, val, ckpt_dir, spec=None, **overrides):
     config = JobConfig(training_data=train, validation_data=val,
                        checkpoint_dir=ckpt_dir, **dict(_JOB, **overrides))
     reader, eval_reader = create_data_reader(train), create_data_reader(val)
-    per_task = MB * PER_TASK
+    per_task = config.minibatch_size * config.num_minibatches_per_task
     servicer = MasterServicer(
         TaskDispatcher(reader.create_shards(per_task), num_epochs=1),
         evaluation=EvaluationService(eval_reader.create_shards(per_task),
@@ -160,7 +166,8 @@ def _run_port_job(train, val, ckpt_dir, **overrides):
     )
     master = _Recording(DirectMasterProxy(servicer))
     worker = Worker(config, master, _Mux(reader, eval_reader), worker_id="w0",
-                    spec=tlm.model_spec(**_MODEL), device="cpu")
+                    spec=spec or tlm.model_spec(**_MODEL), device="cpu")
+    master.worker = worker
     result = worker.run()
     return result, servicer, master, worker
 
@@ -194,11 +201,15 @@ def test_synthetic_lm_copies_write_identical_bytes(tmp_path):
         assert a.read() == b.read()
 
 
-def test_port_job_matches_the_jax_job(tmp_path, carried_init):
+@pytest.mark.parametrize("mode", [
+    dict(),
+    dict(task_pipelining=True, prep_depth=2),
+], ids=["synchronous", "prep_ahead"])
+def test_port_job_matches_the_jax_job(tmp_path, carried_init, mode):
     train, val = _data(tmp_path)
     jax_dir, port_dir = str(tmp_path / "jax_ckpt"), str(tmp_path / "port_ckpt")
-    jres, jserv, jmaster, jworker = _run_jax_job(tmp_path, train, val, jax_dir)
-    res, serv, master, worker = _run_port_job(train, val, port_dir)
+    jres, jserv, jmaster, jworker = _run_jax_job(tmp_path, train, val, jax_dir, **mode)
+    res, serv, master, worker = _run_port_job(train, val, port_dir, **mode)
 
     # Tasks, steps, eval rounds: equal.
     n_tasks = N_TRAIN // (MB * PER_TASK)
@@ -363,6 +374,77 @@ def test_failed_step_recovers_from_the_newest_checkpoint(tmp_path, monkeypatch):
     assert res["step"] == 4 + 2 * trained_after
 
 
+def test_checkpoint_steps_match_at_the_chip_smoke_schedule(tmp_path):
+    """``chip_smoke.py``'s job schedule (8 tasks of 4 minibatches of 16, eval
+    and checkpoint every 16 steps, prep-ahead, the defaults) on both
+    packages at a tiny width: the same checkpoint steps (16 and 32, and the
+    final report of 32), eval rounds and tasks."""
+    model = dict(vocab=VOCAB, dim=32, n_heads=2, n_layers=1, max_seq=16, seq_len=16,
+                 compute_dtype="float32")
+    train, val = str(tmp_path / "train.rio"), str(tmp_path / "val.rio")
+    generate("lm", train, 512, seed=0, seq_len=16, vocab=VOCAB)
+    generate("lm", val, 72, seed=1, seq_len=16, vocab=VOCAB)
+    mode = dict(minibatch_size=16, num_minibatches_per_task=4, evaluation_steps=16,
+                checkpoint_steps=16)
+    jspec = jax_load_model_spec("elasticdl_tpu.models", "transformer_lm.model_spec", **model)
+    jres, jserv, jmaster, _ = _run_jax_job(tmp_path, train, val, str(tmp_path / "j"),
+                                           spec=jspec, **mode)
+    res, serv, master, _ = _run_port_job(train, val, str(tmp_path / "p"),
+                                         spec=tlm.model_spec(**model), **mode)
+    assert master.checkpoint_steps() == jmaster.checkpoint_steps() == [16, 32, 32]
+    assert serv.JobStatus({})["eval_rounds"] == jserv.JobStatus({})["eval_rounds"]
+    assert res["tasks_done"] == jres["tasks_done"] and res["step"] == jres["step"] == 32
+
+
+def _fail_feed_once(spec, record):
+    """``spec.feed`` raising once, on the first call that holds ``record``."""
+    feed, armed = spec.feed, [True]
+
+    def flaky(records):
+        if armed[0] and any(bytes(r) == record for r in records):
+            armed[0] = False
+            raise RuntimeError("injected feed failure")
+        return feed(records)
+
+    spec.feed = flaky
+    return spec
+
+
+@pytest.mark.parametrize("mode", [
+    dict(task_pipelining=False, fused_task_scan=False),
+    dict(task_pipelining=False),
+    dict(task_pipelining=True, prep_depth=2),
+], ids=["per_minibatch_feed", "fused_feed", "prep_ahead"])
+def test_feed_failure_recovers_like_the_jax_job(tmp_path, carried_init, mode):
+    """A ``spec.feed`` failure on the first record of minibatch 2 of the
+    fourth task (steps 6 -> 8; the newest checkpoint holds step 4).  Fed
+    one minibatch at a time, the step of minibatch 1 has run: both packages
+    go on from it (``TrainLoopError.state``, step 7).  Fed in one call per
+    task (inline or on the prep thread), no step has run: both keep step
+    6.  The task is requeued and trained again; the final steps, the task
+    counts and each reported loss (rtol 1e-5) are equal."""
+    from elasticdl_tpu.data.reader import Shard as JaxShard
+
+    train, val = _data(tmp_path)
+    reader = jax_create_data_reader(train)
+    trigger = list(reader.read_records(JaxShard(train, 56, 57)))[0]
+    mode = dict(mode, evaluation_steps=0)
+    _, jserv, jmaster, jworker = _run_jax_job(
+        tmp_path, train, val, str(tmp_path / "jax_ckpt"),
+        spec=_fail_feed_once(_jax_spec(), trigger), **mode)
+    res, serv, master, worker = _run_port_job(
+        train, val, str(tmp_path / "port_ckpt"),
+        spec=_fail_feed_once(tlm.model_spec(**_MODEL), trigger), **mode)
+    ran_one = not mode.get("fused_task_scan", True)
+    assert master.failed_at_step == jmaster.failed_at_step == [7 if ran_one else 6]
+    assert worker.recoveries == 0
+    assert res["step"] == int(jworker.state.step) == N_TRAIN // MB + ran_one
+    status, jstatus = serv.JobStatus({}), jserv.JobStatus({})
+    assert status["done"] == jstatus["done"] == N_TRAIN // (MB * PER_TASK)
+    np.testing.assert_allclose(master.training_losses(), jmaster.training_losses(),
+                               rtol=LOSS_RTOL)
+
+
 def test_pipelined_job_trains_the_same_state(tmp_path):
     """Task-level pipelining (the default) defers each task's metrics fetch
     and report past the next task's dispatch; it trains the same tasks in
@@ -428,6 +510,100 @@ def test_worker_left_out_modes_raise(tmp_path):
         with pytest.raises(NotImplementedError, match=what):
             Worker(JobConfig(**kwargs), master=None, reader=None, spec=spec, device="cpu")
     worker = Worker(JobConfig(), master=None, reader=None, spec=spec, device="cpu")
-    with pytest.raises(NotImplementedError, match="preemption"):
-        worker.preemption_snapshot()
     assert isinstance(worker.trainer.device, torch.device)
+
+
+def test_profiled_task_writes_a_trace_and_runs_synchronously(tmp_path):
+    """``profile_dir``: the second training task runs synchronously (its
+    report, with its metrics, comes before the first task's deferred one)
+    under ``torch.profiler`` and leaves a Chrome trace of its steps."""
+    train, val = _data(tmp_path)
+    prof_dir = tmp_path / "prof"
+    res, _, master, _ = _run_port_job(train, val, str(tmp_path / "ckpt"), evaluation_steps=0,
+                                      task_pipelining=True, profile_dir=str(prof_dir))
+    assert res["step"] == N_TRAIN // MB
+    assert sorted(os.listdir(prof_dir)) == ["w0-task-1.pt.trace.json"]
+    import json
+
+    with open(prof_dir / "w0-task-1.pt.trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = {str(e.get("name", "")) for e in events}
+    assert any(n.startswith("aten::") for n in names)  # the steps' operators
+    assert any("Backward" in n for n in names)  # and their backward
+    order = [r["task_id"] for m, r in master.calls if m == "ReportTaskResult"]
+    assert order[:2] == [1, 0]
+
+
+def test_preemption_snapshot_saves_and_publishes_the_parked_state(tmp_path, monkeypatch):
+    """``preemption_snapshot`` (the SIGTERM path of ``worker/main.py``, run
+    here in-process): the task loop parks at its next boundary, the
+    undispatched preps and leases go back to the master requeued and the
+    pipelined task's report lands (all from the preemption thread, in
+    sequence order), and the live state is saved and published at its
+    step."""
+    import threading
+
+    from elasticdl_tpu_torch.worker import worker as wmod
+
+    train, val = _data(tmp_path)
+    ckpt = str(tmp_path / "ckpt")
+    config = JobConfig(training_data=train, validation_data=val, checkpoint_dir=ckpt,
+                       **dict(_JOB, evaluation_steps=0, checkpoint_steps=0,
+                              task_pipelining=True))
+    reader = create_data_reader(train)
+    servicer = MasterServicer(TaskDispatcher(reader.create_shards(MB * PER_TASK), num_epochs=1))
+    master = _Recording(DirectMasterProxy(servicer))
+    worker = Worker(config, master, reader, worker_id="w0", spec=tlm.model_spec(**_MODEL),
+                    device="cpu")
+    master.worker = worker
+    result = {}
+
+    class _Stop(Exception):
+        pass
+
+    orig_report = master.call
+
+    def call(method, request):
+        resp = orig_report(method, request)
+        if (method == "ReportTaskResult" and request.get("task_id") == 1
+                and "thread" not in result):
+            result["thread"] = threading.Thread(
+                target=lambda: result.setdefault("saved", worker.preemption_snapshot()))
+            result["thread"].start()
+        return resp
+
+    master.call = call
+
+    class _Clock:
+        """The worker module's clock, with a sleep that can end the loop."""
+        stop = False
+
+        def __getattr__(self, name):
+            return getattr(time, name)
+
+        def sleep(self, s):
+            if self.stop:
+                raise _Stop()
+            time.sleep(s)
+
+    clock = _Clock()
+    monkeypatch.setattr(wmod, "time", clock)
+    loop = threading.Thread(target=lambda: pytest.raises(_Stop, worker.run), daemon=True)
+    loop.start()
+    deadline = time.monotonic() + 60
+    while "saved" not in result and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert result.get("saved") is True
+    step = worker.state.step
+    assert worker._parked and read_manifest(ckpt)["step"] == step
+    saved = CheckpointManager(ckpt).restore(step)
+    for key, value in worker.trainer.host_state(worker.state).items():
+        assert np.array_equal(saved[key], value), key
+    status = servicer.JobStatus({})
+    # Every task is done (its steps are in the snapshot) or back in todo.
+    assert status["done"] == step // PER_TASK
+    assert status["doing"] == 0 and status["done"] + status["todo"] == N_TRAIN // (MB * PER_TASK)
+
+    clock.stop = True  # the parked loop's next sleep ends it
+    loop.join(timeout=10)
+    assert not loop.is_alive()

@@ -241,7 +241,11 @@ def test_port_worker_completes_a_job_against_the_jax_master(tmp_path):
     status = servicer.JobStatus({})
     assert status["finished"] and status["done"] == 4 and status["duplicate_done"] == 0
     assert result["step"] == 8 and status["model_version"] == 8
-    assert status["eval_rounds"] >= 2 and np.isfinite(status["eval_metrics"]["loss"])
+    # With prep-ahead (the default) the port worker runs the reference's
+    # dispatch order: this 4-task job gets one eval round, as the JAX
+    # worker's does (the next test; tests/test_torch_job.py holds the
+    # rounds equal across packages).
+    assert status["eval_rounds"] == 1 and np.isfinite(status["eval_metrics"]["loss"])
     assert servicer.GetCheckpoint({})["step"] == 8 and read_manifest(ckpt)["step"] == 8
     assert set(status["phase_times"]["torch-w0"]) >= {"dispatch", "step_wait", "lease_wait"}
 
