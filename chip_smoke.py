@@ -56,7 +56,20 @@ exits non-zero without its result line:
 9. phase 8's SIGKILL again, with a warm standby (``--warm_worker_standby``):
    the pod manager adopts a parked spare that paid its imports under the
    relaunch's name; the job finishes, the adopted process's launch counts
-   are checked, and the recovery is timed against phase 8's cold one.
+   are checked, and the recovery is timed against phase 8's cold one;
+10. DeepFM on Criteo at the JAX bench's width (65536 buckets a feature,
+   dim 8, MLP 400-400, batch 8192, bf16 over f32, the native preprocessing
+   feed, Adam): the card's logits and gradients against the same weights
+   on the CPU in f32, out-of-range ids (NaN rows, no device assert), the
+   native decode against the plain one on 8192 records; the device step
+   by bench.py's protocol (5 warm-up, 30 measured steps) with a profile
+   split into gather, scatter-add, Adam, GEMMs and the rest; the gather
+   and the scatter-add against their byte bounds; the end-to-end job of
+   ``tools/bench_e2e.py`` (RecordIO, ``MasterServicer``, one ``Worker``
+   with prep-ahead; 18 tasks of 65536 records, 2 excluded) with the ingest
+   pool on auto and at one thread; one eval round on a file with a masked
+   tail after a two-epoch job, whose AUC must exceed 0.5 on the planted
+   rule.
 
 Prints the card's name and power limit first, a ``{"kernels": [...]}``
 line before the last, and ``{"ok": true, "device": {...}}`` last.  The
@@ -1461,6 +1474,421 @@ def phase_grpc_replica() -> dict:
             "predict_ms": latencies}
 
 
+# Phase 10: DeepFM on Criteo at the JAX bench's width (bench.py:288-294):
+# 65536 buckets a feature, embedding dim 8, MLP (400, 400), global batch
+# 8192, bf16 compute over f32 parameters, the native preprocessing feed,
+# Adam lr 1e-3.  The end-to-end run follows tools/bench_e2e.py: a RecordIO
+# file of 2 tasks x 8 minibatches x 8192 records, read for 9 epochs (18
+# tasks), the first 2 excluded.
+DFM_WIDTH = dict(buckets_per_feature=65536, embedding_dim=8, hidden=(400, 400))
+DFM_BATCH, DFM_MB_PER_TASK, DFM_FILE_TASKS = 8192, 8, 2
+DFM_WARM_TASKS, DFM_MEASURE_TASKS = 2, 16
+DFM_WARM_STEPS, DFM_STEPS = 5, 30
+DFM_VAL = 20000  # 2 full minibatches and a masked tail of 3616
+# Card against CPU (both f32, TF32 off): logits' and each gradient's error
+# norm over norm; the bf16 card model against the f32 CPU one, the same
+# readings (bf16 keeps ~3 digits through two 400-wide layers).
+DFM_F32_REL, DFM_BF16_REL = 1e-4, 5e-2
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _dfm_loss_and_grads(spec, model, batch: dict) -> tuple:
+    """Logits, loss and the table's and MLP's gradients of one step."""
+    from elasticdl_tpu_torch.parallel.trainer import MASK_KEY
+
+    batch = dict(batch)
+    mask = batch.pop(MASK_KEY)
+    model.zero_grad(set_to_none=True)
+    logits = spec.apply(model, batch, train=True)
+    loss = spec.loss(logits, batch, mask=mask)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return logits.detach(), loss.detach(), grads
+
+
+# Profiler kernel-name fragments of the DeepFM step's groups: the gather
+# (index_select's kernel), the scatter-add (index_add's kernel and the fill
+# that zeroes the dense table gradient under it, the step's only large
+# fill), Adam (foreach kernels), GEMMs (cuBLAS).
+_DFM_GROUPS = (
+    ("gather", ("gather_kernel", "indexselect", "index_select")),
+    ("scatter_add", ("indexfunc", "index_add", "indexput", "index_put", "scatter",
+                     "fillfunctor<float>")),
+    ("adam", ("multi_tensor_apply", "adam")),
+    ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "matmul", "sm90_")),
+)
+
+
+def _dfm_breakdown(fn) -> dict:
+    """One ``fn()`` under torch.profiler: device time grouped into gather,
+    scatter-add, Adam, GEMMs and the rest, the top kernels, and the host's
+    top operators by self time (under the profiler, which slows them), with
+    the count of kernels launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel, by_op, launches = {}, {}, 0
+    for e in prof.key_averages():
+        # A user annotation ("Optimizer.step#Adam.step") carries the device
+        # time of the kernels inside it again; the buffer requests are the
+        # profiler's own.
+        annotation = getattr(e, "is_user_annotation", False) or "#" in e.key
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and not annotation and e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e3
+            launches += e.count
+        elif e.self_cpu_time_total > 0 and e.key != "Activity Buffer Request":
+            by_op[e.key] = by_op.get(e.key, 0.0) + e.self_cpu_time_total / 1e3
+    groups = {name: 0.0 for name, _ in _DFM_GROUPS}
+    groups["rest"] = 0.0
+    for key, ms in by_kernel.items():
+        k = key.lower()
+        name = next((n for n, frags in _DFM_GROUPS if any(f in k for f in frags)), "rest")
+        groups[name] += ms
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:14]
+    host = sorted(by_op.items(), key=lambda kv: -kv[1])[:14]
+    return {"device_ms": sum(by_kernel.values()), "groups_ms": groups, "kernels": launches,
+            "top_kernels_ms": [[k[:120], ms] for k, ms in top],
+            "host_ms": sum(by_op.values()), "top_host_ops_ms": [[k[:80], ms] for k, ms in host]}
+
+
+def _dfm_e2e(spec, train: str, reader, ingest_threads: int, epochs: int,
+             val: str = "") -> dict:
+    """tools/bench_e2e.py's run in the port: MasterServicer + a timing
+    DirectMasterProxy + one Worker with prep-ahead over the RecordIO file;
+    examples/s over the training reports' timestamps past the warm-up
+    tasks.  ``val``: one eval round at the last step, on that file."""
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.data.reader import create_data_reader
+    from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
+    from elasticdl_tpu_torch.master.servicer import MasterServicer
+    from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+    from elasticdl_tpu_torch.worker.worker import DirectMasterProxy, Worker
+
+    per_task = DFM_BATCH * DFM_MB_PER_TASK
+    total_steps = epochs * DFM_FILE_TASKS * DFM_MB_PER_TASK
+    evaluation = None
+    if val:
+        evaluation = EvaluationService(create_data_reader(val).create_shards(per_task),
+                                       evaluation_steps=total_steps)
+    dispatcher = TaskDispatcher(create_data_reader(train).create_shards(per_task),
+                                num_epochs=epochs)
+    servicer = MasterServicer(dispatcher, evaluation=evaluation)
+    stamps, reports = [], []
+
+    class TimingProxy(DirectMasterProxy):
+        def call(self, method, request):
+            resp = super().call(method, request)
+            if method == "ReportTaskResult":
+                reports.append(dict(request))
+                if request.get("task_type") == "training":
+                    stamps.append(time.perf_counter())
+            return resp
+
+    config = JobConfig(
+        model_def="deepfm.model_spec", training_data=train, validation_data=val,
+        minibatch_size=DFM_BATCH, num_minibatches_per_task=DFM_MB_PER_TASK,
+        num_epochs=epochs, ingest_threads=ingest_threads, task_pipelining=True,
+        prep_depth=2, evaluation_steps=total_steps if val else 0)
+    worker = Worker(config, TimingProxy(servicer), reader, worker_id="chip-dfm", spec=spec)
+    t0 = time.perf_counter()
+    result = worker.run()
+    wall = time.perf_counter() - t0
+    status = servicer.JobStatus({})
+    n_tasks = epochs * DFM_FILE_TASKS
+    assert status["done"] == n_tasks and len(stamps) == n_tasks, (status, len(stamps))
+    assert result["step"] == total_steps, result
+    measured = len(stamps) - DFM_WARM_TASKS
+    elapsed = stamps[-1] - stamps[DFM_WARM_TASKS - 1]
+    losses = [r["metrics"]["loss"] for r in reports if r.get("task_type") == "training"]
+    assert all(r["success"] for r in reports) and np.isfinite(losses).all(), losses
+    from elasticdl_tpu_torch.data.ingest_pool import resolve_threads
+
+    return {
+        "ingest_threads": resolve_threads(ingest_threads),
+        "examples_per_s": measured * per_task / elapsed, "tasks_measured": measured,
+        "examples_measured": measured * per_task, "elapsed_s": elapsed, "wall_s": wall,
+        "steps": result["step"], "losses": losses, "phase_times": result["phase_times"],
+        "eval_rounds": status.get("eval_rounds", 0), "eval_metrics": status.get("eval_metrics", {}),
+    }
+
+
+def _dfm_cli(train: str, val: str, out: str) -> dict:
+    """``python -m elasticdl_tpu_torch.client.main train
+    --model_def=deepfm.model_spec`` at the bench width (the model's
+    defaults) for one epoch: a ``Master`` in the CLI's process, one worker
+    process on the card, an eval round and a checkpoint at step 16."""
+    import ast
+    import shutil
+
+    from elasticdl_tpu_torch.common.checkpoint import read_manifest
+
+    ckpt, pods = os.path.join(out, "ckpt"), os.path.join(out, "pods")
+    steps = DFM_FILE_TASKS * DFM_MB_PER_TASK
+    cmd = [sys.executable, "-m", "elasticdl_tpu_torch.client.main", "train", "--local",
+           "--job_name=chip10", "--model_def=deepfm.model_spec", "--learning_rate=1e-3",
+           f"--training_data={train}", f"--validation_data={val}",
+           f"--minibatch_size={DFM_BATCH}", f"--num_minibatches_per_task={DFM_MB_PER_TASK}",
+           "--num_epochs=1", f"--evaluation_steps={steps}", f"--checkpoint_steps={steps}",
+           f"--checkpoint_dir={ckpt}", f"--pod_log_dir={pods}"]
+    log_path = os.path.join(out, "cli.log")
+    t = time.perf_counter()
+    proc = _start_cli(cmd, log_path)
+    try:
+        rc = proc.wait(timeout=300)
+    finally:
+        _stop_cli(proc)
+    wall = time.perf_counter() - t
+    text = _read(log_path)
+    assert rc == 0, f"the DeepFM CLI job exited {rc}; see {log_path}"
+    line = next(x for x in text.splitlines() if "job finished: " in x)
+    status = ast.literal_eval(line.split("job finished: ", 1)[1])
+    events = _worker_events(_read(os.path.join(pods, "chip10-worker-0.log")))
+    summary = events["summary"]
+    manifest = read_manifest(ckpt)
+    log(f"[deepfm] CLI job: rc {rc} in {wall:.1f} s; {status['done']} tasks, step "
+        f"{summary['step']}, eval " + json.dumps(status["eval_metrics"])
+        + f"; manifest step {manifest['step']}; worker boot "
+        f"{events['ready'].get('boot_s', float('nan')):.2f} s")
+    assert status["done"] == DFM_FILE_TASKS and summary["step"] == steps
+    assert status["eval_rounds"] >= 1 and 0.0 < status["eval_metrics"]["auc"] < 1.0
+    assert manifest["step"] == steps
+    shutil.rmtree(ckpt)  # 0.44 GB a checkpoint: too much to keep in chiprun_out/
+    return {"wall_s": wall, "status_eval": status["eval_metrics"], "summary": summary,
+            "manifest_step": manifest["step"]}
+
+
+def phase_deepfm(card: str) -> dict:
+    """DeepFM on the card: (a) the card against the CPU, an out-of-range
+    id, the native decode against the plain one; (b) the device step by
+    bench.py's protocol with a profile split; (c) the end-to-end job with
+    the ingest pool on auto and at one thread; (d) one eval round with a
+    masked tail after a two-epoch job."""
+    import shutil
+
+    from elasticdl_tpu_torch.data import codecs
+    from elasticdl_tpu_torch.data.reader import RecordIODataReader
+    from elasticdl_tpu_torch.data.synthetic import synthetic_criteo
+    from elasticdl_tpu_torch.models import deepfm
+    from elasticdl_tpu_torch.ops import kernels
+    from elasticdl_tpu_torch.ops.embedding import gather_rows, logical_rows
+    from elasticdl_tpu_torch.parallel.trainer import MASK_KEY, Trainer
+    from elasticdl_tpu_torch.ps import host_store
+
+    out = os.path.join(REPO, "chiprun_out", "deepfm")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    t = time.perf_counter()
+    train = synthetic_criteo(os.path.join(out, "train.rio"),
+                             DFM_FILE_TASKS * DFM_MB_PER_TASK * DFM_BATCH, seed=11,
+                             container="recordio")
+    val = synthetic_criteo(os.path.join(out, "val.rio"), DFM_VAL, seed=12, container="recordio")
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    host_store._load()  # builds the native library from the checkout
+    build_s = time.perf_counter() - t
+    reader = RecordIODataReader(os.path.join(out, "*.rio"))
+    records = reader.read_records_packed(reader.create_shards(DFM_BATCH)[0])
+    assert len(records) == DFM_BATCH
+    log(f"[deepfm] data: {os.path.getsize(train) >> 20} MiB train, {DFM_VAL} val records in "
+        f"{gen_s:.1f}s; native library ready in {build_s:.1f}s")
+
+    # (a) The decode: native against plain on 8192 records, bit for bit;
+    # both timed on this host.
+    buckets = DFM_WIDTH["buckets_per_feature"]
+    native = codecs.criteo_feed_pre(records, buckets)
+    t = time.perf_counter()
+    plain = codecs.criteo_feed_pre_plain(list(records), buckets)
+    plain_decode_ms = (time.perf_counter() - t) * 1e3
+    for k in ("dense", "cat", "labels"):
+        assert native[k].dtype == plain[k].dtype and native[k].tobytes() == plain[k].tobytes(), k
+    t = time.perf_counter()
+    for _ in range(20):
+        codecs.criteo_feed_pre(records, buckets)
+    native_decode_ms = (time.perf_counter() - t) * 1e3 / 20
+    t = time.perf_counter()
+    for _ in range(5):
+        reader.read_records_packed(reader.create_shards(DFM_BATCH)[0])
+    read_ms = (time.perf_counter() - t) * 1e3 / 5
+    log(f"[deepfm] decode of {DFM_BATCH} records: native {native_decode_ms:.3f} ms, plain "
+        f"{plain_decode_ms:.1f} ms (bit for bit equal); bulk read {read_ms:.3f} ms")
+
+    # (a) The card against the CPU on the same weights and batch (its last
+    # 128 rows padding), f32 on both, then the bf16 card model.
+    spec = deepfm.model_spec(**DFM_WIDTH)
+    trainer = Trainer(spec, device="cuda")
+    held_bytes = torch.cuda.memory_allocated()  # what earlier phases still hold
+    t = time.perf_counter()
+    state = trainer.init_state(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    tree = deepfm.params_to_jax(state.model)
+    spec32 = deepfm.model_spec(**DFM_WIDTH, compute_dtype="float32")
+    host_batch = dict(native)
+    host_batch[MASK_KEY] = (np.arange(DFM_BATCH) < DFM_BATCH - DFM_BATCH // 64).astype(np.float32)
+    cpu_model = deepfm.params_from_jax(tree, buckets, 8, "float32", device="cpu")
+    cpu_batch = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in host_batch.items()}
+    ref_logits, ref_loss, ref_grads = _dfm_loss_and_grads(spec32, cpu_model, cpu_batch)
+    card_batch = trainer.shard_batch(host_batch)
+    # The upload keeps the wire dtypes: uint16 ids and float16 dense arrive
+    # bit for bit.
+    for k in ("cat", "dense", "labels"):
+        assert card_batch[k].dtype == cpu_batch[k].dtype, k
+        assert torch.equal(card_batch[k].cpu().view(torch.uint8), cpu_batch[k].view(torch.uint8)), k
+    parity = {}
+    for name, model, sp, limit in (
+        ("f32", deepfm.params_from_jax(tree, buckets, 8, "float32", device="cuda"), spec32,
+         DFM_F32_REL),
+        ("bf16", state.model, spec, DFM_BF16_REL),
+    ):
+        logits, loss, grads = _dfm_loss_and_grads(sp, model, card_batch)
+        reading = {"logits": _rel(logits, ref_logits), "loss": abs(float(loss) - float(ref_loss))}
+        reading.update({f"grad/{n}": _rel(g, ref_grads[n]) for n, g in grads.items()})
+        parity[name] = reading
+        worst = max(reading, key=reading.get)
+        log(f"[deepfm] card {name} vs CPU f32: logits {reading['logits']:.3g}, loss "
+            f"{float(loss):.6f} vs {float(ref_loss):.6f}, fm_table grad "
+            f"{reading['grad/fm_table']:.3g}, largest {worst} {reading[worst]:.3g}; limit {limit}")
+        assert all(v <= limit for v in reading.values()), reading
+    del cpu_model, ref_grads
+
+    # (a) An out-of-range id of either sign reads NaN on the card, without
+    # a device assert, and its cotangent is dropped.
+    table = state.model.fm_table.detach().clone().requires_grad_(True)
+    rows = logical_rows(table, 9)
+    ids = torch.tensor([0, -1, rows, -(2**40), 2**40, 5], device="cuda")
+    got = gather_rows(table, ids, 9)
+    (got * 2.0).sum().backward()
+    torch.cuda.synchronize()
+    touched = sorted(set(torch.nonzero(table.grad.reshape(-1, 16)[:, :9].abs().sum(1)).flatten().tolist()))
+    oob_ok = (bool(torch.isnan(got[1:5]).all()) and bool(torch.isfinite(got[[0, 5]]).all())
+              and bool(torch.isfinite(table.grad).all()) and touched == [0, 5])
+    log(f"[deepfm] out-of-range ids [-1, {rows}, -2^40, 2^40]: NaN rows, no device assert, "
+        f"gradient rows touched {touched}: {oob_ok}")
+    assert oob_ok
+    del table, got
+
+    # (b) The device step, bench.py's protocol: 5 warm-up steps, then 30
+    # measured on one placed batch.
+    placed = trainer.shard_batch(dict(native))
+    for _ in range(DFM_WARM_STEPS):
+        state, _ = trainer.train_step(state, placed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    for _ in range(DFM_STEPS):
+        state, metrics = trainer.train_step(state, placed)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / DFM_STEPS
+    step_event_ms = start.elapsed_time(end) / DFM_STEPS
+    peak_bytes = torch.cuda.max_memory_allocated() - held_bytes
+    t = time.perf_counter()
+    state, _ = trainer.train_step(state, placed)
+    enqueue_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    holder = [state]
+
+    def one_step():
+        holder[0] = trainer.train_step(holder[0], placed)[0]
+
+    breakdown = _dfm_breakdown(one_step)
+    state = holder[0]
+    log(f"[deepfm] device step ({DFM_STEPS} after {DFM_WARM_STEPS} warm-up, batch {DFM_BATCH}): "
+        f"{step_ms:.3f} ms host clock, {step_event_ms:.3f} ms CUDA events, "
+        f"{DFM_BATCH / step_ms * 1e3:.0f} examples/s; peak memory {peak_bytes / 2**30:.3f} GiB; "
+        f"one step: wall {wall_ms:.3f} ms, host enqueue {enqueue_ms:.3f} ms, device busy "
+        f"{breakdown['device_ms']:.3f} ms in {breakdown['kernels']} kernels: "
+        + json.dumps(breakdown["groups_ms"]) + f" on {card}")
+    log("[deepfm] top kernels: " + json.dumps(breakdown["top_kernels_ms"]))
+    log(f"[deepfm] host, profiled: {breakdown['host_ms']:.3f} ms self time; top operators: "
+        + json.dumps(breakdown["top_host_ops_ms"]))
+    assert np.isfinite(float(metrics["loss"]))
+
+    # The gather and the scatter-add alone at the step's shapes, against
+    # their byte bounds: 8192 x 26 ids of 9 f32 values; the gather reads the
+    # ids and 36 bytes a row and writes 36; the scatter-add reads the ids
+    # and the cotangents and writes the dense table gradient once.
+    tbl = state.model.fm_table.detach()
+    flat_ids = torch.randint(0, rows, (DFM_BATCH * 26,), device="cuda")
+    cot = torch.randn(DFM_BATCH * 26, 9, device="cuda")
+    n_ids = flat_ids.numel()
+    view = tbl.reshape(-1, 16)
+
+    cot16 = torch.nn.functional.pad(cot, (0, 7))  # the sliced gather's cotangent
+
+    def scatter():  # what autograd runs for index_select's backward
+        torch.zeros_like(view).index_add_(0, flat_ids, cot16)
+
+    gather_ms = time_ms(lambda: gather_rows(tbl, flat_ids, 9))
+    library_gather_ms = time_ms(lambda: torch.nn.functional.embedding(flat_ids, view)[:, :9])
+    scatter_ms = time_ms(scatter)
+    gather_bound = bound_ms(n_ids * (8 + 36 + 36), 0, torch.float32)
+    scatter_bound = bound_ms(n_ids * (8 + 36) + tbl.numel() * 4, n_ids * 9, torch.float32)
+    log(f"[deepfm] gather {gather_ms:.4f} ms (bound {gather_bound[0]:.4f}, "
+        f"F.embedding {library_gather_ms:.4f}); scatter-add with the zeroed dense gradient "
+        f"{scatter_ms:.4f} ms (bound {scatter_bound[0]:.4f})")
+
+    # (c) End to end, with the ingest pool on auto and at one thread; the
+    # second run ends on an eval round (after its last training report, so
+    # outside the measured window).
+    epochs = (DFM_WARM_TASKS + DFM_MEASURE_TASKS) // DFM_FILE_TASKS
+    kernels.reset_counts()
+    e2e = {}
+    for threads in (0, 1):
+        run = _dfm_e2e(spec, train, reader, threads, epochs, val=val if threads else "")
+        e2e[threads] = run
+        phases = {k: round(v, 4) for k, v in run["phase_times"].items() if v}
+        log(f"[deepfm] e2e, ingest_threads {threads} ({run['ingest_threads']} threads): "
+            f"{run['examples_per_s']:.0f} examples/s over {run['tasks_measured']} tasks "
+            f"({run['examples_measured']} examples, {run['elapsed_s']:.3f} s); wall "
+            f"{run['wall_s']:.2f} s, {run['steps']} steps; task losses "
+            f"{run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}; phases (s) " + json.dumps(phases))
+    log(f"[deepfm] eval round after the {e2e[1]['steps']} steps of {epochs} epochs: "
+        + json.dumps(e2e[1]["eval_metrics"]))
+    assert not any(kernels.counts().values())  # DeepFM runs no hand-written kernel
+
+    # (d) One eval round, on a file whose last minibatch is a masked tail,
+    # at the end of a two-epoch job: the 9-epoch runs above memorise their
+    # 131,072 records (the training loss falls toward 0 and the held-out
+    # AUC with it), so this round scores a model that has learned the rule.
+    run = _dfm_e2e(spec, train, reader, 0, 2, val=val)
+    ev = run["eval_metrics"]
+    log(f"[deepfm] eval round ({DFM_VAL} records, masked tail of {DFM_VAL % DFM_BATCH}) "
+        f"after {run['steps']} steps (2 epochs): " + json.dumps(ev))
+    assert run["eval_rounds"] == 1 and ev["auc"] > 0.5, ev
+    assert all(np.isfinite(v) for v in ev.values()), ev
+
+    # (e) The CLI: one epoch in a worker process on the card, an eval round
+    # and a checkpoint at its end.
+    cli = _dfm_cli(train, val, out)
+    for path in (train, val):  # 37 MiB of data: made again by each run
+        os.remove(path)
+    return {
+        "config": dict(DFM_WIDTH, batch=DFM_BATCH, compute_dtype="bfloat16",
+                       pipeline_preprocess=True, optimizer="adam", learning_rate=1e-3),
+        "init_s": init_s, "decode": {"native_ms": native_decode_ms, "plain_ms": plain_decode_ms,
+                                     "bulk_read_ms": read_ms},
+        "parity": parity, "oob_ok": oob_ok,
+        "step": {"ms": step_ms, "event_ms": step_event_ms,
+                 "examples_per_s": DFM_BATCH / step_ms * 1e3, "peak_bytes": peak_bytes,
+                 "wall_ms": wall_ms, "enqueue_ms": enqueue_ms, "device": breakdown},
+        "gather": {"ms": gather_ms, "bound_ms": gather_bound[0], "library_ms": library_gather_ms},
+        "scatter_add": {"ms": scatter_ms, "bound_ms": scatter_bound[0]},
+        "e2e": {str(k): v for k, v in e2e.items()}, "eval": ev, "cli": cli,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA card",
@@ -1486,6 +1914,7 @@ def main() -> int:
     report["process_job"] = phase_process_job(card, report["job"]["p50_step_ms"])
     report["process_job_standby"] = phase_process_job_standby(
         card, report["process_job"]["kill"]["recover_s"])
+    report["deepfm"] = phase_deepfm(card)
     report["wall_s"] = time.perf_counter() - t0
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -1,0 +1,114 @@
+"""Bounded thread pool for intra-task parallel shard ingest — the port's
+copy of ``elasticdl_tpu/data/ingest_pool.py``.
+
+A task's host half (the RecordIO bulk read, its CRC check and the Criteo
+decode) runs in the native library, which releases the interpreter lock,
+and every record decodes independently of its neighbours.  So a task's
+record range splits into chunks decoded on a pool of threads:
+
+- ``plan_chunks`` splits a shard's record range into contiguous sub-ranges
+  whose interior boundaries are minibatch-aligned, so per-chunk feeds
+  reshape to ``[t_i, mb, ...]`` stacks that concatenate, in chunk order,
+  into exactly the bytes the serial path produces (record order, ragged
+  tail and ``__mask__`` semantics are untouched; held by tests).
+- ``IngestPool`` runs the chunk decodes on a bounded
+  ``ThreadPoolExecutor`` (threads named ``edl-ingest_*``) and reassembles
+  results in submission order.
+
+Pure stdlib.
+"""
+
+from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, List, Sequence, Tuple, TypeVar
+
+_T = TypeVar("_T")
+_R = TypeVar("_R")
+
+#: Auto mode (``ingest_threads=0``) resolves to this many threads at most:
+#: past ~4 the decode stops being the task bound (the chunk split also
+#: bottoms out at one minibatch per chunk) and extra threads only fight
+#: the trainer for cores.
+AUTO_THREADS_CAP = 4
+
+
+def resolve_threads(requested: int) -> int:
+    """The pool width a request resolves to: explicit positive values are
+    taken as-is; 0 (auto) uses the host's cores up to AUTO_THREADS_CAP."""
+    if requested > 0:
+        return requested
+    return max(1, min(AUTO_THREADS_CAP, os.cpu_count() or 1))
+
+
+def plan_chunks(
+    start: int, end: int, minibatch: int, threads: int
+) -> List[Tuple[int, int]]:
+    """Split record range ``[start, end)`` into up to ``threads`` contiguous
+    sub-ranges covering it exactly, every interior boundary a multiple of
+    ``minibatch`` records from ``start``.  The ragged tail (records past
+    the last full minibatch) rides the LAST chunk, so only that chunk can
+    produce leftover records — reassembly stays a plain ordered concat.
+    Fewer than 2 full minibatches (nothing to split) or ``threads <= 1``
+    returns the whole range as one chunk."""
+    n = max(0, end - start)
+    n_full = n // minibatch if minibatch > 0 else 0
+    if threads <= 1 or n_full < 2:
+        return [(start, end)]
+    k = min(threads, n_full)
+    per = -(-n_full // k)  # ceil: minibatches per chunk
+    chunks: List[Tuple[int, int]] = []
+    i = 0
+    while i < n_full:
+        j = min(i + per, n_full)
+        chunks.append((start + i * minibatch, start + j * minibatch))
+        i = j
+    if end > chunks[-1][1]:  # ragged tail -> last chunk
+        chunks[-1] = (chunks[-1][0], end)
+    return chunks
+
+
+class IngestPool:
+    """Bounded worker pool for parallel chunk decode, results in order.
+
+    One instance per worker, shared by every concurrent task prep (the
+    prep-ahead threads submit chunk work; chunks of different tasks
+    interleave on the pool, and each ``map_ordered`` call keeps its own
+    order).  ``threads <= 1`` runs inline with no pool at all, so the
+    serial path stays the plain code path.
+    """
+
+    def __init__(self, threads: int = 0):
+        self.threads = resolve_threads(threads)
+        self._pool = (
+            ThreadPoolExecutor(
+                max_workers=self.threads, thread_name_prefix="edl-ingest"
+            )
+            if self.threads > 1
+            else None
+        )
+
+    @property
+    def parallel(self) -> bool:
+        return self._pool is not None
+
+    def map_ordered(
+        self, fn: Callable[[_T], _R], items: Sequence[_T]
+    ) -> List[_R]:
+        """Run ``fn`` over ``items`` concurrently, returning results in
+        input order (the property chunk reassembly depends on).  Runs
+        inline when the pool is serial or there is nothing to overlap.
+        Blocks until every item completes — call from prep threads, not
+        from the task loop's dispatch path."""
+        if self._pool is None or len(items) < 2:
+            return [fn(it) for it in items]
+        futures = [self._pool.submit(fn, it) for it in items]
+        # .result() re-raises the first chunk failure; later futures still
+        # run to completion on the bounded pool (no leak, no orphan).
+        return [f.result() for f in futures]
+
+    def shutdown(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+            self._pool = None

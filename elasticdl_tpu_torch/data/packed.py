@@ -64,3 +64,9 @@ def concat_records(records: Sequence[bytes]) -> np.ndarray:
     if isinstance(records, PackedRecords):
         return records.span()
     return np.frombuffer(b"".join(records), np.uint8)
+
+
+def as_packed(records: Sequence[bytes]) -> PackedRecords:
+    if isinstance(records, PackedRecords):
+        return records
+    return PackedRecords.from_records(records)

@@ -7,9 +7,9 @@ RecordIO files whose numbered records make range-sharding natural (SURVEY.md
 little-endian, no compression.  Files carry a 8-byte magic header.  A sidecar
 index is NOT required: ``RecordIOReader.index()`` scans once and caches record
 offsets, so shard handout (record ranges) and ranged reads are O(1) after the
-first scan.  A C++ scanner for the hot ingest path lives in
-``elasticdl_tpu/ps/native`` (built lazily; this module is the pure-Python
-fallback and the format's source of truth).
+first scan.  The scan, the ranged reads and their CRC checks run in the
+port's native library (``ps/host_store.py``, built at first use), as the
+reference's bulk read does; the writer here is the format's source of truth.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import os
 import struct
 import zlib
 from collections import OrderedDict
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -32,10 +32,9 @@ _HDR = struct.Struct("<II")
 #: per parallel ingest chunk), and every fresh ``RecordIOReader`` used to
 #: pay the full index scan again.  Keying on mtime+size means an appended
 #: or rewritten file can never serve a stale index — its old entry just
-#: ages out.  Bounded LRU; offsets lists are append-only after insertion
-#: (readers treat them as immutable), so sharing one list across reader
-#: instances and threads is safe.
-_INDEX_CACHE: "OrderedDict[Tuple[str, int, int], List[int]]" = OrderedDict()
+#: ages out.  Bounded LRU; offsets arrays are never written after
+#: insertion, so sharing one across reader instances and threads is safe.
+_INDEX_CACHE: "OrderedDict[Tuple[str, int, int], np.ndarray]" = OrderedDict()
 _INDEX_CACHE_MAX = 64
 _index_cache_lock = locksan.lock("_index_cache_lock", leaf=True)  # lock-order: leaf
 
@@ -69,16 +68,18 @@ class RecordIOWriter:
 class RecordIOReader:
     def __init__(self, path: str):
         self.path = path
-        self._offsets: Optional[List[int]] = None
+        self._offsets: Optional[np.ndarray] = None
         with open(path, "rb") as f:
             if f.read(len(MAGIC)) != MAGIC:
                 raise ValueError(f"{path}: not a recordio file")
 
-    def index(self) -> List[int]:
-        """Byte offset of each record (one-time scan, shared process-wide
+    def index(self) -> np.ndarray:
+        """Byte offset of each record (one native scan, shared process-wide
         through the ``(path, mtime, size)``-keyed cache — sub-chunk readers
         and per-task reader instances must not re-scan the same bytes)."""
         if self._offsets is None:
+            from elasticdl_tpu_torch.ps.host_store import recordio_index_native
+
             st = os.stat(self.path)
             key = (self.path, st.st_mtime_ns, st.st_size)
             with _index_cache_lock:
@@ -88,15 +89,8 @@ class RecordIOReader:
             if cached is not None:
                 self._offsets = cached
                 return cached
-            offsets = []
-            size = st.st_size
-            with open(self.path, "rb") as f:
-                pos = len(MAGIC)
-                while pos < size:
-                    offsets.append(pos)
-                    f.seek(pos)
-                    length, _ = _HDR.unpack(f.read(_HDR.size))
-                    pos += _HDR.size + length
+            offsets = recordio_index_native(self.path)
+            offsets.flags.writeable = False
             with _index_cache_lock:
                 _INDEX_CACHE[key] = offsets
                 _INDEX_CACHE.move_to_end(key)
@@ -110,23 +104,14 @@ class RecordIOReader:
 
     def read_range(self, start: int, end: int) -> Iterator[bytes]:
         """Yield records [start, end) by record index, CRC-checked."""
-        offsets = self.index()
-        end = min(end, len(offsets))
-        if start >= end:
-            return
-        with open(self.path, "rb") as f:
-            f.seek(offsets[start])
-            for _ in range(end - start):
-                length, crc = _HDR.unpack(f.read(_HDR.size))
-                payload = f.read(length)
-                if zlib.crc32(payload) != crc:
-                    raise IOError(f"{self.path}: CRC mismatch")
-                yield payload
+        return iter(self.read_range_packed(start, end))
 
     def read_range_packed(self, start: int, end: int):
-        """Records [start, end) as one PackedRecords (CRC-checked).
-        See data/packed.py for why the hot path avoids per-record objects."""
+        """Records [start, end) as one PackedRecords: one native bulk read
+        with its CRC checks.  See data/packed.py for why the hot path avoids
+        per-record objects."""
         from elasticdl_tpu_torch.data.packed import PackedRecords
+        from elasticdl_tpu_torch.ps.host_store import recordio_read_native
 
         offsets = self.index()
         end = min(end, len(offsets))
@@ -134,10 +119,10 @@ class RecordIOReader:
             return PackedRecords(
                 np.empty((0,), np.uint8), np.zeros((1,), np.int64)
             )
-        # The reference's bulk C++ read (ps/host_store.recordio_read_native)
-        # comes with the PS host tier's slice of the port; its Python
-        # fallback is the read here.
-        return PackedRecords.from_records(list(self.read_range(start, end)))
+        buf, cum = recordio_read_native(
+            self.path, offsets, start, end, os.path.getsize(self.path)
+        )
+        return PackedRecords(buf, cum)
 
 
 def write_records(path: str, records: Sequence[bytes]) -> int:

@@ -1,9 +1,11 @@
 """Synthetic dataset generators — the port's copy of
-``elasticdl_tpu/data/synthetic.py``, cut to the language-model family
-(``synthetic_lm``); the other families come with their models' slices.
+``elasticdl_tpu/data/synthetic.py``, cut to the Criteo and language-model
+families (``synthetic_criteo``, ``synthetic_lm``); the other families come
+with their models' slices.  Each writes the same bytes as the reference's
+generator for the same arguments.
 
 Used by tests and the chip smoke run when no real dataset is mounted.
-Tokens follow a hidden next-token rule so the model demonstrably learns.
+Labels and tokens follow a hidden rule so the models demonstrably learn.
 """
 
 from __future__ import annotations
@@ -14,6 +16,31 @@ import numpy as np
 
 from elasticdl_tpu_torch.data import codecs
 from elasticdl_tpu_torch.data.recordio import RecordIOWriter
+
+
+def synthetic_criteo(
+    path: str, n: int, seed: int = 0, container: str = "text"
+) -> str:
+    """Criteo-Kaggle-shaped TSV with a planted CTR rule.
+
+    ``container="text"`` writes newline-delimited TSV (the Kaggle dump's own
+    shape); ``"recordio"`` wraps each line in the RecordIO framing the
+    reference stores training data in (the native bulk-read path).
+    """
+    rng = np.random.default_rng(seed)
+    sink = RecordIOWriter(path) if container == "recordio" else open(path, "wb")
+    with sink as out:
+        for _ in range(n):
+            dense = rng.integers(0, 1000, 13)
+            cats = rng.integers(0, 1 << 20, 26)
+            score = 0.002 * dense[0] - 0.001 * dense[1] + ((cats[0] % 7) - 3) * 0.3
+            label = int(rng.random() < 1 / (1 + np.exp(-score)))
+            rec = codecs.encode_criteo_example(label, dense.tolist(), cats.tolist())
+            if container == "recordio":
+                out.write(rec)
+            else:
+                out.write(rec + b"\n")
+    return path
 
 
 def synthetic_lm(
@@ -40,6 +67,7 @@ def synthetic_lm(
 
 
 _GENERATORS = {
+    "criteo": synthetic_criteo,
     "lm": synthetic_lm,
 }
 

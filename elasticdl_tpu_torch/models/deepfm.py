@@ -1,0 +1,320 @@
+"""DeepFM on Criteo — the PyTorch port of ``elasticdl_tpu/models/deepfm.py``
+(the mesh tier on one device).
+
+Criteo schema: 13 numeric features (log1p-normalised) and 26 categorical
+ones, hashed into ONE fused table (``models/tabular.py``).  The model is a
+first-order linear term, the FM second-order pairwise interactions and an
+MLP over [embeddings; normalised numerics]; the three heads sum into one
+logit.  f32 parameters and loss, the FM and MLP in ``compute_dtype``
+(bfloat16 by default).
+
+The parameters carry the JAX tree's names and shapes, so the canonical
+state (``params/fm_table``, ``params/mlp/layer0/w``, ...) matches the
+reference's arrays one for one and :func:`params_from_jax` /
+:func:`params_to_jax` carry weights across untransposed:
+
+- ``fm_table``: the packed ``[P, 8*16]`` table (``ops/embedding.py``) of
+  ``embedding_dim + 1`` values per id: the FM embedding (normal x 0.01)
+  and, in the last column, the first-order weight (zero);
+- ``dense_linear.w`` ``[13, 1]``, ``dense_linear.b`` ``[1]``;
+- ``mlp.layer{i}.w`` ``[in, out]``, ``mlp.layer{i}.b``, ``mlp.out.*``:
+  truncated-normal Glorot weights (``jax.nn.initializers.glorot_normal``),
+  zero biases.
+
+Batches come raw (``criteo_feed``: float32 dense, int32 hex ids, hashed
+here) or preprocessed by the native decoder (``criteo_feed_pre``, the
+default: float16 log1p dense, uint16 bucket ids, uint8 labels, 79 bytes an
+example), which the trainer uploads as they are and the model widens on
+the device.  The optimizer is ``torch.optim.Adam`` with optax.adam's
+constants, dense over the whole table (not ``SparseAdam``, which updates
+only the touched rows).  The host tier (``host_tier=True``) is a later
+slice of the port.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from elasticdl_tpu_torch.common.device import resolve_device
+from elasticdl_tpu_torch.data.codecs import criteo_feed, criteo_feed_pre
+from elasticdl_tpu_torch.models.spec import ModelSpec
+from elasticdl_tpu_torch.models.tabular import (
+    bce_loss,
+    binary_metrics,
+    fuse_feature_ids,
+    log_normalize,
+)
+from elasticdl_tpu_torch.ops.embedding import (
+    embedding_lookup,
+    exceeds_hbm_guard,
+    pack_table,
+    table_shape,
+)
+
+NUM_DENSE = 13
+NUM_CAT = 26
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class _Linear(nn.Module):
+    """``x @ w + b`` with the reference's ``[in, out]`` weight."""
+
+    def __init__(self, n_in: int, n_out: int, device: torch.device):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(n_in, n_out, device=device))
+        self.b = nn.Parameter(torch.zeros(n_out, device=device))
+
+
+class DeepFM(nn.Module):
+    def __init__(
+        self,
+        buckets_per_feature: int,
+        embedding_dim: int,
+        hidden: tuple,
+        compute_dtype: torch.dtype,
+        device: torch.device,
+    ):
+        super().__init__()
+        self.buckets_per_feature = buckets_per_feature
+        self.embedding_dim = embedding_dim
+        self.compute_dtype = compute_dtype
+        rows, width = table_shape(NUM_CAT * buckets_per_feature, embedding_dim + 1)
+        self.fm_table = nn.Parameter(torch.zeros(rows, width, device=device))
+        self.dense_linear = _Linear(NUM_DENSE, 1, device)
+        layers: Dict[str, nn.Module] = {}
+        in_dim = NUM_CAT * embedding_dim + NUM_DENSE
+        for i, width_i in enumerate(hidden):
+            layers[f"layer{i}"] = _Linear(in_dim, width_i, device)
+            in_dim = width_i
+        layers["out"] = _Linear(in_dim, 1, device)
+        self.mlp = nn.ModuleDict(layers)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The reference's init from a seeded generator: the FM columns
+        normal x 0.01, the first-order column and every bias zero, the MLP
+        weights truncated-normal Glorot (std sqrt(2/(in+out)) / .8796, cut
+        at two of them)."""
+        vocab, dim = NUM_CAT * self.buckets_per_feature, self.embedding_dim
+        dev = self.fm_table.device
+        with torch.no_grad():
+            logical = torch.zeros(vocab, dim + 1, device=dev)
+            logical[:, :dim].normal_(0.0, 1.0, generator=generator).mul_(0.01)
+            self.fm_table.copy_(pack_table(logical, dim + 1))
+            del logical
+            for layer in self.mlp.values():
+                fan_in, fan_out = layer.w.shape
+                std = math.sqrt(2.0 / (fan_in + fan_out)) / 0.87962566103423978
+                nn.init.trunc_normal_(layer.w, 0.0, std, -2 * std, 2 * std, generator=generator)
+                layer.b.zero_()
+            self.dense_linear.w.zero_()
+            self.dense_linear.b.zero_()
+
+    def load_jax_params(self, tree: Dict[str, Any]) -> "DeepFM":
+        """Copy a JAX ``deepfm`` params tree (numpy arrays) into this module."""
+
+        def put(p: torch.Tensor, value: Any) -> None:
+            arr = np.array(value, np.float32)  # a writable copy
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"shape {arr.shape} does not match {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(arr))
+
+        with torch.no_grad():
+            put(self.fm_table, tree["fm_table"])
+            put(self.dense_linear.w, tree["dense_linear"]["w"])
+            put(self.dense_linear.b, tree["dense_linear"]["b"])
+            if sorted(tree["mlp"]) != sorted(self.mlp):
+                raise ValueError(f"mlp layers {sorted(tree['mlp'])} != {sorted(self.mlp)}")
+            for name, layer in self.mlp.items():
+                put(layer.w, tree["mlp"][name]["w"])
+                put(layer.b, tree["mlp"][name]["b"])
+        return self
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        cd, dim = self.compute_dtype, self.embedding_dim
+        # Preprocessed batches (criteo_feed_pre) arrive with the host
+        # transforms applied: float16 dense is log1p'd, uint16 cat ids are
+        # bucket ids (viewed as int16 and widened: the card's uint16 support
+        # is thin).
+        d = batch["dense"]
+        dense = d.float() if d.dtype == torch.float16 else log_normalize(d)
+        c = batch["cat"]
+        if c.dtype == torch.uint16:
+            offsets = torch.arange(NUM_CAT, dtype=torch.int64, device=c.device)
+            ids = (c.view(torch.int16).to(torch.int64) & 0xFFFF) + offsets * self.buckets_per_feature
+        else:
+            ids = fuse_feature_ids(c, self.buckets_per_feature)  # [b, 26]
+        vecs = embedding_lookup(self.fm_table, ids, dim=dim + 1)
+        emb, lin = vecs[..., :dim], vecs[..., dim]  # [b, 26, dim], [b, 26]
+
+        emb = emb.to(cd)
+        dense_c = dense.to(cd)
+
+        # First order: sparse linear + dense linear, in f32.
+        dl = self.dense_linear
+        first = lin.sum(dim=-1, dtype=torch.float32) + (dense @ dl.w)[:, 0] + dl.b[0]
+
+        # Second-order FM: 0.5 * sum_d[(sum_f v)^2 - sum_f v^2].
+        sum_v = emb.sum(dim=1)
+        sum_v2 = (emb * emb).sum(dim=1)
+        fm = 0.5 * (sum_v * sum_v - sum_v2).sum(dim=-1).float()
+
+        # Deep head.
+        x = torch.cat([emb.reshape(emb.shape[0], -1), dense_c], dim=-1)
+        n_hidden = len(self.mlp) - 1
+        for i in range(n_hidden):
+            layer = self.mlp[f"layer{i}"]
+            x = torch.relu(x @ layer.w.to(cd) + layer.b.to(cd))
+        out = self.mlp["out"]
+        deep = (x @ out.w.to(cd) + out.b.to(cd))[:, 0].float()
+        return first + fm + deep
+
+
+def _apply(model: DeepFM, batch: Dict[str, torch.Tensor], train: bool = False) -> torch.Tensor:
+    return model(batch)
+
+
+def _predict(model: DeepFM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Inference entry: the click probability in [0, 1], not the logit."""
+    return torch.sigmoid(model(batch))
+
+
+def _loss(logits: torch.Tensor, batch: Dict[str, torch.Tensor], mask=None) -> torch.Tensor:
+    return bce_loss(logits, batch["labels"], mask)
+
+
+def _metrics(logits: torch.Tensor, batch: Dict[str, torch.Tensor], mask=None) -> dict:
+    return binary_metrics(logits, batch["labels"], mask)
+
+
+def _adam(parameters, learning_rate: float) -> torch.optim.Adam:
+    """``optax.adam(learning_rate)``: b1 0.9, b2 0.999, eps 1e-8, every
+    parameter dense."""
+    return torch.optim.Adam(parameters, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+
+
+def _example_batch(batch_size: int, pre: bool = False) -> Dict[str, np.ndarray]:
+    if pre:
+        return {
+            "dense": np.zeros((batch_size, NUM_DENSE), np.float16),
+            "cat": np.zeros((batch_size, NUM_CAT), np.uint16),
+            "labels": np.zeros((batch_size,), np.uint8),
+        }
+    return {
+        "dense": np.zeros((batch_size, NUM_DENSE), np.float32),
+        "cat": np.zeros((batch_size, NUM_CAT), np.int32),
+        "labels": np.zeros((batch_size,), np.int32),
+    }
+
+
+def _init(
+    seed: Optional[int],
+    device: Any = None,
+    buckets_per_feature: int = 65536,
+    embedding_dim: int = 8,
+    hidden: tuple = (400, 400),
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> DeepFM:
+    dev = resolve_device(device)
+    model = DeepFM(buckets_per_feature, embedding_dim, hidden, compute_dtype, dev)
+    if seed is not None:
+        model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+    return model
+
+
+def params_from_jax(
+    tree: Dict[str, Any],
+    buckets_per_feature: int,
+    embedding_dim: int = 8,
+    compute_dtype: str = "bfloat16",
+    device: Any = None,
+) -> DeepFM:
+    """The port's model holding a JAX ``deepfm`` params tree (numpy arrays,
+    as ``jax.device_get`` returns them)."""
+    n_hidden = len(tree["mlp"]) - 1
+    hidden = tuple(np.shape(tree["mlp"][f"layer{i}"]["w"])[1] for i in range(n_hidden))
+    model = _init(None, device, buckets_per_feature, embedding_dim, hidden,
+                  _DTYPES[compute_dtype])
+    return model.load_jax_params(tree)
+
+
+def params_to_jax(model: DeepFM) -> Dict[str, Any]:
+    """The reverse of :func:`params_from_jax`: the parameters as a JAX
+    ``deepfm`` params tree of f32 numpy arrays."""
+
+    def get(p: torch.Tensor) -> np.ndarray:
+        return p.detach().float().cpu().numpy()
+
+    def linear(layer: _Linear) -> Dict[str, np.ndarray]:
+        return {"w": get(layer.w), "b": get(layer.b)}
+
+    return {
+        "fm_table": get(model.fm_table),
+        "dense_linear": linear(model.dense_linear),
+        "mlp": {name: linear(layer) for name, layer in model.mlp.items()},
+    }
+
+
+def model_spec(
+    learning_rate: float = 1e-3,
+    compute_dtype: str = "bfloat16",
+    buckets_per_feature: int = 65536,
+    embedding_dim: int = 8,
+    hidden: Any = (400, 400),
+    host_tier: Any = "auto",
+    pipeline_preprocess: Any = "auto",
+) -> ModelSpec:
+    """The reference's arguments and their ``"auto"`` resolution.
+
+    ``host_tier``: "auto" resolves to the host tier when the padded table
+    and its Adam moments would exceed the HBM guard (``ops.embedding``); the
+    host tier is not ported, so it raises.  ``pipeline_preprocess``: the
+    feature transforms in the native decoder (``criteo_feed_pre``); "auto"
+    turns it on whenever the bucket count fits uint16.
+    """
+    if isinstance(hidden, (list, tuple)):
+        hidden = tuple(int(h) for h in hidden)
+    else:  # "400,400" via --model_params
+        hidden = tuple(int(h) for h in str(hidden).split(",") if h)
+    if compute_dtype not in _DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {compute_dtype!r}")
+    vocab, dim = NUM_CAT * buckets_per_feature, embedding_dim
+    if host_tier == "auto":
+        host_tier = exceeds_hbm_guard(vocab, dim + 1)
+    if host_tier:
+        raise NotImplementedError(
+            "deepfm host_tier (the FM table in the native host store) is not "
+            "ported yet (ROADMAP, PyTorch port queue: the PS host tier)"
+        )
+    if pipeline_preprocess == "auto":
+        pipeline_preprocess = buckets_per_feature <= 65536
+    pipeline_preprocess = bool(pipeline_preprocess)
+    if pipeline_preprocess and buckets_per_feature > 65536:
+        raise ValueError(
+            "pipeline_preprocess requires the mesh-tier model and "
+            "buckets_per_feature <= 65536"
+        )
+    return ModelSpec(
+        name="deepfm",
+        init=functools.partial(
+            _init, buckets_per_feature=buckets_per_feature, embedding_dim=dim,
+            hidden=hidden, compute_dtype=_DTYPES[compute_dtype],
+        ),
+        apply=_apply,
+        predict=_predict,
+        loss=_loss,
+        metrics=_metrics,
+        optimizer=functools.partial(_adam, learning_rate=learning_rate),
+        feed=(
+            functools.partial(criteo_feed_pre, buckets=buckets_per_feature)
+            if pipeline_preprocess
+            else criteo_feed
+        ),
+        example_batch=functools.partial(_example_batch, pre=pipeline_preprocess),
+    )

@@ -18,7 +18,7 @@ The canonical state is a flat ``{path: numpy array}`` dict:
 - ``params/<p>``: each parameter, ``<p>`` its module path with ``/`` for
   ``.`` — the JAX parameter-tree path (``params/blocks/b0/wqkv``), as
   ``transformer_lm.params_to_jax`` gives it;
-- ``opt_state/mu/<p>`` and ``opt_state/nu/<p>``: the AdamW moments (optax's
+- ``opt_state/mu/<p>`` and ``opt_state/nu/<p>``: the Adam(W) moments (optax's
   ``ScaleByAdamState`` ``mu``/``nu``; torch's ``exp_avg``/``exp_avg_sq``);
 - ``opt_state/count``: the optimizer's update count; ``step``: the step.
 """
@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from elasticdl_tpu_torch.common.device import resolve_device, set_matmul_precision
+from elasticdl_tpu_torch.common.metrics import HIST_PREFIX
 from elasticdl_tpu_torch.models.spec import ModelSpec
 
 #: The padding mask of a batch: real examples 1.0, padding 0.0.  The loss
@@ -128,7 +129,10 @@ class Trainer:
         """One step on a device batch: the loss (weighted by ``__mask__``
         when the loss takes one), its gradients, the optimizer update.
         Metrics stay on the device: ``loss`` is the weighted loss the step
-        minimised; the others come from ``spec.metrics`` without the mask."""
+        minimised; the others come from ``spec.metrics``, over real rows
+        when both it and the loss take the mask, as in the reference.
+        Histogram metrics (``HIST_PREFIX``, the AUC's) are evaluation
+        machinery and dropped here, as the reference's train step does."""
         spec = self.spec
         if spec.loss is None or state.optimizer is None:
             raise ValueError(f"model {spec.name!r} declares no loss or optimizer: it cannot train")
@@ -137,18 +141,27 @@ class Trainer:
         model, optimizer = state.model, state.optimizer
         optimizer.zero_grad(set_to_none=True)
         out = spec.apply(model, batch, train=True)
-        if mask is not None and self._loss_takes_mask:
+        masked = mask is not None and self._loss_takes_mask
+        if masked:
             # The reference weighs a shard's loss by count/total over the
             # mesh; on one device the total is this batch's own count, so
             # the weight is 1, and 0 for an all-padding batch.
             count = mask.float().sum()
-            loss = spec.loss(out, batch, mask=mask) * count / count.clamp_min(1e-12)
+            weight = count / count.clamp_min(1e-12)
+            loss = spec.loss(out, batch, mask=mask) * weight
         else:
             loss = spec.loss(out, batch)
         loss.backward()
         optimizer.step()
-        with torch.no_grad():
-            metrics = dict(spec.metrics(out.detach(), batch)) if spec.metrics else {}
+        metrics = {}
+        if spec.metrics is not None:
+            with torch.no_grad():
+                out = out.detach()
+                if masked and self._metrics_take_mask:
+                    raw = {k: v * weight for k, v in spec.metrics(out, batch, mask=mask).items()}
+                else:
+                    raw = spec.metrics(out, batch)
+            metrics = {k: v for k, v in raw.items() if not k.startswith(HIST_PREFIX)}
         metrics["loss"] = loss.detach()
         return TrainState(state.step + 1, model, optimizer), metrics
 

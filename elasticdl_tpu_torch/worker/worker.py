@@ -30,10 +30,13 @@ device (the membership reform over a mesh), the in-step collective gate
 (``collective_deadline_ms``) and host-tier I/O (``use_async``, PS
 addresses).  The worker's one device is its whole mesh, so a membership
 change is adopted without re-forming, as the reference does when the mesh
-is unchanged.  The prep thread decodes a task serially: the chunk fan-out
-of the parallel ingest pool (``ingest_threads``) is a later slice.  Prep
+is unchanged.  A task's host half fans out over the parallel ingest pool
+(``ingest_threads``, ``data/ingest_pool.py``): minibatch-aligned chunks
+read and decoded on pool threads, reassembled in order.  Prep and ingest
 threads build host arrays only; every upload to the card runs on the task
-loop's thread.
+loop's thread.  Metrics may be vectors (the AUC score histograms): a
+task's per-step metrics come back in one copy of one flattened row per
+step and reduce on the host as the reference's do.
 """
 
 from __future__ import annotations
@@ -62,8 +65,9 @@ from elasticdl_tpu_torch.common.rpc import (
     JsonRpcClient,
     call_with_backoff,
 )
+from elasticdl_tpu_torch.data.ingest_pool import IngestPool, plan_chunks
 from elasticdl_tpu_torch.data.prefetch import prefetch
-from elasticdl_tpu_torch.data.reader import AbstractDataReader
+from elasticdl_tpu_torch.data.reader import AbstractDataReader, Shard
 from elasticdl_tpu_torch.master.task_dispatcher import (
     TASK_EVALUATION,
     TASK_PREDICTION,
@@ -350,6 +354,9 @@ class Worker:
         # first submission.
         self._prep_queue: deque = deque()
         self._prep_pool: Optional[ThreadPoolExecutor] = None
+        # Intra-task parallel ingest: one pool per worker, shared by every
+        # concurrent task prep (config.ingest_threads; 0 = auto).
+        self._ingest = IngestPool(config.ingest_threads)
         # Set by preemption_snapshot (the SIGTERM thread): the task loop
         # parks at its next boundary; _parked acknowledges the park, after
         # which the loop only sleeps and the preemption thread alone touches
@@ -821,19 +828,54 @@ class Worker:
         """The host half of a fused training task: read, decode, stack the
         full minibatches, decode and mask the tail.  Touches neither
         ``self.state`` nor the device, so prep-ahead runs it on a prep
-        thread while earlier tasks' steps run."""
+        thread while earlier tasks' steps run.
+
+        With ``ingest_threads`` > 1 (and a reader declaring
+        ``thread_safe_ranges``) the record range splits into
+        minibatch-aligned chunks read and decoded at once on the ingest
+        pool and reassembled in chunk order: the feed decodes each record
+        on its own, so the chunks concatenate to the serial path's bytes
+        (record order, the ragged tail, its ``__mask__``)."""
         # graftchaos: stall(point=prep), the host-side straggler.
         chaos.hook("worker:prep", rank=self._rank, step=self._steps_dispatched)
         mb = self.config.minibatch_size
-        records = self._read_records(task.shard)
-        total = len(records)
-        n_full = total // mb
-        stacked = (
-            self._stack_full_minibatches(records, mb, n_full) if n_full else None
+        shard = task.shard
+        chunks = (
+            plan_chunks(shard.start, shard.end, mb, self._ingest.threads)
+            if self._ingest.parallel and getattr(self.reader, "thread_safe_ranges", False)
+            else [(shard.start, shard.end)]
         )
+
+        def _decode_chunk(span):
+            recs = self._read_records(Shard(shard.name, span[0], span[1]))
+            t = len(recs) // mb
+            stacked = self._stack_full_minibatches(recs, mb, t) if t else None
+            return len(recs), t, stacked, recs[t * mb:]
+
+        def _decode_on_pool(span):
+            # Runs on an ingest-pool thread; its time lands in the
+            # off-critical-path ``decode_parallel`` phase (the phase stack
+            # is per thread, so it never subtracts from the loop's phases).
+            with self.phases.phase("decode_parallel"):
+                return _decode_chunk(span)
+
+        if len(chunks) < 2:
+            parts = [_decode_chunk(chunks[0])]
+        else:
+            parts = self._ingest.map_ordered(_decode_on_pool, chunks)
+        total = sum(p[0] for p in parts)
+        n_full = sum(p[1] for p in parts)
+        stacks = [p[2] for p in parts if p[2] is not None]
+        if len(stacks) > 1:
+            # Chunk i's [t_i, mb, ...] rows precede chunk i+1's: the serial
+            # reshape's layout.
+            stacked = {k: np.concatenate([st[k] for st in stacks]) for k in stacks[0]}
+        else:
+            stacked = stacks[0] if stacks else None
+        # plan_chunks puts the ragged tail on the LAST chunk.
+        rest = parts[-1][3]
         tail = None
-        if total > n_full * mb:
-            rest = records[n_full * mb:]
+        if len(rest):
             tail = self._train_feed(next(_minibatches(rest, mb, True))[0], len(rest))
         return HostPrep(total, n_full, stacked, tail)
 
@@ -903,21 +945,35 @@ class Worker:
         last step on the stream: the deferred fetch then waits for THIS
         task's steps only.  A plain ``.cpu()`` at the fetch would wait for
         every step queued by then — the next task's too — and leave the
-        card idle while the loop reports and leases.  Returns (keys, host
-        tensor [steps, keys], event or None)."""
+        card idle while the loop reports and leases.  A metric may be a
+        vector (the AUC histograms): each step's metrics flatten into one
+        row, so a task is one copy.  Returns (keys, shapes, host tensor
+        [steps, row], event or None)."""
         keys = list(metrics_list[0]) if metrics_list else []
         if not keys:
-            return keys, torch.zeros((0, 0)), None
-        stacked = torch.stack(
-            [torch.stack([m[k].detach().float() for k in keys]) for m in metrics_list]
-        )
-        if stacked.device.type != "cuda":
-            return keys, stacked, None
-        host = torch.empty(stacked.shape, dtype=stacked.dtype, pin_memory=True)
-        host.copy_(stacked, non_blocking=True)
+            return keys, [], torch.zeros((0, 0)), None
+        shapes = [tuple(metrics_list[0][k].shape) for k in keys]
+        rows = torch.stack([
+            torch.cat([m[k].detach().float().reshape(-1) for k in keys])
+            for m in metrics_list
+        ])
+        if rows.device.type != "cuda":
+            return keys, shapes, rows, None
+        host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+        host.copy_(rows, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return keys, host, event
+        return keys, shapes, host, event
+
+    @staticmethod
+    def _unflatten(keys, shapes, row: np.ndarray) -> Dict[str, np.ndarray]:
+        """One flattened metrics row back into ``{key: array}``."""
+        out, at = {}, 0
+        for key, shape in zip(keys, shapes):
+            size = int(np.prod(shape, dtype=np.int64))
+            out[key] = row[at : at + size].reshape(shape)
+            at += size
+        return out
 
     def _recover_state(self) -> None:
         """Rebuild training state after a failed step: newest restorable
@@ -944,7 +1000,7 @@ class Worker:
     def _finalize_training_metrics(self, fetch: tuple) -> Dict[str, float]:
         """Wait for a task's metrics copy (``_start_metrics_fetch``), then
         aggregate on the host; each step weighs equally."""
-        keys, host, event = fetch
+        keys, shapes, host, event = fetch
         # The wait is where the task's steps drain ("step_wait"), distinct
         # from the host math after it ("metrics").
         with self.phases.phase("step_wait"):
@@ -952,7 +1008,10 @@ class Worker:
                 event.synchronize()
         with self.phases.phase("metrics"):
             values = host.numpy().astype(np.float64)
-            return finalize_metrics({k: values[:, i].mean() for i, k in enumerate(keys)})
+            # Vector entries sum over the steps like the scalars; the
+            # histogram pairs become their scalar (AUC) in finalize.
+            mean = values.sum(axis=0) / max(len(values), 1)
+            return finalize_metrics(self._unflatten(keys, shapes, mean))
 
     def _run_training_task(self, task: Task) -> Dict[str, float]:
         """Synchronous task execution (task_pipelining off)."""
@@ -1145,19 +1204,26 @@ class Worker:
                 batch[MASK_KEY] = _real_mask(mb, true_count)
                 yield batch, true_count
 
-        steps = []
+        steps, counts = [], []
         for batch, true_count in prefetch(
             _batches(), self.config.prefetch_depth,
             name=f"prefetch:{task.task_id}",
         ):
-            steps.append((self.trainer.run_eval_step(self.state, batch), true_count))
-        sums: Dict[str, Any] = {}
-        total = 0.0
-        for metrics, true_count in steps:  # the first fetch waits for all
-            for k, v in metrics.items():
-                sums[k] = sums.get(k, 0.0) + float(v) * true_count
-            total += true_count
-        return {k: s / max(total, 1e-12) for k, s in sums.items()}, total
+            steps.append(self.trainer.run_eval_step(self.state, batch))
+            counts.append(true_count)
+        if not steps:
+            return {}, 0.0
+        keys, shapes, host, event = self._start_metrics_fetch(steps)
+        if event is not None:  # waits for every eval step
+            event.synchronize()
+        # Histogram metrics (the AUC's) are vectors: accumulated in float64
+        # with the scalars' count weighting and reported as lists, so the
+        # master's cross-worker aggregation stays exact.
+        weights = np.asarray(counts, np.float64)
+        total = float(weights.sum())
+        sums = (host.numpy().astype(np.float64) * weights[:, None]).sum(axis=0)
+        means = self._unflatten(keys, shapes, sums / max(total, 1e-12))
+        return {k: (v.tolist() if v.ndim else float(v)) for k, v in means.items()}, total
 
     def _run_prediction_task(self, task: Task) -> None:
         records = self._read_records(task.shard)
@@ -1376,6 +1442,7 @@ class Worker:
         if self._prep_pool is not None:
             self._prep_pool.shutdown(wait=True)
             self._prep_pool = None
+        self._ingest.shutdown()
         if self._ckpt is not None and self._rank == 0:
             self._final_checkpoint()
         with self.phases.phase("control"):

@@ -255,3 +255,70 @@ def test_cuda_checkpoint_round_trip_of_a_cuda_state(card, tmp_path):
     for key in a:
         ref = a[key].astype(np.float64)
         assert np.linalg.norm(b[key] - ref) <= 1e-5 * max(np.linalg.norm(ref), 1e-30), key
+
+
+# ---- DeepFM on the card (plain PyTorch: no hand-written kernel) ----
+
+
+def _criteo_records(n, seed=0):
+    from elasticdl_tpu_torch.data.codecs import encode_criteo_example
+
+    rng = np.random.default_rng(seed)
+    return [encode_criteo_example(int(rng.integers(0, 2)),
+                                  [int(rng.integers(0, 1000)) for _ in range(13)],
+                                  [int(rng.integers(0, 1 << 32)) for _ in range(26)])
+            for _ in range(n)]
+
+
+def test_cuda_gather_rows_out_of_range_reads_nan_without_a_device_assert(card):
+    """Out-of-range ids of either sign read NaN rows on the card and drop
+    their cotangents; no device assert poisons the context (the next
+    operation and a synchronise still work)."""
+    from elasticdl_tpu_torch.ops.embedding import gather_rows, logical_rows, pack_table
+
+    table = pack_table(torch.randn(1000, 9, device="cuda"), 9).requires_grad_(True)
+    rows = logical_rows(table, 9)
+    ids = torch.tensor([0, -1, rows, -(2**40), 2**40, 7], device="cuda")
+    out = gather_rows(table, ids, 9)
+    (out * 3.0).sum().backward()
+    torch.cuda.synchronize()
+    assert torch.isnan(out[1:5]).all() and torch.isfinite(out[[0, 5]]).all()
+    touched = table.grad.reshape(-1, 16)[:, :9].abs().sum(1).nonzero().flatten().tolist()
+    assert touched == [0, 7] and torch.isfinite(table.grad).all()
+    assert float((torch.ones(4, device="cuda") * 2).sum()) == 8.0
+
+
+def test_cuda_deepfm_step_matches_the_cpu(card):
+    """The preprocessed feed's wire dtypes (uint16 ids, float16 dense,
+    uint8 labels) reach the card bit for bit; DeepFM's logits and
+    gradients on the card equal the CPU's on the same weights (f32, TF32
+    off: error norm over norm at most 1e-4)."""
+    from elasticdl_tpu_torch.models import deepfm
+    from elasticdl_tpu_torch.parallel.trainer import MASK_KEY
+
+    spec = deepfm.model_spec(buckets_per_feature=512, embedding_dim=8, hidden=(64, 64),
+                             compute_dtype="float32")
+    batch = dict(spec.feed(_criteo_records(256)))
+    batch[MASK_KEY] = (np.arange(256) < 250).astype(np.float32)
+    results = {}
+    for device in ("cpu", "cuda"):
+        trainer = Trainer(spec, device=device)
+        state = trainer.init_state(None)
+        if device == "cpu":
+            state.model.reset_parameters(torch.Generator().manual_seed(0))
+            tree = deepfm.params_to_jax(state.model)
+        else:
+            state.model.load_jax_params(tree)
+        placed = trainer.shard_batch(batch)
+        for k in ("cat", "dense", "labels"):
+            assert placed[k].dtype == torch.from_numpy(batch[k]).dtype
+            assert placed[k].cpu().numpy().tobytes() == batch[k].tobytes(), k
+        placed = dict(placed)
+        mask = placed.pop(MASK_KEY)
+        logits = spec.apply(state.model, placed, train=True)
+        spec.loss(logits, placed, mask=mask).backward()
+        results[device] = {"logits": logits.detach().cpu(),
+                           **{n: p.grad.cpu() for n, p in state.model.named_parameters()}}
+    for key, ref in results["cpu"].items():
+        got = results["cuda"][key]
+        assert float((got - ref).norm() / ref.norm().clamp_min(1e-30)) <= 1e-4, key

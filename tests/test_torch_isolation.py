@@ -40,6 +40,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         # The process-level job.
         "master.journal", "master.pod_manager", "master.main", "worker.main",
         "client", "client.api", "client.main", "client.zoo",
+        # DeepFM with its embedding and its native ingest.
+        "ops.embedding", "models.tabular", "models.deepfm", "ps", "ps.host_store",
+        "data.codecs", "data.ingest_pool",
     ):
         assert f"elasticdl_tpu_torch.{name}" in mods, name
     code = (

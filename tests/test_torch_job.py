@@ -607,3 +607,186 @@ def test_preemption_snapshot_saves_and_publishes_the_parked_state(tmp_path, monk
     clock.stop = True  # the parked loop's next sleep ends it
     loop.join(timeout=10)
     assert not loop.is_alive()
+
+
+# ---- DeepFM: vector (AUC histogram) metrics through the job ----
+
+_DFM = dict(buckets_per_feature=512, embedding_dim=4, hidden=(16,), compute_dtype="float32",
+            host_tier=False)
+DFM_TRAIN, DFM_VAL = 96, 36  # 6 tasks of 2 minibatches of 8; a masked eval tail of 4
+#: DeepFM job tolerances (f32): each training loss and eval metric (the AUC
+#: histograms included) rtol 1e-5 / atol 1e-7.  The final arrays, rtol 1e-4
+#: and an atol per array: the Adam moments 1e-5 x the array's largest
+#: magnitude (measured: at most 1.2e-6 of it); the parameters 1e-4, a tenth
+#: of one Adam step at lr 1e-3 (measured: at most 6.5e-5, in the table).
+#: Adam moves a parameter by about lr * g / (|g| + eps), so a table entry
+#: whose few gradients nearly cancel (|g| near eps) turns their f32
+#: rounding into a visible fraction of a step.
+DFM_RTOL, DFM_ATOL = 1e-5, 1e-7
+DFM_STATE_RTOL, DFM_MOMENT_REL, DFM_PARAM_ATOL = 1e-4, 1e-5, 1e-4
+
+
+def _dfm_data(tmp_path):
+    from elasticdl_tpu_torch.data.synthetic import synthetic_criteo
+
+    train, val = str(tmp_path / "train.rio"), str(tmp_path / "val.rio")
+    synthetic_criteo(train, DFM_TRAIN, seed=11, container="recordio")
+    synthetic_criteo(val, DFM_VAL, seed=12, container="recordio")
+    return train, val
+
+
+@pytest.fixture
+def carried_deepfm(monkeypatch):
+    """The port's ``Trainer.init_state`` starts from the JAX DeepFM init."""
+    from elasticdl_tpu.models import deepfm as jdeepfm
+
+    params = jax.device_get(jdeepfm.model_spec(**_DFM).init(jax.random.key(0)))
+    orig = ttrainer.Trainer.init_state
+
+    def init_state(self, seed):
+        state = orig(self, seed)
+        state.model.load_jax_params(params)
+        return state
+
+    monkeypatch.setattr(ttrainer.Trainer, "init_state", init_state)
+    return params
+
+
+@pytest.mark.parametrize("mode", [
+    dict(),
+    dict(task_pipelining=True, prep_depth=2, ingest_threads=2),
+], ids=["synchronous", "prep_ahead_ingest_pool"])
+def test_deepfm_job_matches_the_jax_job(tmp_path, carried_deepfm, mode):
+    """Both packages run DeepFM over the same Criteo RecordIO files from
+    the same weights: the same tasks and eval rounds, each training loss,
+    each eval task's metrics with the AUC histograms (lists), the rounds'
+    ``auc``, and the final arrays (parameters, Adam moments, count)."""
+    from elasticdl_tpu.models import deepfm as jdeepfm
+    from elasticdl_tpu_torch.common.metrics import AUC_NEG, AUC_POS
+    from elasticdl_tpu_torch.models import deepfm
+
+    train, val = _dfm_data(tmp_path)
+    overrides = dict(model_def="deepfm.model_spec", **mode)
+    jres, jserv, jmaster, jworker = _run_jax_job(
+        tmp_path, train, val, str(tmp_path / "jax_ckpt"), spec=jdeepfm.model_spec(**_DFM),
+        **overrides)
+    res, serv, master, worker = _run_port_job(
+        train, val, str(tmp_path / "port_ckpt"), spec=deepfm.model_spec(**_DFM), **overrides)
+
+    n_tasks = DFM_TRAIN // (MB * PER_TASK)
+    jstatus, status = jserv.JobStatus({}), serv.JobStatus({})
+    assert status["done"] == jstatus["done"] == n_tasks
+    assert res["tasks_done"] == jres["tasks_done"]
+    assert res["step"] == jres["step"] == DFM_TRAIN // MB
+    assert status["eval_rounds"] == jstatus["eval_rounds"] >= 2
+    losses, jlosses = master.training_losses(), jmaster.training_losses()
+    assert len(losses) == len(jlosses) == n_tasks
+    np.testing.assert_allclose(losses, jlosses, rtol=DFM_RTOL, atol=DFM_ATOL)
+    # Training reports carry no histograms, as the reference's.
+    for m, r in master.calls:
+        if m == "ReportTaskResult" and r.get("task_type") == "training" and r["success"]:
+            assert sorted(r["metrics"]) == ["accuracy", "calibration", "loss"]
+    evals, jevals = master.eval_metrics(), jmaster.eval_metrics()
+    assert len(evals) == len(jevals) > 0
+    for (m, w), (jm, jw) in zip(evals, jevals):
+        assert w == jw and sorted(m) == sorted(jm)
+        assert isinstance(m[AUC_POS], list) and len(m[AUC_POS]) == 512
+        # Histogram means over real rows: positives and negatives sum to 1.
+        assert sum(m[AUC_POS]) + sum(m[AUC_NEG]) == pytest.approx(1.0, rel=1e-6)
+        for k in m:
+            np.testing.assert_allclose(m[k], jm[k], rtol=DFM_RTOL, atol=DFM_ATOL, err_msg=k)
+    assert "auc" in status["eval_metrics"] and AUC_POS not in status["eval_metrics"]
+    assert sorted(status["eval_metrics"]) == sorted(jstatus["eval_metrics"])
+    for k, v in jstatus["eval_metrics"].items():
+        np.testing.assert_allclose(status["eval_metrics"][k], v, rtol=DFM_RTOL, atol=DFM_ATOL,
+                                   err_msg=k)
+    ours, theirs = worker.trainer.host_state(worker.state), _jax_canonical(jworker)
+    assert sorted(ours) == sorted(theirs)
+    for key, ref in theirs.items():
+        atol = (DFM_PARAM_ATOL if key.startswith("params/")
+                else DFM_MOMENT_REL * float(np.abs(ref).max()))
+        np.testing.assert_allclose(ours[key], ref, rtol=DFM_STATE_RTOL, atol=atol, err_msg=key)
+
+
+def _histogram_metrics(logits, batch, mask=None):
+    """A small spec's metrics with a vector pair (16-bin AUC histograms of a
+    per-sequence score against a per-sequence label), beside its loss."""
+    from elasticdl_tpu_torch.common.metrics import AUC_NEG, AUC_POS
+
+    score = torch.softmax(logits.float(), dim=-1)[..., 0].mean(dim=-1).clamp(0, 1)
+    label = (batch["labels"][:, 0] % 2).float()
+    m = torch.ones_like(score) if mask is None else mask.float()
+    idx = (score * 16).long().clamp(0, 15)
+    count = m.sum().clamp_min(1e-12)
+    pos = torch.zeros(16, device=score.device).index_add_(0, idx, m * label) / count
+    neg = torch.zeros(16, device=score.device).index_add_(0, idx, m * (1 - label)) / count
+    return {"loss": tlm._loss(logits, batch, mask=mask), AUC_POS: pos, AUC_NEG: neg}
+
+
+def test_vector_metrics_pass_through_training_and_eval_tasks(tmp_path):
+    """Metrics that are vectors (the AUC histogram pair) through a training
+    task and an eval task of the port's worker: training drops them before
+    the fetch and reports scalars; eval accumulates them in float64 and
+    reports lists; the master's round finalizes them into ``auc``.  Before
+    vector metrics were supported, the training task raised in
+    ``_start_metrics_fetch`` (``torch.stack`` of unequal shapes) and the
+    eval task in ``float(v)``."""
+    from elasticdl_tpu_torch.common.metrics import AUC_NEG, AUC_POS
+
+    train, val = _data(tmp_path)
+    spec = tlm.model_spec(**_MODEL)
+    spec.metrics = _histogram_metrics
+    res, serv, master, worker = _run_port_job(train, val, str(tmp_path / "ckpt"), spec=spec)
+    assert worker.recoveries == 0
+    status = serv.JobStatus({})
+    assert status["done"] == N_TRAIN // (MB * PER_TASK) and status["eval_rounds"] >= 2
+    trains = [r for m, r in master.calls if m == "ReportTaskResult"
+              and r.get("task_type") == "training" and not r.get("requeue")]
+    assert trains and all(r["success"] and sorted(r["metrics"]) == ["loss"] for r in trains)
+    evals = master.eval_metrics()
+    assert evals
+    for m, weight in evals:
+        assert isinstance(m[AUC_POS], list) and len(m[AUC_POS]) == 16
+        assert sum(m[AUC_POS]) + sum(m[AUC_NEG]) == pytest.approx(1.0, rel=1e-9)
+    assert 0.0 <= status["eval_metrics"]["auc"] <= 1.0
+    assert AUC_POS not in status["eval_metrics"]
+    # An evaluation job alone (its tasks are the eval step's only path).
+    from elasticdl_tpu_torch.master.task_dispatcher import TASK_EVALUATION
+
+    reader = create_data_reader(val)
+    eval_master = _Recording(DirectMasterProxy(MasterServicer(TaskDispatcher(
+        reader.create_shards(MB * PER_TASK), task_type=TASK_EVALUATION))))
+    eval_worker = Worker(JobConfig(model_def="transformer_lm.model_spec", job_type="evaluation",
+                                   minibatch_size=MB), eval_master, reader, spec=spec,
+                         device="cpu")
+    eval_master.worker = eval_worker
+    eval_worker.run()
+    reports = [r for m, r in eval_master.calls if m == "ReportTaskResult"]
+    assert len(reports) == -(-N_VAL // (MB * PER_TASK)) and all(r["success"] for r in reports)
+    assert all(len(r["metrics"][AUC_NEG]) == 16 for r in reports)
+
+
+def test_training_metrics_fetch_reduces_vectors_like_the_reference():
+    """``_start_metrics_fetch`` + ``_finalize_training_metrics`` on
+    per-step metrics holding vectors: one copy of one flattened row per
+    step, vector entries summed over the steps and divided like the
+    scalars, then finalized (the reference's ``_finalize_training_metrics``,
+    run here on the same numbers)."""
+    from elasticdl_tpu.common.metrics import finalize_metrics as jfinalize
+    from elasticdl_tpu_torch.common.metrics import AUC_NEG, AUC_POS
+
+    rng = np.random.default_rng(0)
+    steps = [{"loss": rng.random(), AUC_POS: rng.random(8), AUC_NEG: rng.random(8)}
+             for _ in range(3)]
+    worker = Worker(JobConfig(), master=None, reader=None, spec=tlm.model_spec(**_MODEL),
+                    device="cpu")
+    fetch = worker._start_metrics_fetch(
+        [{k: torch.tensor(v, dtype=torch.float32) for k, v in s.items()} for s in steps])
+    keys, shapes, host, event = fetch
+    assert host.shape == (3, 1 + 8 + 8) and event is None
+    ours = worker._finalize_training_metrics(fetch)
+    f32 = [{k: np.asarray(v, np.float32) for k, v in s.items()} for s in steps]
+    want = jfinalize({k: sum(np.asarray(s[k], np.float64) for s in f32) / 3 for k in f32[0]})
+    assert sorted(ours) == sorted(want) == ["auc", "loss"]
+    for k, v in want.items():
+        assert ours[k] == pytest.approx(v, rel=1e-12)

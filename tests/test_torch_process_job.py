@@ -440,6 +440,38 @@ def test_cli_local_train_job(tmp_path, cpu_workers):
     assert summary["steps"] == N_TRAIN // MB and summary["launches"] == {}
 
 
+def test_cli_local_deepfm_job_with_an_eval_round(tmp_path, cpu_workers):
+    """``--model_def=deepfm.model_spec`` through the CLI: Criteo RecordIO
+    files, the native preprocessing feed, a worker process on the CPU,
+    eval rounds whose finalized metrics carry ``auc`` (the histogram
+    vectors crossed the wire as lists), the manifest at the last step."""
+    import ast
+
+    from elasticdl_tpu_torch.data.synthetic import synthetic_criteo
+
+    train = synthetic_criteo(str(tmp_path / "train.rio"), 512, seed=11, container="recordio")
+    val = synthetic_criteo(str(tmp_path / "val.rio"), 150, seed=12, container="recordio")
+    ckpt = str(tmp_path / "ckpt")
+    proc = subprocess.run(
+        [sys.executable, "-m", "elasticdl_tpu_torch.client.main", "train", "--local",
+         "--job_name=cli-dfm", "--model_def=deepfm.model_spec",
+         "--model_params=buckets_per_feature=512;embedding_dim=4;hidden=16,16",
+         f"--training_data={train}", f"--validation_data={val}", "--minibatch_size=64",
+         "--num_minibatches_per_task=2", "--evaluation_steps=4", f"--checkpoint_dir={ckpt}",
+         "--checkpoint_steps=8", f"--pod_log_dir={tmp_path / 'logs'}"],
+        cwd=_REPO, capture_output=True, text=True, timeout=WAIT_S,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = next(x for x in proc.stderr.splitlines() if "job finished: " in x)
+    status = ast.literal_eval(line.split("job finished: ", 1)[1])
+    assert status["done"] == 4 and status["eval_rounds"] >= 2
+    assert sorted(status["eval_metrics"]) == ["accuracy", "auc", "calibration", "loss"]
+    assert 0.0 < status["eval_metrics"]["auc"] < 1.0
+    assert read_manifest(ckpt)["step"] == 8
+    summary = _events(_log(tmp_path, "cli-dfm-worker-0"))["summary"]
+    assert summary["steps"] == 8 and summary["eval_steps"] > 0
+
+
 def test_cli_usage():
     proc = subprocess.run(
         [sys.executable, "-m", "elasticdl_tpu_torch.client.main", "--help"],
