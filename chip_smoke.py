@@ -69,7 +69,23 @@ exits non-zero without its result line:
    with prep-ahead; 18 tasks of 65536 records, 2 excluded) with the ingest
    pool on auto and at one thread; one eval round on a file with a masked
    tail after a two-epoch job, whose AUC must exceed 0.5 on the planted
-   rule.
+   rule;
+11. gang mode: (a) a ``Trainer`` over a one-rank NCCL process group at
+   phase 4's width and batch against the bare ``Trainer`` from the same
+   seeded state (twice, to show the step repeats): the states must be equal
+   bit for bit; its step p50, the bare one's and the NCCL kernels' device
+   time; (b) two NCCL ranks on the one card (the installed NCCL refuses
+   them; its error is logged), then two worker processes on the card
+   through the CLI's local mode (``--multihost --dcn_data_parallelism=2``,
+   the gloo backend on card tensors, 8 of each 16 examples a rank) over
+   phase 7's files with eval rounds: rank 1 is SIGKILLed at a task boundary
+   past step 20, rank 0's collective fails, it snapshots and exits 3, the
+   pod manager relaunches both, the gang re-forms from the snapshot and
+   finishes.  Equal state digests on both ranks at every checkpoint, the
+   first 4 steps' losses against one process on the same batches of 16,
+   every task done once and the epoch's step count at the end (no step
+   trained twice), the exit codes, the launch counts; the gang step p50, the
+   all-reduce's share and the re-form time split into its stages.
 
 Prints the card's name and power limit first, a ``{"kernels": [...]}``
 line before the last, and ``{"ok": true, "device": {...}}`` last.  The
@@ -1889,6 +1905,387 @@ def phase_deepfm(card: str) -> dict:
     }
 
 
+# Phase 11 (a): a world of one over NCCL, in this process, at phase 4's
+# width and batch: GANG_STEPS steps through a Trainer over the process group
+# and through a bare Trainer from the same seeded state, twice for the bare
+# one (the premise: the step is deterministic on the card).
+GANG_STEPS = 8
+# Phase 11 (b): two worker processes on the one card through the CLI's
+# local mode, the gloo backend on card tensors, phase 7's files (one epoch:
+# 8 tasks of 4 minibatches of 16, 32 steps), a checkpoint every 8 steps,
+# eval rounds every 16 steps over the 72 validation records (a masked tail
+# of 8, 4 a rank).  Rank 1 stalls at its first task boundary past step 20
+# and is SIGKILLed there; rank 0, blocked in that step's collective,
+# snapshots and exits 3; both are relaunched and finish from the snapshot.
+GANG_JOB = "chip11"
+GANG_FLAGS = dict(minibatch_size=16, num_minibatches_per_task=4, num_epochs=1,
+                  evaluation_steps=16, checkpoint_steps=8, keep_checkpoint_max=2)
+GANG_KILL_STEP = 20
+# The gang's losses at its first GANG_LOSS_STEPS steps (the mean over two
+# ranks of 8 examples each; every step after the first applies the reduced
+# gradient of the one before) against one process's losses on the same
+# batches of 16 from the same weights.  Set from the readings on the card
+# (NVIDIA H100 80GB HBM3, 700 W: 0, 4.6e-5, 2.9e-5, 4.7e-5, the same in two
+# runs) with room for run-to-run spread; the limit must also reject what a
+# gang that did not reduce its gradients would read (each rank stepping on
+# its own 8: 0, 7.8e-4, 1.1e-2, 2.6e-2 there).
+GANG_LOSS_STEPS = 4
+GANG_LOSS_ABS = 2e-4
+NCCL_PAIR = r"""
+import datetime, sys, torch, torch.distributed as dist
+rank, port = int(sys.argv[1]), int(sys.argv[2])
+t = datetime.timedelta(seconds=60)
+torch.cuda.set_device(0)
+store = dist.TCPStore("127.0.0.1", port, 2, rank == 0, timeout=t)
+dist.init_process_group("nccl", store=store, rank=rank, world_size=2, timeout=t,
+                        device_id=torch.device("cuda:0"))
+x = torch.ones(4, device="cuda")
+dist.all_reduce(x)
+torch.cuda.synchronize()
+print("NCCL_PAIR_OK", x.tolist(), flush=True)
+"""
+
+
+def _host_arrays(trainer, state) -> dict:
+    return {k: np.asarray(v) for k, v in trainer.host_state(state).items()}
+
+
+def phase_gang_world1(card: str, train_p50_ms: float) -> dict:
+    """Phase 11 (a): ``Trainer`` over a one-rank NCCL process group against
+    the bare ``Trainer`` at the same width, from the same seeded state on
+    the same batches: the states must be equal bit for bit (a sum over one
+    rank divided by one is exact).  Step p50 against phase 4's; the
+    all-reduce's device time from a profile of one step."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from elasticdl_tpu_torch.data.codecs import encode_lm_example
+    from elasticdl_tpu_torch.models import transformer_lm
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.ops import kernels
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+
+    names = (fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL)
+    layers = TRAIN_WIDTH["n_layers"]
+    spec = transformer_lm.model_spec(compute_dtype="bfloat16", remat=False, **TRAIN_WIDTH)
+    rng = np.random.default_rng(11)
+    toks = _planted_sequences(rng, TRAIN_BATCH * (GANG_STEPS + 1), TRAIN_WIDTH["seq_len"],
+                              TRAIN_WIDTH["vocab"])
+    records = [encode_lm_example(t) for t in toks]
+    batches = [spec.feed(records[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH])
+               for i in range(GANG_STEPS + 1)]
+    # Deterministic kernels where PyTorch has a choice (the embedding's
+    # scatter-add backward): the bit-for-bit comparison needs a step that
+    # repeats exactly.
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def timed(host_batches, marks):
+        # Step time: host clock between synchronised batch hand-outs.
+        for batch in host_batches:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            yield batch
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    def bare_run() -> tuple:
+        trainer = Trainer(spec, device="cuda")
+        state = trainer.init_state(0)
+        marks = []
+        state, _ = trainer.run_train_steps(state, timed(batches[:GANG_STEPS], marks))
+        out = _host_arrays(trainer, state)
+        del trainer, state
+        torch.cuda.empty_cache()
+        return out, [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+
+    store = dist.TCPStore("127.0.0.1", _free_port(), 1, True,
+                          timeout=datetime.timedelta(seconds=60))
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            device_id=torch.device("cuda:0"),
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        bare_a, bare_ms = bare_run()
+        bare_b, _ = bare_run()
+        mesh = create_mesh()
+        gang = Trainer(spec, device="cuda", mesh=mesh)
+        assert gang._group is not None and dist.get_backend(gang._group) == "nccl"
+        state = gang.init_state(0)
+        marks = []
+        kernels.reset_counts()  # the gang trainer's run starts here
+        state, metrics = gang.run_train_steps(state, timed(batches[:GANG_STEPS], marks))
+        counts = {n: _count(n) for n in names}  # ... and ends here
+        got = _host_arrays(gang, state)
+        # One more step under the profiler: the NCCL kernels' device time.
+        holder = [state]
+
+        def one_step():
+            holder[0] = gang.run_train_step(holder[0], batches[GANG_STEPS])[0]
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            one_step()
+            torch.cuda.synchronize()
+        by_kernel = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0) or 0
+            if us > 0:
+                by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e3
+        nccl_ms = sum(ms for k, ms in by_kernel.items() if "nccl" in k.lower())
+        device_ms = sum(by_kernel.values())
+        reduced = sum(p.numel() for p in state.model.parameters()) + len(metrics[0])
+        del gang, state, holder
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+        if cublas is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    p50, bare_p50 = statistics.median(step_ms), statistics.median(bare_ms)
+    same_bare = [k for k in bare_a if not np.array_equal(bare_a[k], bare_b[k])]
+    diff = [k for k in bare_a if not np.array_equal(bare_a[k], got[k])]
+    log(f"[gang1] NCCL world of 1: {GANG_STEPS} steps at batch {TRAIN_BATCH}, losses "
+        + ", ".join(f"{float(m['loss']):.4f}" for m in metrics)
+        + f"; {len(got)} arrays, {len(diff)} differ from the bare Trainer's "
+        f"({len(same_bare)} differ between two bare runs); step p50 {p50:.2f} ms vs the bare "
+        f"Trainer's {bare_p50:.2f} ms here (deterministic kernels) and phase 4's "
+        f"{train_p50_ms:.2f} ms; one step: NCCL all-reduce {nccl_ms:.3f} ms of "
+        f"{device_ms:.2f} ms device time ({reduced * 4 / 1e6:.1f} MB reduced); launches "
+        + json.dumps(counts) + f" on {card}")
+    assert not same_bare, f"two bare runs differ in {same_bare[:5]}: the step does not repeat"
+    assert not diff, f"the world-1 gang state differs from the bare Trainer's in {diff[:5]}"
+    assert counts == {n: layers * GANG_STEPS for n in names}, counts
+    return {"steps": GANG_STEPS, "step_ms": step_ms, "p50_step_ms": p50,
+            "bare_step_ms": bare_ms, "bare_p50_step_ms": bare_p50,
+            "phase4_p50_ms": train_p50_ms, "nccl_allreduce_ms": nccl_ms,
+            "step_device_ms": device_ms, "reduced_bytes": reduced * 4,
+            "losses": [float(m["loss"]) for m in metrics], "launches": counts,
+            "arrays_equal": len(got) - len(diff)}
+
+
+def _nccl_pair_on_one_card() -> str:
+    """Two NCCL ranks on one card: what the installed NCCL says (it is
+    expected to refuse)."""
+    port = _free_port()
+    outs = [os.path.join(REPO, "chiprun_out", f"nccl_pair_{r}.log") for r in (0, 1)]
+    procs = [subprocess.Popen([sys.executable, "-c", NCCL_PAIR, str(r), str(port)],
+                              stdout=open(o, "w"), stderr=subprocess.STDOUT)
+             for r, o in zip((0, 1), outs)]
+    for p in procs:
+        try:
+            p.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+    text = "\n".join(_read(o) for o in outs)
+    if "NCCL_PAIR_OK" in text:
+        return "accepted: " + next(x for x in text.splitlines() if "NCCL_PAIR_OK" in x)
+    lines = [x.strip() for x in text.splitlines()
+             if "Error" in x or "error" in x or "Duplicate" in x or "invalid" in x.lower()]
+    return "refused (rcs %s): %s" % ([p.returncode for p in procs], " | ".join(lines[-3:])[:600])
+
+
+def phase_gang_pair(card: str) -> dict:
+    """Phase 11 (b): two worker processes on the one card through the CLI's
+    local mode (``--multihost --dcn_data_parallelism=2``, gloo on card
+    tensors), each rank 8 of the 16 examples at phase 4's width.  Rank 1 is
+    SIGKILLed at a task boundary past step ``GANG_KILL_STEP``; rank 0 (its
+    collective fails) snapshots and exits 3; the pod manager relaunches
+    both; the gang re-forms and finishes from the snapshot.  Both ranks'
+    states are equal at every checkpoint (digests), the losses of the
+    first steps match one process on the same batches, every task is done
+    once and no step twice."""
+    import ast
+    import shutil
+
+    from elasticdl_tpu_torch.common.checkpoint import read_manifest
+    from elasticdl_tpu_torch.data.reader import create_data_reader
+    from elasticdl_tpu_torch.models import transformer_lm
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+
+    nccl_pair = _nccl_pair_on_one_card()
+    log(f"[gang2] two NCCL ranks on one card: {nccl_pair}")
+    out = os.path.join(REPO, "chiprun_out", "job")
+    train, val = os.path.join(out, "train.rio"), os.path.join(out, "val.rio")
+    assert os.path.exists(train) and os.path.exists(val), "phase 7 writes the job's data"
+    ckpt, pods = os.path.join(out, "ckpt11"), os.path.join(out, "pods11")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(pods, ignore_errors=True)
+    width, mb = TRAIN_WIDTH, GANG_FLAGS["minibatch_size"]
+    layers = width["n_layers"]
+    per_task = mb * GANG_FLAGS["num_minibatches_per_task"]
+    n_tasks = JOB_TRAIN // per_task
+    w0, w1 = f"{GANG_JOB}-worker-0", f"{GANG_JOB}-worker-1"
+    w0b, w1b = f"{w0}-r1", f"{w1}-r1"
+    pod_log = {n: os.path.join(pods, f"{n}.log") for n in (w0, w1, w0b, w1b)}
+    params = ";".join(f"{k}={v}" for k, v in width.items())
+    cmd = [sys.executable, "-m", "elasticdl_tpu_torch.client.main", "train", "--local",
+           f"--job_name={GANG_JOB}", "--model_def=transformer_lm.model_spec",
+           f"--model_params={params};compute_dtype=bfloat16;remat=false",
+           "--learning_rate=3e-4", f"--training_data={train}", f"--validation_data={val}",
+           f"--checkpoint_dir={ckpt}", f"--pod_log_dir={pods}", "--max_worker_relaunch=2",
+           "--num_workers=2", "--multihost=true", "--dcn_data_parallelism=2",
+           f"--coordinator_port={_free_port()}",
+           f"--chaos=stall:worker={w1},point=task,step={GANG_KILL_STEP},ms=600000"]
+    cmd += [f"--{k}={v}" for k, v in GANG_FLAGS.items()]
+    torch.cuda.empty_cache()  # the worker processes share the card with this one
+    os.environ["ELASTICDL_TORCH_DIST_BACKEND"] = "gloo"
+    os.environ["ELASTICDL_STATE_DIGEST"] = "1"
+    cli_path = os.path.join(out, "cli11.log")
+    t0 = time.time()
+    try:
+        proc = _start_cli(cmd, cli_path)
+    finally:
+        del os.environ["ELASTICDL_TORCH_DIST_BACKEND"], os.environ["ELASTICDL_STATE_DIGEST"]
+    try:
+        _wait_for(lambda: "[graftchaos] stall" in _read(pod_log[w1]),
+                  f"rank 1's boundary past step {GANG_KILL_STEP}", proc, timeout_s=600)
+        time.sleep(1.0)  # rank 0 enters the step's collective and blocks there
+        t_kill = time.time()
+        os.kill(_worker_events(_read(pod_log[w1]))["ready"]["pid"], signal.SIGKILL)
+        rc = proc.wait(timeout=600)
+        wall_s = time.time() - t0
+    finally:
+        _stop_cli(proc)
+    cli, logs = _read(cli_path), {n: _read(p) for n, p in pod_log.items()}
+    assert rc == 0, f"the job exited {rc}; see {cli_path}"
+    status = ast.literal_eval(cli.split("job finished: ", 1)[1].splitlines()[0])
+    ev = {n: _worker_events(text) for n, text in logs.items()}
+    digests = {n: {} for n in logs}
+    for n, text in logs.items():
+        for line in text.splitlines():
+            if line.startswith("[worker-event] "):
+                e = json.loads(line[len("[worker-event] "):])
+                if e["event"] == "checkpoint":
+                    digests[n][e["step"]] = e["digest"]
+
+    # The job: every task done once; the exit codes; the worlds formed.
+    assert status["finished"] and status["done"] == n_tasks, status
+    assert status["abandoned"] == 0 and status["duplicate_done"] == 0, status
+    assert np.isfinite(status["eval_metrics"]["loss"]), status
+    for needle in (f"pod {w1} exited rc=-9 -> Failed", f"pod {w0} exited rc=3 -> Restart",
+                   f"relaunching failed pod {w1} as {w1b}", f"relaunching failed pod {w0} as {w0b}",
+                   f"pod {w0b} exited rc=0 -> Succeeded", f"pod {w1b} exited rc=0 -> Succeeded"):
+        assert needle in cli, needle
+    for n in (w0, w1, w0b, w1b):
+        assert ev[n]["gang"]["world"] == 2 and ev[n]["gang"]["mesh"] == {"dp": 2, "ep": 1}, ev[n]
+    assert ev[w0]["gang"]["rank"] == 0, ev[w0]["gang"]  # the reporter survives and saves
+    snap = int(logs[w0].split("pre-restart snapshot at step ", 1)[1].split()[0])
+    assert ev[w0b]["ready"]["joined_step"] == snap == ev[w1b]["ready"]["joined_step"], (
+        snap, ev[w0b]["ready"], ev[w1b]["ready"])
+    # Identical states: every checkpoint both ranks of a world passed.
+    for a, b in ((w0, w1), (w0b, w1b)):
+        shared = sorted(set(digests[a]) & set(digests[b]))
+        assert shared and all(digests[a][k] == digests[b][k] for k in shared), (
+            a, digests[a], b, digests[b])
+    # Lockstep: both ranks of the relaunched world ran the same tasks.
+    sa, sb = ev[w0b]["summary"], ev[w1b]["summary"]
+    assert sa["tasks"] == sb["tasks"] and sa["step"] == sb["step"], (sa["tasks"], sb["tasks"])
+    # No step trained twice: the snapshot holds the reported tasks only, so
+    # the job ends at the epoch's step count.
+    manifest = read_manifest(ckpt)
+    epoch_steps = n_tasks * GANG_FLAGS["num_minibatches_per_task"]
+    assert manifest["step"] == sa["step"] == epoch_steps, (manifest, sa["step"], epoch_steps)
+    for summary in (sa, sb):
+        _check_job_launches(summary["launches"], layers, summary["steps"], summary["eval_steps"])
+
+    # The first steps against one process on the same batches of 16 (the
+    # first task's minibatches: the dispatcher hands out the shards in
+    # order), from the same seeded weights.
+    reader = create_data_reader(train)
+    spec = transformer_lm.model_spec(compute_dtype="bfloat16", remat=False, **width)
+    single = Trainer(spec, device="cuda")
+    batches = [spec.feed(list(reader.read_records(shard)))
+               for shard in reader.create_shards(mb)[:GANG_LOSS_STEPS]]
+    _, ms = single.run_train_steps(single.init_state(0), batches)
+    single_losses = [float(m["loss"]) for m in ms]
+    del single, ms
+    torch.cuda.empty_cache()
+    halves = []
+    for half in (slice(0, mb // 2), slice(mb // 2, mb)):
+        alone = Trainer(spec, device="cuda")
+        _, ms = alone.run_train_steps(alone.init_state(0),
+                                      [{k: v[half] for k, v in b.items()} for b in batches])
+        halves.append([float(m["loss"]) for m in ms])
+        del alone, ms
+        torch.cuda.empty_cache()
+    unreduced_diffs = [abs((a + b) / 2 - c) for a, b, c in zip(*halves, single_losses)]
+    gang_losses = ev[w0]["first_steps"]["losses"]
+    assert ev[w1]["first_steps"]["losses"] == gang_losses, (ev[w0]["first_steps"],
+                                                          ev[w1]["first_steps"])
+    gang_loss, single_loss = gang_losses[0], single_losses[0]
+    loss_diffs = [abs(a - b) for a, b in zip(gang_losses, single_losses)]
+    log(f"[gang2] losses of the first {GANG_LOSS_STEPS} steps: gang "
+        + ", ".join(f"{x:.6f}" for x in gang_losses) + " (two ranks of 8) vs one process "
+        + ", ".join(f"{x:.6f}" for x in single_losses) + " (16); |diff| "
+        + ", ".join(f"{x:.2e}" for x in loss_diffs) + f", limit {GANG_LOSS_ABS}; a gang "
+        "without the gradient reduction would read |diff| "
+        + ", ".join(f"{x:.2e}" for x in unreduced_diffs))
+    assert len(gang_losses) == GANG_LOSS_STEPS and max(loss_diffs) <= GANG_LOSS_ABS
+    assert max(unreduced_diffs) > GANG_LOSS_ABS, "the limit cannot see an unreduced gradient"
+
+    # Times.  The re-form, from the SIGKILL to the re-formed gang's first
+    # step, split at what each process logged.
+    detect_at = _log_time(logs[w0], "collective failed in lockstep mode")
+    exit_at = _log_time(cli, f"pod {w0} exited")
+    start = max(ev[w0b]["ready"]["started_at"], ev[w1b]["ready"]["started_at"])
+    gang0 = ev[w0b]["gang"]
+    reform = {
+        "detect_s": detect_at - t_kill,
+        "exit3_s": exit_at - detect_at,
+        "relaunch_boot_s": start + ev[w0b]["ready"]["boot_s"] - exit_at,
+        "settle_s": gang0["settle_s"],
+        "init_process_group_s": gang0["init_process_group_s"],
+        "restore_s": ev[w0b]["ready"]["restore_s"],
+        "first_step_s": ev[w0b]["first_step"]["at"] - t_kill,
+    }
+    saves = [line for line in logs[w0].splitlines() + logs[w0b].splitlines()
+             if "checkpoint step " in line and " saved: " in line]
+    snap_line = next((x for x in saves if f"checkpoint step {snap} saved" in x), None)
+    step_ms = sa["step_ms"]
+    p50 = statistics.median(step_ms)
+    # The all-reduce a training step waits for, on average, over its p50.
+    train_collective_s = sa["collective_s"] - sa["eval_collective_s"]
+    share = train_collective_s / max(sa["steps"], 1) / max(p50 / 1e3, 1e-9)
+    log(f"[gang2] {status['done']} tasks done ({n_tasks} a epoch), {status['abandoned']} "
+        f"abandoned, {status['duplicate_done']} duplicates, eval loss "
+        f"{status['eval_metrics']['loss']:.4f}; SIGKILL of rank 1 -> rank 0 snapshot at {snap}, "
+        f"exit 3 -> both relaunched, joined from {snap}, final step {manifest['step']}; "
+        f"digests equal at steps {sorted(set(digests[w0]) & set(digests[w1]))} and "
+        f"{sorted(set(digests[w0b]) & set(digests[w1b]))}")
+    log(f"[gang2] gang step p50 {p50:.2f} ms (device events, rank 0 of the relaunched "
+        f"world, {len(step_ms)} intervals); collectives {sa['collective_s']:.2f} s over "
+        f"{sa['collective_calls']} calls, {train_collective_s:.2f} s of it in {sa['steps']} "
+        f"train steps: the all-reduce is {share:.1%} of the step p50; snapshot: "
+        f"{snap_line.split('] ', 3)[-1] if snap_line else 'periodic step already on disk'}; "
+        f"on {card}")
+    log("[gang2] re-form after SIGKILL (s): " + ", ".join(f"{k} {v:.3f}" for k, v in reform.items())
+        + f"; job wall {wall_s:.2f}s; on {card}")
+    log("[gang2] saves: " + " | ".join(x.split("] ", 3)[-1] for x in saves))
+    shutil.rmtree(ckpt)  # 1.33 GB a checkpoint: too much to keep in chiprun_out/
+    launches = {n: sa["launches"].get(n, 0) + sb["launches"].get(n, 0)
+                for n in (fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL)}
+    return {
+        "nccl_pair": nccl_pair, "status": {k: status[k] for k in (
+            "done", "abandoned", "duplicate_done", "eval_rounds", "eval_metrics")},
+        "snapshot_step": snap, "final_step": manifest["step"], "reform": reform,
+        "first_step_loss": {"gang": gang_loss, "single": single_loss},
+        "first_losses": {"gang": gang_losses, "single": single_losses, "abs_diff": loss_diffs,
+                         "unreduced_abs_diff": unreduced_diffs},
+        "p50_step_ms": p50, "step_ms": step_ms, "collective_s": sa["collective_s"],
+        "train_collective_s": train_collective_s,
+        "allreduce_share": share, "wall_s": wall_s, "saves": saves,
+        "digests": {n: digests[n] for n in digests}, "kernels": launches,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA card",
@@ -1915,6 +2312,8 @@ def main() -> int:
     report["process_job_standby"] = phase_process_job_standby(
         card, report["process_job"]["kill"]["recover_s"])
     report["deepfm"] = phase_deepfm(card)
+    report["gang1"] = phase_gang_world1(card, report["train"]["p50_step_ms"])
+    report["gang2"] = phase_gang_pair(card)
     report["wall_s"] = time.perf_counter() - t0
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -1923,8 +2322,11 @@ def main() -> int:
     bwd = report["kernel_bwd"]["train"]
     train_launches = report["train"]["launches"]
     job_launches = report["job"]["launches"]
+    # The process-level jobs' last worker processes, and the gang phase:
+    # the world-1 trainer's run and the re-formed pair's processes.
     proc_launches = {n: report["process_job"]["kernels"][n]
                      + report["process_job_standby"]["kernels"][n]
+                     + report["gang1"]["launches"][n] + report["gang2"]["kernels"][n]
                      for n in (fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL)}
     source = "elasticdl_tpu_torch/csrc/"
     kernels_line = {"kernels": [

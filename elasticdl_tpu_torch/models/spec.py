@@ -14,8 +14,9 @@ over pytrees; here the state is an ``nn.Module`` and the functions take it:
 - ``check_batch(model, batch)``             optional host-side check of a
   request's numpy batch, run where requests arrive (raises ValueError)
 - ``example_batch(n) -> {name: ndarray}``   the feature template
-- ``batch_shard_dim``                       which batch dim a mesh would
-  shard (recorded for parity; the port runs on one device so far)
+- ``batch_shard_dim``                       0: examples shard over every
+  mesh axis; 1: examples over the outer axes, the sequence over the inner
+  one (``parallel/trainer.py``)
 - ``loss(outputs, batch[, mask]) -> scalar`` the training loss (a ``mask``
   parameter makes the trainer pass the batch's ``__mask__``)
 - ``metrics(outputs, batch[, mask]) -> {name: scalar}`` (a ``mask``

@@ -188,7 +188,7 @@ def embedding_lookup(
     if ctx.sharded_embeddings and ctx.axis_name:
         raise NotImplementedError(
             "sharded embedding lookups (ragged, dense over a mesh axis) are "
-            "not ported yet (ROADMAP, PyTorch port queue: collectives and "
-            "elastic reform)"
+            "not ported yet (ROADMAP, PyTorch port queue: sharded embedding "
+            "lookups)"
         )
     return gather_rows(table, ids, dim)

@@ -1,1 +1,2 @@
-"""The trainer of the PyTorch port (the predict slice so far)."""
+"""The trainer of the PyTorch port, its process-group world, mesh and
+collectives."""

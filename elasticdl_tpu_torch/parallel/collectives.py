@@ -1,0 +1,316 @@
+"""The collective layer every gradient and metric reduction of the port
+routes through.
+
+Port of ``elasticdl_tpu/parallel/collectives.py`` onto
+``torch.distributed`` process groups (``parallel/mesh.py``).
+
+**Hierarchical reduce** (``--collective hierarchical|flat|auto``): the
+data-parallel axis of ``n`` ranks factors into ``(n_host, n_local)``
+(``mesh.dp_factorization``: the ranks' hosts, or
+``--collective_local_size`` to pin or emulate it).  A big buffer then
+reduces in three steps, as the reference's ``_hier_reduce_leaf``:
+
+    1. ``reduce_scatter_tensor`` in the intra-host group: each local rank
+       ends with 1/n_local of its host's partial sum;
+    2. ``all_reduce`` of that part in the inter-host group;
+    3. ``all_gather_into_tensor`` in the intra-host group.
+
+Leaves under ``min_elems`` take one flat ``all_reduce``.  ``Reducer.psum``
+and ``Reducer.pmean`` take a dict of tensors (the gradient tree) and
+reduce it as few flat buffers (one per route and dtype), not one call per
+leaf.
+
+**Timeout-bounded participation** (the contributor mask): a contribution
+scaled by this rank's 0/1 ``contributor_weight`` and a mean renormalised
+by the mask's sum is the reference's ``sum / |G'|``.  With an all-ones mask
+every formula is the plain route bit for bit (multiplying by 1.0 and
+dividing by the exact count ``n`` change nothing).
+
+**Backends.**  NCCL reduces card tensors on the card.  gloo reduces them
+too: in the installed PyTorch its CUDA path takes ``all_reduce``,
+``reduce_scatter_tensor`` and ``all_gather_into_tensor`` on card tensors
+and copies through host memory itself (checked on an H100, PyTorch 2.11),
+so the port hands it card tensors as they are.
+
+``psum_scatter`` (the sharded optimizer) and the tensor-parallel pair
+``tp_all_reduce``/``tp_grad_sync`` are later slices of the port.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+FLAT = "flat"
+HIERARCHICAL = "hierarchical"
+AUTO = "auto"
+MODES = (FLAT, HIERARCHICAL, AUTO)
+
+#: Leaves smaller than this reduce with ONE flat collective even under a
+#: hierarchical topology (``--collective_min_elems``).
+DEFAULT_MIN_ELEMS = 4096
+
+Axes = Union[str, Sequence[str]]
+
+
+def _as_axes(axes: Axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+class CollectiveTopology:
+    """The factorization one mesh's reduce axis resolves to.
+
+    ``axis``'s ``n = n_host * n_local`` positions group contiguously:
+    position ``h * n_local + l`` is local replica ``l`` of host ``h``.
+    ``local_groups``/``cross_groups`` are those position tables (the
+    reference's ``axis_index_groups``); ``local_pg``/``cross_pg`` the
+    process groups of this rank's intra-host and inter-host lines."""
+
+    def __init__(self, axis: str, n_host: int, n_local: int,
+                 min_elems: int = DEFAULT_MIN_ELEMS, local_pg=None, cross_pg=None):
+        self.axis = axis
+        self.n_host = int(n_host)
+        self.n_local = int(n_local)
+        self.min_elems = int(min_elems)
+        self.local_groups = [
+            [h * self.n_local + l for l in range(self.n_local)] for h in range(self.n_host)
+        ]
+        self.cross_groups = [
+            [h * self.n_local + l for h in range(self.n_host)] for l in range(self.n_local)
+        ]
+        self.local_pg = local_pg
+        self.cross_pg = cross_pg
+
+    @property
+    def hierarchical(self) -> bool:
+        """Both factors non-trivial; else the route is a flat reduce."""
+        return self.n_host > 1 and self.n_local > 1
+
+    def describe(self) -> dict:
+        return {
+            "axis": self.axis,
+            "n_host": self.n_host,
+            "n_local": self.n_local,
+            "hierarchical": self.hierarchical,
+            "min_elems": self.min_elems,
+        }
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"CollectiveTopology({self.axis!r}, host={self.n_host}, local={self.n_local})"
+
+
+def resolve_topology(
+    mesh,
+    axes: Sequence[str],
+    mode: str = AUTO,
+    local_size: int = 0,
+    min_elems: int = DEFAULT_MIN_ELEMS,
+) -> Optional[CollectiveTopology]:
+    """The collective mode of one mesh: a topology with the hierarchical
+    route armed for the outer axis, or None (flat everything).
+
+    ``flat`` never factors; ``hierarchical`` factors by ``local_size`` (or
+    the ranks' hosts) and is None when no factorization exists; ``auto``
+    goes hierarchical exactly when the mesh has a real multi-host,
+    multi-local grouping (or ``local_size`` says to emulate one).  Every
+    rank must call this with the same arguments: the subgroups are
+    collective to make."""
+    if mode not in MODES:
+        raise ValueError(f"collective mode must be one of {MODES}, got {mode!r}")
+    if mode == FLAT or not axes:
+        return None
+    import torch.distributed as dist
+
+    from elasticdl_tpu_torch.parallel.mesh import Mesh, dp_factorization
+
+    axis = axes[0]
+    n_host, n_local = dp_factorization(mesh, axis, local_size=local_size)
+    topo = CollectiveTopology(axis, n_host, n_local, min_elems=min_elems)
+    if not topo.hierarchical:
+        return None
+    assert n_host * n_local == mesh.shape[axis]
+    # The world ranks of every position of this rank's line along the axis,
+    # then every intra-host and inter-host group of it, made in one order.
+    line = mesh.line((axis,))
+    n_world = mesh.size
+    lines = sorted({tuple(Mesh(mesh.shape, rank=r).line((axis,))) for r in range(n_world)})
+    for ranks in lines:
+        for table, attr in ((topo.local_groups, "local_pg"), (topo.cross_groups, "cross_pg")):
+            for positions in table:
+                members = [ranks[p] for p in positions]
+                pg = dist.new_group(members)
+                if tuple(ranks) == tuple(line) and mesh.rank in members:
+                    setattr(topo, attr, pg)
+    return topo
+
+
+def contributor_count(mesh, axes: Axes) -> int:
+    """How many contributor-mask slots this mesh's batch axes carry."""
+    n = 1
+    for a in _as_axes(axes):
+        n *= int(mesh.shape[a])
+    return n
+
+
+def contributor_index(mesh, axes: Axes) -> int:
+    """This rank's row-major linear index over ``axes``: its slot in the
+    replicated mask."""
+    idx = 0
+    for a in _as_axes(axes):
+        idx = idx * int(mesh.shape[a]) + mesh.position(a)
+    return idx
+
+
+def contributor_weight(active, mesh, axes: Axes) -> float:
+    """This rank's 0/1 participation weight: ``active[contributor_index]``.
+    A contribution times this weight is the subgroup psum: an excluded
+    rank still takes part in the collective but adds exactly zero, and a
+    mean divides by the mask's sum, |G'|."""
+    return float(active[contributor_index(mesh, axes)])
+
+
+def leaf_elems(x) -> int:
+    """Element count of one leaf (shapeless scalars count 1): what the
+    ``min_elems`` routing and the bytes model both judge."""
+    shape = getattr(x, "shape", ())
+    return int(np.prod(shape)) if len(shape) else 1
+
+
+class Reducer:
+    """The collectives of one mesh: the group of each reduction and the
+    seconds spent inside the collective calls (``seconds``, ``calls``).
+    Under gloo the call returns once the reduction is done; on card
+    tensors the stream's earlier work is waited for first, outside the
+    clock, so ``seconds`` is the collective's own.  Under NCCL the call
+    only enqueues, and ``seconds`` is the host's enqueue time."""
+
+    def __init__(self, mesh, topo: Optional[CollectiveTopology] = None):
+        self.mesh = mesh
+        self.topo = topo
+        self.seconds = 0.0
+        self.calls = 0
+
+    def _collective(self, fn, group, tensors: List[torch.Tensor]) -> None:
+        import torch.distributed as dist
+
+        if tensors[0].is_cuda and dist.get_backend(group) == "gloo":
+            torch.cuda.current_stream().synchronize()
+        t0 = time.perf_counter()
+        fn()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+
+    def all_reduce(self, buf: torch.Tensor, group) -> torch.Tensor:
+        import torch.distributed as dist
+
+        self._collective(lambda: dist.all_reduce(buf, group=group), group, [buf])
+        return buf
+
+    def _hier_reduce(self, flat: torch.Tensor) -> torch.Tensor:
+        """The 3-step hierarchical all-reduce of one flat buffer over
+        ``topo.axis``: zero-padded to n_local divisibility (exact for a
+        sum), reduce-scattered in the host group, all-reduced across
+        hosts, all-gathered in the host group."""
+        import torch.distributed as dist
+
+        topo = self.topo
+        n = flat.numel()
+        pad = (-n) % topo.n_local
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        part = flat.new_empty(flat.numel() // topo.n_local)
+        self._collective(
+            lambda: dist.reduce_scatter_tensor(part, flat, group=topo.local_pg),
+            topo.local_pg, [flat])
+        self.all_reduce(part, topo.cross_pg)
+        full = flat.new_empty(flat.numel())
+        self._collective(
+            lambda: dist.all_gather_into_tensor(full, part, group=topo.local_pg),
+            topo.local_pg, [part])
+        return full[:n]
+
+    def psum(self, tree: Dict[str, torch.Tensor], axes: Axes) -> Dict[str, torch.Tensor]:
+        """Sum every tensor of ``tree`` over the named mesh axes.  Leaves
+        at or above the topology's ``min_elems`` take the hierarchical
+        route when it covers an axis; the rest one flat ``all_reduce``;
+        each route one flat buffer per dtype.  Returns views into the
+        reduced buffers; the inputs are not modified."""
+        names = _as_axes(axes)
+        group = self.mesh.group(names)
+        if group is None:  # a line of one rank: the sum is the input
+            return dict(tree)
+        topo = self.topo
+        hier_axis = topo is not None and topo.hierarchical and topo.axis in names
+        routes: Dict[tuple, List[str]] = {}
+        for key, x in tree.items():
+            big = hier_axis and leaf_elems(x) >= topo.min_elems
+            routes.setdefault((big, x.dtype, x.device), []).append(key)
+        out: Dict[str, torch.Tensor] = {}
+        for (big, _dtype, _device), keys in routes.items():
+            flat = torch.cat([tree[k].reshape(-1) for k in keys])
+            if big:
+                rest = tuple(a for a in names if a != topo.axis)
+                rest_group = self.mesh.group(rest) if rest else None
+                if rest_group is not None:
+                    self.all_reduce(flat, rest_group)
+                flat = self._hier_reduce(flat)
+            else:
+                self.all_reduce(flat, group)
+            at = 0
+            for k in keys:
+                n = leaf_elems(tree[k])
+                out[k] = flat[at:at + n].view(tree[k].shape)
+                at += n
+        return out
+
+    def pmean(self, tree: Dict[str, torch.Tensor], axes: Axes) -> Dict[str, torch.Tensor]:
+        """``psum / n`` with the same routing."""
+        n = contributor_count(self.mesh, axes)
+        return {k: v / n for k, v in self.psum(tree, axes).items()}
+
+
+def psum_scatter(*_args, **_kwargs):
+    raise NotImplementedError(
+        "psum_scatter (the sharded optimizer's reduce-scatter) is not ported "
+        "yet (ROADMAP, PyTorch port queue: the sharded optimizer)"
+    )
+
+
+def tp_all_reduce(*_args, **_kwargs):
+    raise NotImplementedError(
+        "tp_all_reduce is not ported yet (ROADMAP, PyTorch port queue: ring "
+        "and tensor-parallel attention)"
+    )
+
+
+def tp_grad_sync(*_args, **_kwargs):
+    raise NotImplementedError(
+        "tp_grad_sync is not ported yet (ROADMAP, PyTorch port queue: ring "
+        "and tensor-parallel attention)"
+    )
+
+
+def interhost_bytes_per_step(
+    leaf_sizes: Sequence[int],
+    n_replicas: int,
+    topo: Optional[CollectiveTopology] = None,
+    itemsize: int = 4,
+) -> int:
+    """Analytic per-replica inter-host bytes of one step's gradient
+    all-reduce over ``leaf_sizes`` (element counts): a flat all-reduce
+    moves ``2 * size * (n-1)/n`` elements a replica; the hierarchical
+    route's only inter-host step moves ``2 * (size/n_local) *
+    (n_host-1)/n_host``.  Leaves below ``min_elems`` are flat either way."""
+    if n_replicas <= 1:
+        return 0
+    total = 0.0
+    for size in leaf_sizes:
+        if topo is not None and topo.hierarchical and size >= topo.min_elems:
+            residue = -(-size // topo.n_local)
+            total += 2.0 * residue * (topo.n_host - 1) / topo.n_host
+        else:
+            total += 2.0 * size * (n_replicas - 1) / n_replicas
+    return int(total * itemsize)

@@ -9,9 +9,23 @@ Port of ``elasticdl_tpu/parallel/trainer.py``: ``TrainState``,
 (``run_predict_step``, ``build_predict_step``) the serving tier runs, and
 the canonical state (``host_state``, ``snapshot_state``,
 ``adopt_restored``: the reference's ``host_state``, ``snapshot_state``,
-``restore_template`` and ``adopt_restored``).  One device, no mesh:
-host-tier tables, the fused scan variants, meshes and collectives are
-later slices of the port.
+``restore_template`` and ``adopt_restored``).  Host-tier tables and the
+fused scan variants are later slices of the port.
+
+Data parallelism over a process group (``mesh``: ``parallel/mesh.py``):
+each rank owns one device and holds the whole state; every rank feeds the
+same global batch and ``shard_batch`` takes its contiguous slice of the
+examples (dim 0, over every axis for a data-parallel model and over the
+outer axes for a sequence-parallel one, the reference's
+``_batch_spec_for``).  A step weighs the loss by ``count / psum(count)``
+(or ``w / |G'|`` without a mask: this rank's contributor weight over the
+mask's sum), sums the gradients, the loss and the metrics over the group
+through ``collectives`` in one reduction, then steps the optimizer, so a
+failed collective leaves the module and the optimizer as they were
+(``CollectiveError``).  Eval reduces the same way.  The state stays
+replicated, so checkpoints stay topology-agnostic.  A mesh whose inner
+axis is larger than one rank (the sequence ring, sharded tables) is a
+later slice and raises.
 
 The canonical state is a flat ``{path: numpy array}`` dict:
 
@@ -35,6 +49,8 @@ import torch
 from elasticdl_tpu_torch.common.device import resolve_device, set_matmul_precision
 from elasticdl_tpu_torch.common.metrics import HIST_PREFIX
 from elasticdl_tpu_torch.models.spec import ModelSpec
+from elasticdl_tpu_torch.parallel import collectives as coll
+from elasticdl_tpu_torch.parallel.mesh import Mesh
 
 #: The padding mask of a batch: real examples 1.0, padding 0.0.  The loss
 #: weighs by it; the model never sees it (the reference pops it too).
@@ -74,6 +90,13 @@ class TrainLoopError(RuntimeError):
         self.cause = cause
 
 
+class CollectiveError(RuntimeError):
+    """A collective of a train or eval step failed (a peer died, the
+    group timed out).  Every collective of a step runs before the
+    optimizer's update, so the module and the optimizer are as they were
+    before the step."""
+
+
 class Snapshot(dict):
     """A canonical state of device copies (``Trainer.snapshot_state``);
     ``ready``: on the card, the event recorded after the copies."""
@@ -84,9 +107,11 @@ class Snapshot(dict):
 class Trainer:
     """Owns the device; trains the model and runs its predict forward."""
 
-    def __init__(self, spec: ModelSpec, device: Any = None):
+    def __init__(self, spec: ModelSpec, device: Any = None, mesh: Optional[Mesh] = None,
+                 config: Any = None):
         self.spec = spec
         self.device = resolve_device(device)
+        self.config = config
         set_matmul_precision()
         self._loss_takes_mask = spec.loss is not None and (
             "mask" in inspect.signature(spec.loss).parameters
@@ -94,6 +119,86 @@ class Trainer:
         self._metrics_take_mask = spec.metrics is not None and (
             "mask" in inspect.signature(spec.metrics).parameters
         )
+        self._adopt_mesh_axes(mesh or Mesh({"dp": 1}))
+
+    # ---- the mesh ----
+
+    def _adopt_mesh_axes(self, mesh: Mesh) -> None:
+        """Axis roles (the reference's ``_adopt_mesh_axes``): reductions
+        over every axis; contributors are the EXAMPLE shards, every axis
+        for a data-parallel model and the outer axes for a
+        sequence-parallel one (its inner-axis slices hold pieces of the
+        same examples).  The collective topology resolves here and the
+        contributor mask resets to all-active."""
+        names = mesh.axis_names
+        inner = mesh.shape[names[-1]]
+        if inner > 1 and (len(names) > 1 or self.spec.batch_shard_dim == 1):
+            if self.spec.batch_shard_dim == 1:
+                raise NotImplementedError(
+                    f"sequence parallelism over a mesh axis of {inner} ranks (the "
+                    "ring) is not ported yet (ROADMAP, PyTorch port queue: ring "
+                    "and tensor-parallel attention); set --dcn_data_parallelism "
+                    "to the world size"
+                )
+            raise NotImplementedError(
+                f"embedding tables sharded over an ep axis of {inner} ranks are not "
+                "ported yet (ROADMAP, PyTorch port queue: sharded embedding "
+                "lookups); set --dcn_data_parallelism to the world size"
+            )
+        self.mesh = mesh
+        self.reduce_axes = names
+        self.contributor_axes = names if self.spec.batch_shard_dim == 0 else names[:-1]
+        cfg = self.config
+        topo = coll.resolve_topology(
+            mesh, self.reduce_axes,
+            mode=getattr(cfg, "collective", coll.AUTO),
+            local_size=int(getattr(cfg, "collective_local_size", 0)),
+            min_elems=int(getattr(cfg, "collective_min_elems", coll.DEFAULT_MIN_ELEMS)),
+        )
+        self.reducer = coll.Reducer(mesh, topo)
+        # The bare step (no group): a world of one without a process group.
+        self._group = mesh.group(self.reduce_axes)
+        self._active_np = np.ones(
+            coll.contributor_count(mesh, self.contributor_axes) if self.contributor_axes else 1,
+            np.float32,
+        )
+
+    def num_contributors(self) -> int:
+        """Contributor-mask slots: one per example shard of this mesh."""
+        return int(self._active_np.size)
+
+    def active_contributors(self) -> np.ndarray:
+        """The current 0/1 participation mask (a copy)."""
+        return np.array(self._active_np)
+
+    def set_active_contributors(self, active=None) -> None:
+        """Set the contributor mask of the following steps (``None``:
+        all-active).  Every rank must set the same mask; an all-zero mask
+        is refused (an empty subgroup has no mean)."""
+        n = self.num_contributors()
+        if active is None:
+            mask = np.ones(n, np.float32)
+        else:
+            mask = np.asarray(active, np.float32).reshape(-1)
+            if mask.size != n:
+                raise ValueError(f"active mask has {mask.size} slots, mesh has {n} contributors")
+            if not mask.any():
+                raise ValueError("cannot exclude every contributor")
+        self._active_np = mask
+
+    def _weight(self) -> Tuple[float, float]:
+        """This rank's contributor weight and the mask's sum |G'| (the
+        mask is replicated, so the sum is known here without a collective;
+        a sum of 0/1 floats is exact)."""
+        w = (coll.contributor_weight(self._active_np, self.mesh, self.contributor_axes)
+             if self.contributor_axes else float(self._active_np[0]))
+        return w, max(float(self._active_np.sum()), 1.0)
+
+    def _psum(self, tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        try:
+            return self.reducer.psum(tree, self.reduce_axes)
+        except Exception as e:
+            raise CollectiveError(f"collective over {self.reduce_axes} failed: {e}") from e
 
     # ---- state ----
 
@@ -117,8 +222,27 @@ class Trainer:
         return host.to(self.device)
 
     def shard_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """A host batch (numpy arrays or tensors) on the device.  One device:
-        placing is all the reference's sharding comes to."""
+        """This rank's part of a GLOBAL host batch (numpy arrays or
+        tensors), on the device: the contiguous slice of the examples
+        (dim 0) at its contributor index, every rank feeding the same
+        global batch (the reference's ``_place_global``).  One rank:
+        placing is all it comes to."""
+        n = self.num_contributors()
+        if n > 1:
+            i = coll.contributor_index(self.mesh, self.contributor_axes)
+            parts = {}
+            for k, v in batch.items():
+                if np.ndim(v) == 0:
+                    parts[k] = v
+                    continue
+                if v.shape[0] % n:
+                    raise ValueError(
+                        f"batch dimension 0 of {k!r} (size {v.shape[0]}) not divisible "
+                        f"by its mesh axes {self.contributor_axes} (size {n})"
+                    )
+                size = v.shape[0] // n
+                parts[k] = v[i * size:(i + 1) * size]
+            batch = parts
         return {k: self._to_device(v) for k, v in batch.items()}
 
     # ---- training ----
@@ -136,6 +260,8 @@ class Trainer:
         spec = self.spec
         if spec.loss is None or state.optimizer is None:
             raise ValueError(f"model {spec.name!r} declares no loss or optimizer: it cannot train")
+        if self._group is not None:
+            return self._group_train_step(state, batch)
         batch = dict(batch)
         mask = batch.pop(MASK_KEY, None)
         model, optimizer = state.model, state.optimizer
@@ -144,7 +270,7 @@ class Trainer:
         masked = mask is not None and self._loss_takes_mask
         if masked:
             # The reference weighs a shard's loss by count/total over the
-            # mesh; on one device the total is this batch's own count, so
+            # mesh; without a group the total is this batch's own count, so
             # the weight is 1, and 0 for an all-padding batch.
             count = mask.float().sum()
             weight = count / count.clamp_min(1e-12)
@@ -163,6 +289,59 @@ class Trainer:
                     raw = spec.metrics(out, batch)
             metrics = {k: v for k, v in raw.items() if not k.startswith(HIST_PREFIX)}
         metrics["loss"] = loss.detach()
+        return TrainState(state.step + 1, model, optimizer), metrics
+
+    def _group_train_step(
+        self, state: TrainState, batch: Dict[str, torch.Tensor]
+    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """The data-parallel step over the process group (the reference's
+        ``local_step``): this rank's loss weighed by ``count / total``
+        (``total = psum(count)``, each count times this rank's contributor
+        weight) or by ``w / |G'|``, its gradients; then ONE reduction of the
+        gradients, the loss and the metrics (``psum(v * count) / total``
+        or ``psum(v * w) / |G'|``) before the optimizer's update."""
+        spec = self.spec
+        batch = dict(batch)
+        mask = batch.pop(MASK_KEY, None)
+        model, optimizer = state.model, state.optimizer
+        w, n_active = self._weight()
+        optimizer.zero_grad(set_to_none=True)
+        out = spec.apply(model, batch, train=True)
+        masked = mask is not None and self._loss_takes_mask
+        if masked:
+            # The real examples of the active ranks: one scalar reduction
+            # before the backward, which weighs by it.
+            count = mask.float().sum() * w
+            total = self._psum({"count": count})["count"].clamp_min(1e-12)
+            loss = spec.loss(out, batch, mask=mask) * count / total
+        else:
+            loss = spec.loss(out, batch) * w / n_active
+        loss.backward()
+        tree: Dict[str, torch.Tensor] = {}
+        params = [p for p in model.parameters() if p.grad is not None]
+        for i, p in enumerate(params):
+            tree[f"grad/{i}"] = p.grad
+        tree["loss"] = loss.detach()
+        if spec.metrics is not None:
+            with torch.no_grad():
+                detached = out.detach()
+                if masked and self._metrics_take_mask:
+                    raw = {k: v * count for k, v in spec.metrics(detached, batch, mask=mask).items()}
+                else:
+                    raw = {k: v * w for k, v in spec.metrics(detached, batch).items()}
+            for k, v in raw.items():
+                if not k.startswith(HIST_PREFIX):
+                    tree["metric/" + k] = v
+        summed = self._psum(tree)
+        for i, p in enumerate(params):
+            p.grad = summed[f"grad/{i}"]
+        optimizer.step()
+        by_count = masked and self._metrics_take_mask
+        metrics = {
+            key[len("metric/"):]: v / total if by_count else v / n_active
+            for key, v in summed.items() if key.startswith("metric/")
+        }
+        metrics["loss"] = summed["loss"]
         return TrainState(state.step + 1, model, optimizer), metrics
 
     def run_train_step(self, state: TrainState, batch: Dict[str, Any]):
@@ -196,6 +375,10 @@ class Trainer:
                 raise TrainLoopError(last_good, e) from e
             try:
                 state, metrics = self.train_step(state, batch)
+            except CollectiveError as e:
+                # The failed step never reached the update: the state
+                # before it is intact.
+                raise TrainLoopError(state, e) from e
             except Exception as e:
                 raise TrainLoopError(None, e) from e
             metrics_out.append(metrics)
@@ -207,12 +390,13 @@ class Trainer:
         self, state: TrainState, batch: Dict[str, torch.Tensor]
     ) -> Dict[str, torch.Tensor]:
         """Metrics of the module on a device batch, without gradients and
-        with the module in eval mode (``build_eval_step``'s ``local_eval``
-        on one device).  A metrics function that takes a ``mask`` gets the
-        batch's ``__mask__`` and returns means over real examples (the
-        reference's psum(v * count) / psum(count) is v * count /
-        max(count, 1e-12) here); one without it gets the whole padded
-        batch, as in the reference.  Metrics stay on the device."""
+        with the module in eval mode (``build_eval_step``'s ``local_eval``).
+        A metrics function that takes a ``mask`` gets the batch's
+        ``__mask__`` and returns means over real examples: the reference's
+        psum(v * count) / psum(count) over the group, or v * count /
+        max(count, 1e-12) without one; one without it gets the whole padded
+        batch and the group's mean, as in the reference.  Metrics stay on
+        the device."""
         spec = self.spec
         if spec.metrics is None:
             raise ValueError(f"model {spec.name!r} declares no metrics: it cannot evaluate")
@@ -227,10 +411,21 @@ class Trainer:
                 if mask is not None and self._metrics_take_mask:
                     metrics = spec.metrics(out, batch, mask=mask)
                     count = mask.float().sum()
+                    if self._group is not None:
+                        # psum(v * count) / psum(count), one reduction.
+                        tree = {k: v * count for k, v in metrics.items()}
+                        tree["__count__"] = count
+                        summed = self._psum(tree)
+                        total = summed.pop("__count__").clamp_min(1e-12)
+                        return {k: v / total for k, v in summed.items()}
                     return {
                         k: v * count / count.clamp_min(1e-12) for k, v in metrics.items()
                     }
-                return dict(spec.metrics(out, batch))
+                metrics = dict(spec.metrics(out, batch))
+                if self._group is not None:
+                    n = coll.contributor_count(self.mesh, self.reduce_axes)
+                    return {k: v / n for k, v in self._psum(metrics).items()}
+                return metrics
         finally:
             model.train(was_training)
 
@@ -244,23 +439,27 @@ class Trainer:
     def _param_paths(model: torch.nn.Module) -> List[Tuple[str, torch.nn.Parameter]]:
         return [(name.replace(".", "/"), p) for name, p in model.named_parameters()]
 
-    def snapshot_state(self, state: TrainState) -> "Snapshot":
+    def snapshot_state(self, state: TrainState, copy: bool = True) -> "Snapshot":
         """The canonical state as fresh DEVICE copies (one clone per array,
         enqueued on the current stream): no later step's in-place update
         reaches them, so the host copy and the write can run off the task
         loop while training continues.  Never waits for the device; on the
-        card, ``ready`` marks the clones' end on the stream."""
+        card, ``ready`` marks the clones' end on the stream.  ``copy=False``:
+        the live tensors themselves, valid until the next step."""
+        def take(t: torch.Tensor) -> torch.Tensor:
+            return t.detach().clone() if copy else t.detach()
+
         snap = Snapshot({STEP_KEY: np.asarray(state.step, np.int64)})
         count = 0
         opt_state = state.optimizer.state if state.optimizer is not None else {}
         for path, p in self._param_paths(state.model):
-            snap[PARAMS + path] = p.detach().clone()
+            snap[PARAMS + path] = take(p)
             if state.optimizer is None:
                 continue
             st = opt_state.get(p)
             if st:
-                snap[MU + path] = st["exp_avg"].detach().clone()
-                snap[NU + path] = st["exp_avg_sq"].detach().clone()
+                snap[MU + path] = take(st["exp_avg"])
+                snap[NU + path] = take(st["exp_avg_sq"])
                 count = st["step"]
             else:
                 snap[MU + path] = torch.zeros_like(p, memory_format=torch.contiguous_format)
@@ -269,7 +468,7 @@ class Trainer:
             # torch keeps the count as a float tensor per parameter (all
             # equal); optax as one int32.
             snap[COUNT_KEY] = (
-                count.detach().clone() if isinstance(count, torch.Tensor)
+                take(count) if isinstance(count, torch.Tensor)
                 else np.asarray(count, np.int32)
             )
         if self.device.type == "cuda":
@@ -376,7 +575,9 @@ class Trainer:
         device."""
         batch = dict(batch)
         batch.pop(MASK_KEY, None)
-        tensors = self.shard_batch(batch)
+        # The whole batch on every rank: prediction is per example and
+        # needs no collective.
+        tensors = {k: self._to_device(v) for k, v in batch.items()}
         with torch.inference_mode():
             if self.spec.predict is not None:
                 return self.spec.predict(state, tensors)

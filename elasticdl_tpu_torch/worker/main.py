@@ -14,15 +14,33 @@ JAX package's ``JAX_PLATFORMS``): unset means the card, ``cpu`` the CPU
 only when asked for, and anything else, or the card on a machine without
 one, raises (``common/device.resolve_device``).  The kernels' libraries are
 built once into ``elasticdl_tpu_torch/csrc/build/`` and loaded by every
-worker process.  Gang formation (``settle_membership``) is not ported.
+worker process.
+
+Gang mode (``--multihost``): the process registers with its advertised
+address, waits for the gang to form (``settle_membership``: the master's
+desired size, every member confirming the version), joins the
+``torch.distributed`` world of that membership
+(``parallel/distributed.initialize``; rank 0's address and
+``--coordinator_port`` seed the store) and builds the ``Worker`` over its
+mesh.  A membership change raises ``WorkerRestartRequired`` out of the task
+loop and the process exits ``RESTART_EXIT_CODE``; the beat thread's death
+push exits it the same way when the task loop is blocked in a collective
+on a departed peer.  The process group is destroyed at a normal exit.
+With ``ELASTICDL_STATE_DIGEST=1`` every rank logs a digest of its state at
+each periodic checkpoint (``checkpoint`` events), so a run can show that
+the ranks hold identical states.
 
 The process logs ``[worker-event] {json}`` lines as it goes: ``ready``
 (the step it joined from; the seconds of its boot, of the CUDA context and
 of its restore, the last split into the seeded init, the read and the
 load),
 ``first_step`` (the wall time its first training step finished on the
-device) and, at its end, ``summary`` (the steps and eval steps it ran, its
-step times on the device, its kernel launch counts).
+device, its loss), ``first_steps`` (the losses of its first
+``FIRST_STEPS`` steps), in gang mode ``gang`` (the seconds of the settle and of
+``init_process_group``, the rank and world) and, at its end, ``summary``
+(the steps and eval steps it ran, its step times on the device, its
+kernel launch counts, the task ids it ran, the seconds inside its
+collectives).
 
 Run as ``python -m elasticdl_tpu_torch.worker.main``.
 """
@@ -52,10 +70,20 @@ from elasticdl_tpu_torch.worker.worker import (  # noqa: E402
     RESTART_EXIT_CODE,
     RpcMasterProxy,
     Worker,
-    _not_ported,
+    WorkerRestartRequired,
 )
 
 logger = get_logger("worker.main")
+
+# Gang formation (settle_membership): poll every SETTLE_POLL_S; without a
+# published target size, form once the version held still SETTLE_STABLE_S;
+# form with whoever is present after SETTLE_MAX_S either way.
+SETTLE_STABLE_S = 1.0
+SETTLE_POLL_S = 0.25
+SETTLE_MAX_S = 15.0
+
+#: Set to ``1`` to log a digest of the state at each periodic checkpoint.
+DIGEST_ENV = "ELASTICDL_STATE_DIGEST"
 
 #: The environment variable naming the worker's device (``JAX_PLATFORMS``'s
 #: counterpart): unset = ``cuda``.
@@ -64,6 +92,9 @@ DEVICE_ENV = "ELASTICDL_TORCH_DEVICE"
 #: Step-end events kept for the summary line (a bounded window: a long
 #: job keeps its newest steps).
 STEP_WINDOW = 4096
+
+#: The training steps whose losses the ``first_steps`` event carries.
+FIRST_STEPS = 4
 
 #: What a worker imports before it touches the card: the boot, which a
 #: warm standby pays before it parks.  ``torch._dynamo`` is imported by the
@@ -135,9 +166,94 @@ def _park_as_standby(go_file: str) -> str:
     return worker_id
 
 
-def settle_membership(master, worker_id: str, membership: dict, **_) -> dict:
-    """The gang-formation wait of multihost mode: not ported."""
-    raise _not_ported("gang formation (settle_membership)", "collectives and elastic reform")
+def settle_membership(
+    master,
+    worker_id: str,
+    membership: dict,
+    *,
+    stable_s: Optional[float] = None,
+    poll_s: Optional[float] = None,
+    max_s: Optional[float] = None,
+    clock=time.time,
+    sleep=time.sleep,
+) -> dict:
+    """The gang-formation wait: the membership view to form the world on.
+
+    When the master publishes the fleet's desired size (``expected``), form
+    once the full gang is registered AND every member has confirmed the
+    current version (registration or the versioned heartbeat this loop
+    sends): without the size gate staggered relaunches form worlds one
+    member at a time, without the confirmation gate a fresh relaunch forms
+    a world with a stale incarnation that is about to restart.  Without a
+    target (hand-spawned workers), form once the version has held still
+    ``stable_s``.  At ``max_s`` form with whoever is present: a
+    crash-looping peer degrades the world instead of wedging it."""
+    stable_s = SETTLE_STABLE_S if stable_s is None else stable_s
+    poll_s = SETTLE_POLL_S if poll_s is None else poll_s
+    max_s = SETTLE_MAX_S if max_s is None else max_s
+    deadline = clock() + max_s
+    stable_since = clock()
+    while clock() < deadline:
+        expected = membership.get("expected") or 0
+        confirmed = membership.get("confirmed") or {}
+        version = membership["version"]
+        if (
+            expected
+            and membership["world_size"] == expected
+            and all(confirmed.get(w) == version for w in membership["workers"])
+        ):
+            # EXACT size: during a scale-down the doomed members stay
+            # registered through their grace; an oversized world would
+            # collapse again as they exit.
+            break
+        sleep(poll_s)
+        try:
+            # The versioned heartbeat IS this worker's confirmation.
+            master.call("Heartbeat", {"worker_id": worker_id, "version": version})
+            current = master.call("GetMembership", {})
+        except Exception:
+            continue  # master briefly unreachable: retry next poll
+        if current["version"] != membership["version"]:
+            stable_since = clock()
+        elif not expected and clock() - stable_since >= stable_s:
+            membership = current
+            break
+        # Adopt unconditionally: confirmations advance without a version
+        # bump.
+        membership = current
+    return membership
+
+
+def _state_digest(snapshot) -> str:
+    """A digest of every array of a canonical snapshot (device or host
+    tensors): per array, the int64 sum of its 32-bit words and the sum of
+    the words times their index modulo 2**31-1, in the snapshot's key
+    order."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    keys, pairs = sorted(snapshot), []
+    for key in keys:
+        value = snapshot[key]
+        t = value if isinstance(value, torch.Tensor) else torch.from_numpy(np.asarray(value))
+        words = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        words = torch.nn.functional.pad(words, (0, (-words.numel()) % 4)).view(torch.int32)
+        w64 = words.to(torch.int64)
+        idx = torch.arange(w64.numel(), device=w64.device, dtype=torch.int64) % 2147483647
+        pairs.append(torch.stack([w64.sum(), ((w64 % 2147483647) * idx).sum()]))
+    # One copy to the host for every array on the card.
+    on_card = [i for i, pair in enumerate(pairs) if pair.is_cuda]
+    if on_card:
+        host = torch.stack([pairs[i] for i in on_card]).cpu()
+        for j, i in enumerate(on_card):
+            pairs[i] = host[j]
+    h = hashlib.sha256()
+    for key, pair in zip(keys, pairs):
+        total, weighted = pair.tolist()
+        h.update(f"{key}:{total}:{weighted};".encode())
+    return h.hexdigest()
 
 
 #: Hard-exit bound after SIGTERM: k8s preemption grants a grace window
@@ -179,9 +295,10 @@ def _install_preemption_handler(worker_holder: dict) -> None:
 class _StepClock:
     """What the event lines report of this process's steps: the wall time
     its first training step finished on the device (one synchronisation,
-    once), an event on the stream after every step (the last
-    ``STEP_WINDOW``), and the eval steps.  Wraps the trainer's
-    ``train_step`` and ``eval_step``."""
+    once), the losses of its first ``FIRST_STEPS`` steps (one more), an
+    event on the stream after every step (the last ``STEP_WINDOW``), and
+    the eval steps with their seconds inside collectives.  Wraps the
+    trainer's ``train_step`` and ``eval_step``."""
 
     def __init__(self, trainer):
         import torch
@@ -189,7 +306,9 @@ class _StepClock:
         self._cuda = trainer.device.type == "cuda"
         self.steps = 0
         self.eval_steps = 0
+        self.eval_collective_s = 0.0  # the eval steps' share of the collectives
         self._events: collections.deque = collections.deque(maxlen=STEP_WINDOW)
+        losses = []
         train_step, eval_step = trainer.train_step, trainer.eval_step
 
         def timed_train_step(state, batch):
@@ -198,7 +317,13 @@ class _StepClock:
             if self.steps == 1:
                 if self._cuda:
                     torch.cuda.synchronize(trainer.device)
-                _event("first_step", at=time.time(), step=result[0].step)
+                _event("first_step", at=time.time(), step=result[0].step,
+                       loss=float(result[1]["loss"]))
+            if self.steps <= FIRST_STEPS:
+                losses.append(result[1]["loss"].detach())
+                if self.steps == FIRST_STEPS:
+                    _event("first_steps", step=result[0].step,
+                           losses=[float(x) for x in losses])
             if self._cuda:
                 event = torch.cuda.Event(enable_timing=True)
                 event.record()
@@ -207,7 +332,11 @@ class _StepClock:
 
         def counted_eval_step(state, batch):
             self.eval_steps += 1
-            return eval_step(state, batch)
+            before = trainer.reducer.seconds
+            try:
+                return eval_step(state, batch)
+            finally:
+                self.eval_collective_s += trainer.reducer.seconds - before
 
         trainer.train_step = timed_train_step
         trainer.eval_step = counted_eval_step
@@ -248,12 +377,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     # incarnation nonce makes the master reset this id's report-seq dedup
     # ledger (a fresh process restarts its seq at 1), and held_tasks=[]
     # requeues any lease a previous incarnation of this id still held.
+    from elasticdl_tpu_torch.parallel import distributed
+
     incarnation = f"{os.getpid()}-{int(time.time() * 1e3)}"
     membership = master.call(
         "RegisterWorker",
         {
             "worker_id": worker_id,
-            "address": "",
+            "address": (distributed.advertised_address(config.master_addr)
+                        if config.multihost else ""),
             "proto": PROTOCOL_VERSION,
             "incarnation": incarnation,
             "held_tasks": [],
@@ -274,6 +406,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             try:
                 hb = {"worker_id": worker_id}
                 if w is not None:
+                    # Gang-boundary progress: the only RPC leaving a process
+                    # whose task loop is blocked in a collective.
+                    hb.update(w.gang_beat_fields())
                     gp = w.gauge_payload()
                     if gp is not None:
                         hb["gauge"] = gp
@@ -296,19 +431,49 @@ def main(argv: Optional[List[str]] = None) -> int:
         "worker %s registered (membership v%s, world %s)",
         worker_id, membership.get("version"), membership.get("world_size"),
     )
-    if config.multihost:
-        membership = settle_membership(master, worker_id, membership)
-
     import torch
 
     from elasticdl_tpu_torch.common import gauge
+    from elasticdl_tpu_torch.common.device import resolve_device
     from elasticdl_tpu_torch.common.metrics_http import maybe_start
     from elasticdl_tpu_torch.ops import kernels
+
+    mesh = None
+    if config.multihost:
+        from elasticdl_tpu_torch.parallel.mesh import MeshManager
+
+        t0 = time.time()
+        membership = settle_membership(master, worker_id, membership)
+        settle_s = time.time() - t0
+        spec = distributed.spec_from_membership(
+            membership, worker_id, config.coordinator_port,
+            heartbeat_timeout_s=config.distributed_heartbeat_timeout_s,
+        )
+        t0 = time.time()
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            if dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            torch.cuda.set_device(dev)
+        distributed.initialize(spec, dev)
+        ranks = dict(membership["ranks"])
+        addresses = membership.get("addresses") or {}
+        hosts = [addresses.get(w, "") for w in sorted(ranks, key=ranks.get)]
+        mesh = MeshManager(config.dcn_data_parallelism,
+                           hosts if all(hosts) and spec.enabled else ()).mesh
+        _event("gang", worker_id=worker_id, settle_s=settle_s,
+               init_process_group_s=time.time() - t0, rank=spec.process_id,
+               world=spec.num_processes, version=membership["version"],
+               mesh=dict(mesh.shape))
 
     worker = Worker(
         config, master, build_job_reader(config), worker_id=worker_id,
         device=device, gauges=gauge.default(), incarnation=incarnation,
+        mesh=mesh,
     )
+    if os.environ.get(DIGEST_ENV) == "1":
+        worker.checkpoint_hook = lambda step, snap: _event(
+            "checkpoint", worker_id=worker_id, step=step, digest=_state_digest(snap))
     clock = _StepClock(worker.trainer)
     _warm_imports()
     boot_s = time.time() - _T_START
@@ -337,6 +502,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     try:
         result = worker.run(membership=membership)
+    except WorkerRestartRequired as e:
+        logger.info("worker %s restarting: %s", worker_id, e)
+        hb_stop.set()
+        # No interpreter teardown: the process group's and gRPC's exit hooks
+        # can block on peers that are gone.  The relaunch replaces the
+        # process anyway.
+        sys.stderr.flush()
+        sys.stdout.flush()
+        os._exit(RESTART_EXIT_CODE)
     finally:
         hb_stop.set()
         if metrics_server is not None:
@@ -344,7 +518,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     logger.info("worker %s finished: %s", worker_id, result)
     _event("summary", worker_id=worker_id, step=result["step"], steps=clock.steps,
            eval_steps=clock.eval_steps, step_ms=clock.step_ms(), launches=kernels.counts(),
-           phase_times=result["phase_times"])
+           phase_times=result["phase_times"], tasks=result["tasks"],
+           collective_s=worker.trainer.reducer.seconds,
+           collective_calls=worker.trainer.reducer.calls,
+           eval_collective_s=clock.eval_collective_s)
+    distributed.shutdown()
     return 0
 
 

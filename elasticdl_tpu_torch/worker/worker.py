@@ -1,4 +1,5 @@
-"""The worker task loop of the PyTorch port, on one device.
+"""The worker task loop of the PyTorch port: one device a process, alone
+or in a gang of processes.
 
 Port of ``elasticdl_tpu/worker/worker.py`` for a single process on one
 device: lease a task from the master -> read its shard -> feed its
@@ -24,19 +25,39 @@ driven by ``worker/main.py``'s SIGTERM handler), the one-task profiler
 (``profile_dir``, a ``torch.profiler`` Chrome trace) and the worker-loop
 chaos hooks (``worker:task``, ``worker:prep``, ``worker:step``).
 
-What is left out, each raising ``NotImplementedError`` that names its
-ROADMAP item: gang mode (``multihost``), a worker over more than one
-device (the membership reform over a mesh), the in-step collective gate
-(``collective_deadline_ms``) and host-tier I/O (``use_async``, PS
-addresses).  The worker's one device is its whole mesh, so a membership
-change is adopted without re-forming, as the reference does when the mesh
-is unchanged.  A task's host half fans out over the parallel ingest pool
-(``ingest_threads``, ``data/ingest_pool.py``): minibatch-aligned chunks
-read and decoded on pool threads, reassembled in order.  Prep and ingest
-threads build host arrays only; every upload to the card runs on the task
-loop's thread.  Metrics may be vectors (the AUC score histograms): a
-task's per-step metrics come back in one copy of one flattened row per
-step and reduce on the host as the reference's do.
+Gang mode (``multihost``): the worker processes of one membership form a
+``torch.distributed`` world before the ``Worker`` is built
+(``worker/main.py``), each on one device, and train one model in lockstep:
+every rank walks the master's group task log (``GetGroupTask``) in the
+same order, takes its slice of each global batch and sums the gradients
+over the group (``parallel/trainer.py``); only rank 0 reports tasks and
+writes checkpoints (the state is replicated).  A gang settles each task
+(metrics, rank 0's report, checkpoint) right after its steps, so between
+tasks the state holds exactly the tasks rank 0 has reported.  A membership
+change raises ``WorkerRestartRequired``: the process exits 3 and its
+relaunch forms the new world, as in the reference.  Before it, the old
+world's rank 0, if it survived, snapshots the state the master's record
+holds: the state at the failed task's start (a device copy taken there),
+and only when the master counted its last report; it alone knows what it
+reported.  Otherwise the relaunch resumes from the periodic checkpoint, as
+the reference's gangs do.  A collective that fails on a dead peer
+leaves the state of the last completed step (``CollectiveError``), so the
+survivor waits for the master to see the departure and takes the same
+snapshot-and-restart path; a member blocked in a collective that never
+returns is exited by the death push (``death_watch_tick``).  The in-step
+collective gate (``collective_deadline_ms``) is the reference's with its
+guard: it acts on single-process meshes of more than one device, and a
+port worker's single-process mesh is one device, so it is inert.
+
+What is left out, raising ``NotImplementedError`` that names its ROADMAP
+item: host-tier I/O (``use_async``, PS addresses).  A task's host half fans
+out over the parallel ingest pool (``ingest_threads``,
+``data/ingest_pool.py``): minibatch-aligned chunks read and decoded on
+pool threads, reassembled in order.  Prep and ingest threads build host
+arrays only; every upload to the card runs on the task loop's thread.
+Metrics may be vectors (the AUC score histograms): a task's per-step
+metrics come back in one copy of one flattened row per step and reduce on
+the host as the reference's do.
 """
 
 from __future__ import annotations
@@ -75,8 +96,10 @@ from elasticdl_tpu_torch.master.task_dispatcher import (
     Task,
 )
 from elasticdl_tpu_torch.models.spec import ModelSpec, load_model_spec_for_job
+from elasticdl_tpu_torch.parallel.mesh import Mesh
 from elasticdl_tpu_torch.parallel.trainer import (
     MASK_KEY,
+    CollectiveError,
     Trainer,
     TrainLoopError,
     outputs_to_numpy,
@@ -85,8 +108,25 @@ from elasticdl_tpu_torch.parallel.trainer import (
 logger = get_logger("worker")
 
 #: The exit code of a worker process that must be relaunched without
-#: charging its failure budget (a preemption snapshot, a SIGTERM).
+#: charging its failure budget (a preemption snapshot, a SIGTERM, a
+#: membership change in gang mode).
 RESTART_EXIT_CODE = 3
+
+#: How long a gang member whose collective failed waits for the master to
+#: publish the membership without its lost peer before it resyncs the gang
+#: itself (leaving the membership).
+PEER_LOSS_WAIT_S = 30.0
+
+#: Task ids kept in ``Worker.task_log`` (a bounded window: a long job keeps
+#: its newest tasks).
+TASK_LOG_WINDOW = 4096
+
+
+class WorkerRestartRequired(RuntimeError):
+    """A membership change needs a process restart (gang mode: a process
+    group is fixed per process).  The worker main exits with
+    RESTART_EXIT_CODE; the pod manager relaunches without charging the
+    failure budget."""
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -306,14 +346,8 @@ class Worker:
         poll_interval_s: float = 0.05,
         gauges: Optional[gaugelib.Registry] = None,
         incarnation: Optional[str] = None,
+        mesh: Optional[Mesh] = None,
     ):
-        if config.multihost:
-            raise _not_ported("gang mode (multihost)", "collectives and elastic reform")
-        if config.collective_deadline_ms > 0:
-            raise _not_ported(
-                "the in-step collective gate (collective_deadline_ms)",
-                "collectives and elastic reform",
-            )
         if config.use_async or config.ps_addresses or config.num_ps_pods:
             raise _not_ported("host-tier I/O (use_async, PS pods)", "the PS host tier")
         self.config = config
@@ -322,12 +356,43 @@ class Worker:
         self.worker_id = worker_id
         self.spec = spec or load_model_spec_for_job(config)
         self._poll = poll_interval_s
-        # The device is this worker's whole mesh: built here, so a worker
-        # asked for the card on a machine without one fails at once.
-        self.trainer = Trainer(self.spec, device=device)
+        # Built here, so a worker asked for the card on a machine without
+        # one fails at once.  ``mesh``: the gang's world (worker/main.py
+        # forms it before the Worker); None is this device alone.
+        self.trainer = Trainer(self.spec, device=device, mesh=mesh, config=config)
         self.state = None  # single-writer: main
-        self._membership_version = -1  # single-writer: main
+        self._membership_version = -1  # single-writer: main (the beat reads one int)
         self._rank = 0  # single-writer: main
+        # Replaced wholesale on membership changes; the beat thread sees the
+        # old or the new dict.
+        self._ranks: Dict[str, int] = {}  # single-writer: main
+        self._addresses: Dict[str, str] = {}  # single-writer: main
+        # Gang mode: every process of the world walks the master's group
+        # task log in one order (GetGroupTask seq); only rank 0 reports.
+        self._group_mode = False  # single-writer: main
+        self._task_seq = 0
+        # The task ids this loop ran, in order (the newest TASK_LOG_WINDOW).
+        self.task_log: deque = deque(maxlen=TASK_LOG_WINDOW)
+        # Group-log entries whose device dispatch this rank has begun (the
+        # gang boundary's per-rank arrival signal, read by the beat).
+        self._gang_dispatched = 0  # single-writer: main
+        self._gang_last_task = -1
+        # Set while the task loop handles a lost peer itself (it is not
+        # blocked in a collective): the death push stands down.
+        self._reforming = False  # single-writer: main
+        # ``checkpoint_hook(step, arrays)``: called on every rank at each
+        # periodic checkpoint with the canonical arrays of the state: rank
+        # 0's device snapshot, the other ranks' live tensors (worker/main.py
+        # digests them when asked to).
+        self.checkpoint_hook = None
+        # Gang mode, rank 0 with a checkpoint directory: (step, device copy)
+        # of the state at the current training task's start, which a
+        # collective failing inside the task leaves the survivor to save.
+        self._task_start: Optional[tuple] = None  # single-writer: main
+        # Whether the master counted the last successful training report
+        # (False after a refusal or a lost report): the state then holds a
+        # task the master requeues, and no survivor snapshot is taken.
+        self._record_counted = True
         self._ckpt: Optional[CheckpointManager] = None
         # Checkpoint watermark + background-save thread handle: touched by
         # the task loop, the background save thread (failure rollback) and
@@ -409,14 +474,64 @@ class Worker:
     # ---- membership ----
 
     def _apply_membership(self, membership: dict, initial: bool = False) -> None:
-        """Adopt a membership view.  This worker's one device is its whole
-        mesh, so no view changes it: the version is adopted and the trainer
-        kept, as the reference does when the mesh is unchanged."""
+        """Adopt a membership view (the reference's ``_apply_membership``).
+
+        Version churn with identical ranks and addresses is adopted without
+        re-forming.  In gang mode (``multihost``) any other change after the
+        first view snapshots and raises ``WorkerRestartRequired``: the world
+        is fixed per process.  The old world's rank 0 saves, if it survived.
+        The reference saves only when the old world was one process, because
+        its multi-process saves are collective; the port's state is
+        replicated and one rank writes it alone, so rank 0 of a gang saves
+        too.  It saves the state the master's record holds
+        (``_record_state``), and nothing when the master did not count its
+        last report; no other rank knows whether rank 0's last report
+        landed.  Without gang mode this worker's device is its whole world,
+        which no view changes."""
         version = membership["version"]
         if version == self._membership_version:
             return
-        self._rank = dict(membership["ranks"]).get(self.worker_id, 0)
+        ranks = dict(membership["ranks"])
+        addresses = dict(membership.get("addresses") or {})
+        if not initial and ranks == self._ranks and addresses == self._addresses:
+            logger.info(
+                "membership v%d has identical topology; adopting without "
+                "re-forming", version,
+            )
+            self._membership_version = version
+            return
+        world = max(membership["world_size"], 1)
+        prev_ranks = self._ranks
+        self._ranks, self._addresses = ranks, addresses
+        self._rank = ranks.get(self.worker_id, 0)
         chaos.set_context(rank=self._rank)
+        self._group_mode = self.config.multihost and len(ranks) > 1
+        if self.config.multihost and not initial:
+            saver = prev_ranks.get(self.worker_id) == 0 and self.worker_id in ranks
+            if self._ckpt is not None and saver and self.state is not None:
+                if not self._record_counted:
+                    logger.warning(
+                        "no pre-restart snapshot: the master did not count the last "
+                        "task this state holds; the relaunch resumes from the "
+                        "periodic checkpoint"
+                    )
+                else:
+                    try:
+                        # A background save may be mid-flight on the manager.
+                        self._join_ckpt()
+                        step, snap = self._record_state()
+                        if self._ckpt.latest_step() != step:
+                            self._save_snapshot(step, wait=True, state=snap)
+                        logger.info("pre-restart snapshot at step %d", step)
+                    except Exception:
+                        # The periodic checkpoint covers the resume.
+                        logger.exception("pre-restart snapshot failed; restarting anyway")
+            trace.instant(
+                "elastic:restart_required", cat="elastic", version=version, world=world,
+            )
+            raise WorkerRestartRequired(
+                f"membership v{version}: world changed to {world} workers"
+            )
         if not initial:
             logger.info(
                 "membership v%d keeps this worker's device; adopting "
@@ -487,14 +602,63 @@ class Worker:
             payload["clock_offset_us"] = self._trace_clock_offset_us
         return payload
 
+    # thread-role: thread:heartbeat
     def death_watch_tick(self, state: dict, now: float, master_version=None) -> bool:
         """One death-push decision of the liveness heartbeat thread
         (``worker/main.py``): True when this process must exit RESTART
-        because a gang peer died while the task loop is blocked in a
-        collective.  A worker on one device has no collective to be
-        blocked in, so it never is (gang mode is not ported)."""
-        state["pending_since"] = None
-        return False
+        because a gang peer DEPARTED while the task loop has not applied
+        the change within ``death_push_grace_s`` (it is blocked in a
+        collective).  Pure joins, identical-topology churn, a task loop
+        that handles the loss itself (``_reforming``) and worlds of one
+        never force an exit.  ``state`` carries ``pending_since`` between
+        ticks."""
+        if (
+            not self._group_mode
+            or self.config.death_push_grace_s <= 0
+            or self._reforming
+        ):
+            state["pending_since"] = None
+            return False
+        if master_version is not None and master_version == self._membership_version:
+            state["pending_since"] = None
+            return False
+        try:
+            membership = self.master.call("GetMembership", {})
+        except Exception:
+            return False  # master briefly unreachable: retry next beat
+        if membership["version"] == self._membership_version:
+            state["pending_since"] = None
+            return False
+        same_topology = dict(membership["ranks"]) == self._ranks and dict(
+            membership.get("addresses") or {}
+        ) == self._addresses
+        departed = set(self._ranks) - set(membership["ranks"])
+        if same_topology or not departed:
+            state["pending_since"] = None
+            return False
+        since = state.get("pending_since")
+        if since is None:
+            state["pending_since"] = now
+            return False
+        if now - since < self.config.death_push_grace_s:
+            return False
+        logger.warning(
+            "death push: peer(s) %s departed (membership v%s vs applied v%s) "
+            "and the task loop has not re-formed within %.1fs: assuming a "
+            "blocked collective; forcing RESTART now",
+            sorted(departed), membership["version"], self._membership_version,
+            self.config.death_push_grace_s,
+        )
+        return True
+
+    # thread-role: thread:heartbeat
+    def gang_beat_fields(self) -> dict:
+        """What the liveness beat adds to its Heartbeat in gang mode: the
+        arrival counter and the applied version (the task loop's own
+        heartbeat is silent while it is blocked in a collective)."""
+        if not self._group_mode:
+            return {}
+        return {"gang_seq": self._gang_dispatched, "version": self._membership_version}
 
     def _held_task_ids(self) -> List[int]:
         """Every training-task id this worker still HOLDS: buffered leases,
@@ -509,19 +673,21 @@ class Worker:
     def _reconcile_with_master(self) -> None:
         """Post-outage handshake: re-register declaring the leases this
         worker holds; drop the held ones the restarted master no longer
-        attributes to it (``stale_tasks``)."""
-        held = self._held_task_ids()
+        attributes to it (``stale_tasks``).  Gang mode declares nothing: the
+        group log owns the gang's leases, and a membership change requeues
+        them on the master."""
+        held = [] if self._group_mode else self._held_task_ids()
         resp = self.master.call(
             "RegisterWorker",
             {
                 "worker_id": self.worker_id,
-                "address": "",
+                "address": self._advertised_address(),
                 "proto": PROTOCOL_VERSION,
                 "incarnation": self._incarnation,
                 "held_tasks": held,
             },
         )
-        stale = {int(t) for t in resp.get("stale_tasks") or []}
+        stale = set() if self._group_mode else {int(t) for t in resp.get("stale_tasks") or []}
         kept = deque(
             e for e in self._leased
             if not (e.get("task") and int(e["task"]["task_id"]) in stale)
@@ -548,11 +714,27 @@ class Worker:
             "dropped %d stale", len(held), dropped,
         )
 
+    def _advertised_address(self) -> str:
+        if not self.config.multihost:
+            return ""
+        from elasticdl_tpu_torch.parallel.distributed import advertised_address
+
+        return advertised_address(self.config.master_addr)
+
     def _check_membership(self) -> None:
         take = getattr(self.master, "take_reconnected", None)
         if take is not None and take():
             self._reconcile_with_master()
+        # The applied version: the master's group log withholds collective
+        # tasks until every member confirms the current topology.
         hb = {"worker_id": self.worker_id, "version": self._membership_version}
+        if self._group_mode:
+            hb["gang_seq"] = self._gang_dispatched
+            if self._rank != 0:
+                # Reports are rank 0's, so the other ranks' phase snapshots
+                # ride the heartbeat.
+                hb["phase_times"] = self.phases.snapshot()
+                hb["phase_counts"] = self.phases.counts()
         tp = self._trace_payload()
         if tp is not None:
             hb["trace"] = tp
@@ -566,18 +748,22 @@ class Worker:
         if server_ts is not None:
             # RTT-midpoint clock alignment for the merged trace.
             self._trace_clock_offset_us = server_ts - (t0_us + t1_us) / 2.0
-        if resp.get("draining"):
+        # Gang mode takes neither hint: the group log fixes the order.
+        if resp.get("draining") and not self._group_mode:
             # Max-steps drain: buffered leases and undispatched preps carry
             # no device work yet — return them all (requeue-flagged).
             self._abandon_prep()
             self._abandon_leases()
-        elif resp.get("eval_pending") and self._leased:
+        elif resp.get("eval_pending") and self._leased and not self._group_mode:
             # A pending eval round that buffered leases would delay: return
             # them so the next lease pulls the eval task; prepped tasks
             # keep their decode and still train.
             self._abandon_leases()
         if resp["version"] != self._membership_version:
-            self._drain_prep()
+            if self._group_mode:
+                self._drop_prep()
+            else:
+                self._drain_prep()
             self._abandon_leases()
             self._apply_membership(self.master.call("GetMembership", {}))
 
@@ -594,7 +780,9 @@ class Worker:
         if behind < self.config.checkpoint_steps:
             return
         with self.phases.phase("checkpoint"):
-            if self._rank == 0:
+            if self._group_mode:
+                self._save_group_snapshot_background(step)
+            elif self._rank == 0:
                 self._save_snapshot_background(step)
 
     def _save_snapshot(self, step: int, wait: bool = False, state=None,
@@ -623,6 +811,10 @@ class Worker:
         with self._ckpt_lock:
             self._last_ckpt_step = step
             self.checkpoint_log.append(dict(record, step=step))
+        logger.info(
+            "checkpoint step %d saved: %d bytes, host copy %.3f s, write %.3f s",
+            step, record["bytes"], record["host_s"], record["write_s"],
+        )
         self.master.call(
             "ReportCheckpoint", self._checkpoint_report(step)
         )
@@ -655,6 +847,17 @@ class Worker:
         steps already dispatched, never waited for here."""
         return self.trainer.snapshot_state(self.state)
 
+    def _record_state(self) -> tuple:
+        """(step, snapshot or None for the live state): the state that
+        holds exactly the tasks this rank has settled.  That is the live
+        state unless a collective failed inside a task after some of its
+        steps: then it is the copy taken at that task's start
+        (``_task_start``)."""
+        start = self._task_start
+        if start is None or self.state.step == start[0]:
+            return self.state.step, None
+        return start
+
     def _save_snapshot_background(self, step: int) -> None:
         """Periodic checkpoint OFF the task loop's critical path: the
         device-side snapshot is enqueued here, then the host copy, the
@@ -680,6 +883,41 @@ class Worker:
                 )
                 with self._ckpt_lock:
                     self._last_ckpt_step = prev_watermark
+
+        t = threading.Thread(target=_bg, name="edl-ckpt", daemon=True)
+        with self._ckpt_lock:
+            self._ckpt_thread = t
+        t.start()
+
+    def _save_group_snapshot_background(self, step: int) -> None:
+        """The gang's periodic checkpoint: every rank moves its watermark at
+        the same boundary (the lockstep order makes the arithmetic equal);
+        rank 0 alone takes the device snapshot and writes, publishes and
+        reports it in the background, as ``_save_snapshot_background``.  The
+        state is replicated, so no rank waits for another (the reference's
+        saves are collective).  A failed save keeps the watermark: a rollback
+        on one rank would desynchronise the ranks' save schedules."""
+        self._join_ckpt()
+        with self._ckpt_lock:
+            self._last_ckpt_step = step
+        if self._rank != 0:
+            if self.checkpoint_hook is not None:
+                self.checkpoint_hook(step, self.trainer.snapshot_state(self.state, copy=False))
+            return
+        snap = self._snapshot_state()
+        if self.checkpoint_hook is not None:
+            self.checkpoint_hook(step, snap)
+        record = {}
+
+        def _bg():
+            try:
+                with self.phases.phase("checkpoint_bg"):
+                    self._save_snapshot(step, wait=True, state=snap, record=record)
+            except Exception:
+                logger.exception(
+                    "group background checkpoint at step %d failed; the next "
+                    "boundary saves (watermark kept)", step,
+                )
 
         t = threading.Thread(target=_bg, name="edl-ckpt", daemon=True)
         with self._ckpt_lock:
@@ -713,6 +951,14 @@ class Worker:
             # undispatched preps and unstarted leases go back first.
             self._abandon_prep()
             self._abandon_leases()
+        if self._group_mode:
+            # As the reference: a gang member never saves alone here (its
+            # peers are being preempted too, and one blocked in a step with
+            # a parked peer could not park); the gang resumes from its
+            # periodic checkpoint, of which an in-flight save may finish.
+            self._join_ckpt(timeout=5.0)
+            logger.info("preemption snapshot skipped (gang mode, rank %d)", self._rank)
+            return False
         if self._rank != 0 or self._ckpt is None or self.state is None:
             logger.info(
                 "preemption snapshot skipped (rank=%d ckpt=%s state=%s)",
@@ -896,8 +1142,19 @@ class Worker:
         ``TrainLoopError.state`` when the failure came before a step
         touched the module and the optimizer, else from the newest
         checkpoint."""
+        if self._group_mode and task.task_id != self._gang_last_task:
+            # Gang-boundary arrival: counted before the first collective of
+            # the entry, once per entry.
+            self._gang_last_task = task.task_id
+            self._gang_dispatched += 1
+        if self._group_mode and self._rank == 0 and self._ckpt is not None:
+            # The survivor's snapshot if a collective fails after some of
+            # this task's steps (``_record_state``); the old copy goes first.
+            self._task_start = None
+            self._task_start = (self.state.step, self._snapshot_state())
         # graftchaos: stall(point=step), a dispatch-side straggler.
         chaos.hook("worker:step", rank=self._rank, step=self._steps_dispatched)
+        self._collective_gate(task)
         mb = self.config.minibatch_size
         try:
             if prep is None and self.config.fused_task_scan:
@@ -924,6 +1181,7 @@ class Worker:
                 self.state, metrics_list = self.trainer.run_train_steps(
                     self.state, batches
                 )
+            self._task_start = None  # every step of the task is in the state
         except TrainLoopError as e:
             # The reference's recovery: the newest live state when no step
             # touched it, else the newest checkpoint.  The python-side step
@@ -939,6 +1197,27 @@ class Worker:
         self._g_examples.inc(total)
         self._g_steps.inc(n_steps)
         return self._start_metrics_fetch(metrics_list), n_steps
+
+    def _collective_gate(self, task: Task) -> None:
+        """The in-step collective gate (the reference's ``_collective_gate``)
+        with its guard: a deadline of 0, a mesh of one contributor or gang
+        mode crosses every contribution inline, accounted to the
+        ``collective_gate`` phase when chaos hooks can stall it.  The armed
+        gate (a straggling shard excluded by the contributor mask) needs
+        more than one contributor in one process; a port worker is one
+        device, so the guard always holds here, and
+        ``collective_deadline_ms > 0`` is accepted and inert, as it is on
+        the reference's one-device workers and gangs."""
+        n = self.trainer.num_contributors()
+        deadline_s = self.config.collective_deadline_ms / 1e3
+        if deadline_s <= 0 or n <= 1 or self._group_mode:
+            if chaos.enabled():
+                with self.phases.phase("collective_gate"):
+                    for shard in range(n):
+                        chaos.hook("worker:collective", rank=self._rank,
+                                   step=self._steps_dispatched, shard=shard)
+            return
+        raise AssertionError("a port worker's process holds one contributor")
 
     def _start_metrics_fetch(self, metrics_list) -> tuple:
         """Start the host copy of a task's per-step metrics NOW, behind its
@@ -1031,26 +1310,91 @@ class Worker:
         gp = self.gauge_payload(force=True)
         if gp is not None:
             report["gauge"] = gp
+        training = report["success"] and report.get("task_type") == TASK_TRAINING
+        if training:
+            # Its steps are in the state: until the master answers, and
+            # after a refusal (the task was requeued), the state holds a
+            # task the master's record does not.
+            self._record_counted = False
         with self.phases.phase("metrics"):
-            self.master.call("ReportTaskResult", report)
+            resp = self.master.call("ReportTaskResult", report)
+        if training:
+            self._record_counted = bool((resp or {}).get("accepted", True))
+
+    def _group_resync(self, report: dict, context: str, cause: Optional[BaseException] = None) -> None:
+        """A gang member that failed a task is out of step: its peers' next
+        collective would wait for it.  A collective that failed
+        (``CollectiveError``: a peer is gone) left the state of the last
+        completed step, so the member waits for the master to publish the
+        new membership and restarts through ``_apply_membership`` (the
+        survivor's snapshot).  Any other failure, or no new membership
+        within ``PEER_LOSS_WAIT_S``, takes the reference's resync: report
+        the task failed (requeued), leave the membership (the version bump
+        resyncs the peers) and restart.  Raises WorkerRestartRequired."""
+        if isinstance(cause, CollectiveError) or isinstance(
+                getattr(cause, "cause", None), CollectiveError):
+            self._reforming = True  # not blocked: the death push stands down
+            deadline = time.monotonic() + PEER_LOSS_WAIT_S
+            while time.monotonic() < deadline:
+                try:
+                    membership = self.master.call("GetMembership", {})
+                except Exception:
+                    membership = None
+                if membership is not None and membership["version"] != self._membership_version:
+                    logger.warning(
+                        "collective failed in lockstep mode (%s); membership "
+                        "v%d is published: re-forming", context, membership["version"],
+                    )
+                    self._drop_prep()
+                    self._apply_membership(membership)  # raises
+                time.sleep(self._poll)
+        report["success"] = False
+        report.pop("metrics", None)
+        report["seq"] = self._next_report_seq()
+        for call, payload in (
+            ("ReportTaskResult", report),
+            ("DeregisterWorker", {"worker_id": self.worker_id}),
+        ):
+            try:
+                self.master.call(call, payload)
+            except Exception:  # master unreachable: the peers will still
+                pass           # reap this worker by heartbeats
+        raise WorkerRestartRequired(
+            f"task {report['task_id']} failed in lockstep mode ({context}); "
+            "deregistered for group resync"
+        )
 
     def _flush(self, pending: Optional[tuple]) -> None:
-        """Settle a pipelined task: fetch its device metrics, report, and
-        run the checkpoint hook.  A fetch failure fails THAT task's report
-        (requeued by the master), never the task whose dispatch triggered
-        the flush."""
+        """Settle a pipelined task: fetch its device metrics, report (rank
+        0 only in gang mode), and run the checkpoint hook.  A fetch failure
+        fails THAT task's report (requeued by the master), never the task
+        whose dispatch triggered the flush; in gang mode it resyncs the
+        gang (``_group_resync``).  A gang report that fails is swallowed: the
+        checkpoint hook after it must run on every rank alike, and the
+        master's task timeout requeues a lost report."""
         if pending is None:
             return
         report, fetch = pending
         try:
             report["metrics"] = self._finalize_training_metrics(fetch)
-        except Exception:
+        except Exception as e:
             logger.exception(
                 "task %d failed at metrics fetch", report["task_id"]
             )
+            if self._group_mode:
+                self._group_resync(report, "metrics fetch", e)  # raises
             report["success"] = False
             report.pop("metrics", None)
-        self._report_result(report)
+        if not self._group_mode:
+            self._report_result(report)
+        elif self._rank == 0:
+            try:
+                self._report_result(report)
+            except Exception:
+                logger.exception(
+                    "group report for task %d lost (master task timeout "
+                    "requeues it)", report["task_id"],
+                )
         if report["success"]:
             self._tasks_done += 1
             self._g_tasks.inc()
@@ -1094,8 +1438,10 @@ class Worker:
             with self.phases.phase("prep_wait"):
                 prep = fut.result()
             fetch, n_steps = self._dispatch_training_task(task, prep=prep)
-        except Exception:
+        except Exception as e:
             logger.exception("task %d failed", task.task_id)
+            if self._group_mode:
+                self._group_resync(report, "prep/dispatch", e)  # raises
             report["success"] = False
             try:
                 self._report_result(report)
@@ -1108,9 +1454,14 @@ class Worker:
         self._steps_dispatched += n_steps
         report["model_version"] = self._steps_dispatched
         self._training_tasks_done += 1
-        prev, self._pending = self._pending, (report, fetch)
+        settle = (report, fetch)
+        if not self._group_mode:
+            # Report pipelining; a gang settles each task now (module doc).
+            settle, self._pending = self._pending, settle
         try:
-            self._flush(prev)
+            self._flush(settle)
+        except WorkerRestartRequired:
+            raise  # gang resync: the process restarts
         except Exception:
             # What escapes _flush is the report call itself: the settled
             # task's steps are in the state, and the master's task timeout
@@ -1127,6 +1478,14 @@ class Worker:
         while self._prep_queue:
             self._dispatch_prepped(self._prep_queue.popleft())
         self._flush_pending()
+
+    def _drop_prep(self) -> None:
+        """Gang mode, the membership changed: cancel the prepped tasks
+        without training them.  They are entries of the group log, which
+        the version change requeued on the master; trained, their steps
+        would sit in a state whose record does not hold them."""
+        while self._prep_queue:
+            self._prep_queue.popleft()[2].cancel()
 
     def _abandon_prep(self) -> None:
         """Give every undispatched prepped task back to the master with a
@@ -1146,8 +1505,12 @@ class Worker:
     def _abandon_leases(self) -> None:
         """Return locally buffered (never-started) task leases to the
         master: a requeue-flagged failure report requeues each immediately
-        without charging its retry budget."""
+        without charging its retry budget.  In gang mode the buffer is
+        read-ahead of the group log, which a membership change requeues on
+        the master: it is dropped here."""
         leased, self._leased = self._leased, deque()
+        if self._group_mode:
+            return
         for entry in leased:
             t = entry.get("task")
             if not t:
@@ -1174,6 +1537,34 @@ class Worker:
         if self._leased:
             return self._leased.popleft()
         n = max(1, self.config.lease_batch)
+        if self._group_mode:
+            # Lockstep: every rank walks the master's group log by seq, so
+            # every rank runs the same tasks in the same order.
+            with self.phases.phase("lease_wait"):
+                with trace.span(
+                    "gang_boundary", cat="gang", seq=self._task_seq,
+                    rank=self._rank, version=self._membership_version,
+                ):
+                    resp = self.master.call(
+                        "GetGroupTask",
+                        {
+                            "worker_id": self.worker_id,
+                            "seq": self._task_seq,
+                            "version": self._membership_version,
+                            "lease": n,
+                        },
+                    )
+            if resp.get("stale"):
+                return resp
+            entries = resp.get("entries") or [
+                {"task": resp.get("task"), "finished": resp["finished"]}
+            ]
+            self._leased.extend(
+                {"task": e["task"], "finished": e["finished"], "stale": False}
+                for e in entries[1:]
+            )
+            return {"task": entries[0]["task"], "finished": entries[0]["finished"],
+                    "stale": False}
         with self.phases.phase("lease_wait"):
             resp = self.master.call(
                 "GetTask", {"worker_id": self.worker_id, "lease": n}
@@ -1331,7 +1722,7 @@ class Worker:
                 "RegisterWorker",
                 {
                     "worker_id": self.worker_id,
-                    "address": "",
+                    "address": self._advertised_address(),
                     "proto": PROTOCOL_VERSION,
                     "incarnation": self._incarnation,
                     "held_tasks": [],
@@ -1353,6 +1744,11 @@ class Worker:
             with self.phases.phase("control"):
                 self._check_membership()
                 resp = self._next_lease()
+            if resp.get("stale"):
+                # The world changed under the gang: the next membership
+                # check restarts this process.
+                time.sleep(self._poll)
+                continue
             if resp["task"] is None:
                 if resp["finished"]:
                     break
@@ -1369,6 +1765,8 @@ class Worker:
                 "worker:task", rank=self._rank,
                 step=self._steps_dispatched, task_id=task.task_id,
             )
+            self._task_seq += 1
+            self.task_log.append(task.task_id)
             report = {
                 "worker_id": self.worker_id,
                 "task_id": task.task_id,
@@ -1392,14 +1790,19 @@ class Worker:
                                 continue
                             # Dispatch this task's steps, then settle the
                             # PREVIOUS task's metrics fetch, report and
-                            # checkpoint hook while they run on the card.
+                            # checkpoint hook while they run on the card (a
+                            # gang settles this one).
                             fetch, n_steps = self._dispatch_training_task(task)
                             self._steps_dispatched += n_steps
                             report["model_version"] = self._steps_dispatched
                             self._training_tasks_done += 1
-                            prev, self._pending = self._pending, (report, fetch)
+                            settle = (report, fetch)
+                            if not self._group_mode:
+                                settle, self._pending = self._pending, settle
                             try:
-                                self._flush(prev)
+                                self._flush(settle)
+                            except WorkerRestartRequired:
+                                raise
                             except Exception:
                                 # A report-RPC failure must not fail THIS
                                 # task's report (its steps are in the state).
@@ -1429,10 +1832,16 @@ class Worker:
                     self._run_prediction_task(task)
                 else:
                     raise ValueError(f"unknown task type {task.type}")
-            except Exception:
+            except WorkerRestartRequired:
+                raise  # the gang resync already reported and deregistered
+            except Exception as e:
                 logger.exception("task %d failed", task.task_id)
                 report["success"] = False
-            self._report_result(report)
+                if self._group_mode:
+                    self._group_resync(report, "synchronous task", e)  # raises
+            if not self._group_mode or self._rank == 0:
+                # Every rank ran the task's collectives; one report.
+                self._report_result(report)
             if report["success"]:
                 self._tasks_done += 1
                 self._g_tasks.inc()
@@ -1451,4 +1860,5 @@ class Worker:
             "tasks_done": self._tasks_done,
             "step": self.state.step,
             "phase_times": self.phases.snapshot(),
+            "tasks": list(self.task_log),
         }

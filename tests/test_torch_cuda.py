@@ -322,3 +322,78 @@ def test_cuda_deepfm_step_matches_the_cpu(card):
     for key, ref in results["cpu"].items():
         got = results["cuda"][key]
         assert float((got - ref).norm() / ref.norm().clamp_min(1e-30)) <= 1e-4, key
+
+
+# ---- gang mode on the card ---------------------------------------------------------
+
+_GANG_MODEL = dict(vocab=512, dim=64, n_heads=4, n_layers=2, max_seq=128, seq_len=128,
+                   compute_dtype="bfloat16", remat=False)
+
+
+def _gang_batches(n=3, b=8):
+    rng = np.random.default_rng(4)
+    out = []
+    for i in range(n):
+        toks = rng.integers(0, 512, size=(b, 129)).astype(np.int32)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if i == 1:
+            batch["__mask__"] = (np.arange(b) < 5).astype(np.float32)
+        out.append(batch)
+    return out
+
+
+def test_cuda_nccl_world_of_one_equals_the_bare_trainer(card, monkeypatch):
+    """A Trainer over a one-rank NCCL group takes the bare Trainer's steps
+    bit for bit (a sum over one rank divided by one is exact), with
+    deterministic kernels where PyTorch has a choice."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from _torch_gloo_ranks import free_port
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    spec = tlm.model_spec(**_GANG_MODEL)
+
+    def run(mesh):
+        trainer = Trainer(spec, device="cuda", mesh=mesh)
+        state = trainer.init_state(0)
+        state, _ = trainer.run_train_steps(state, _gang_batches())
+        return trainer.host_state(state)
+
+    t = datetime.timedelta(seconds=60)
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True, timeout=t)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1, timeout=t,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        bare = run(None)
+        gang = run(create_mesh())
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+    assert sorted(bare) == sorted(gang)
+    assert all(np.array_equal(bare[k], gang[k]) for k in bare)
+
+
+def test_cuda_gloo_rank_pair_on_card_tensors(card, monkeypatch):
+    """Two gloo ranks on the one card, on card tensors: an exact psum, one
+    state on both ranks, and losses within the bf16 loss tolerance of one
+    process on the whole batches (tests/test_torch_train.py's 2e-3)."""
+    from _torch_gloo_ranks import card_reduce_and_steps, run_ranks
+
+    monkeypatch.setenv("ELASTICDL_TORCH_DEVICE", "cuda")
+    monkeypatch.setenv("ELASTICDL_TORCH_DIST_BACKEND", "gloo")
+    ranks = run_ranks(card_reduce_and_steps, 2, _GANG_MODEL, _gang_batches())
+    trainer = Trainer(tlm.model_spec(**_GANG_MODEL), device="cuda")
+    state = trainer.init_state(0)
+    single = []
+    for batch in _gang_batches():
+        state, m = trainer.run_train_step(state, batch)
+        single.append(float(m["loss"]))
+    for summed, losses, host in ranks:
+        assert summed.tolist() == [3.0] * 5
+        assert max(abs(a - b) for a, b in zip(losses, single)) <= 2e-3, (losses, single)
+    (_, _, a), (_, _, b) = ranks
+    assert sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)

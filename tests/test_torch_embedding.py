@@ -142,7 +142,7 @@ def test_lookup_validation_and_the_sharded_route():
     with pytest.raises(ValueError, match="stride"):
         temb.embedding_lookup(torch.zeros(64, 6), torch.zeros(2, dtype=torch.int64), ctx, dim=3)
     sharded = temb.ParallelContext(axis_name="dp", sharded_embeddings=True)
-    with pytest.raises(NotImplementedError, match="collectives and elastic reform"):
+    with pytest.raises(NotImplementedError, match="sharded embedding lookups"):
         temb.embedding_lookup(torch.zeros(64, 8), torch.zeros(2, dtype=torch.int64), sharded)
     # Replicated tables under a mesh axis take the local route, as in the
     # reference.

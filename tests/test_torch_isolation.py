@@ -43,6 +43,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         # DeepFM with its embedding and its native ingest.
         "ops.embedding", "models.tabular", "models.deepfm", "ps", "ps.host_store",
         "data.codecs", "data.ingest_pool",
+        # Gang mode.
+        "parallel.distributed", "parallel.mesh", "parallel.collectives",
     ):
         assert f"elasticdl_tpu_torch.{name}" in mods, name
     code = (

@@ -501,16 +501,16 @@ def test_prediction_job_matches_the_jax_prediction_job(tmp_path, carried_init):
 
 
 def test_worker_left_out_modes_raise(tmp_path):
+    """Host-tier I/O is still left out; gang mode (``multihost``) and the
+    collective gate (``collective_deadline_ms``) are ported: a worker
+    takes them (a worker without a process group is a world of one)."""
     spec = tlm.model_spec(**_MODEL)
-    for kwargs, what in (
-        (dict(multihost=True), "gang mode"),
-        (dict(collective_deadline_ms=100.0), "collective gate"),
-        (dict(use_async=True), "host-tier I/O"),
-    ):
-        with pytest.raises(NotImplementedError, match=what):
-            Worker(JobConfig(**kwargs), master=None, reader=None, spec=spec, device="cpu")
-    worker = Worker(JobConfig(), master=None, reader=None, spec=spec, device="cpu")
-    assert isinstance(worker.trainer.device, torch.device)
+    with pytest.raises(NotImplementedError, match="host-tier I/O"):
+        Worker(JobConfig(use_async=True), master=None, reader=None, spec=spec, device="cpu")
+    for kwargs in (dict(multihost=True), dict(collective_deadline_ms=100.0), {}):
+        worker = Worker(JobConfig(**kwargs), master=None, reader=None, spec=spec, device="cpu")
+        assert isinstance(worker.trainer.device, torch.device)
+        assert worker.trainer.num_contributors() == 1 and not worker._group_mode
 
 
 def test_profiled_task_writes_a_trace_and_runs_synchronously(tmp_path):

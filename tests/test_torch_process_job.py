@@ -205,16 +205,49 @@ def test_master_refuses_ps_pods(tmp_path):
         Master(JobConfig(training_data=train, num_ps_pods=1))
 
 
+#: The package name of the port's zoo test: no other test imports a zoo
+#: under it, and the test takes it back out of ``sys.modules`` at its end,
+#: so a JAX zoo test in the same process never gets this PyTorch template
+#: from the import cache.
+PORT_ZOO = "torch_port_zoo"
+
+
+def _drop_zoo_modules(package: str) -> None:
+    for name in [m for m in sys.modules if m == package or m.startswith(package + ".")]:
+        del sys.modules[name]
+
+
 def test_zoo_template_validates_on_the_meta_device(tmp_path):
     """``zoo init`` writes a PyTorch template that ``zoo build`` validates
     (the module built on the meta device); a broken module is reported."""
-    zoo_dir = tmp_path / "myzoo"
-    zoo.zoo_init(str(zoo_dir))
-    assert "import torch" in (zoo_dir / "template.py").read_text()
-    assert zoo.zoo_build(str(zoo_dir), validate_only=True) == 0
-    (zoo_dir / "broken.py").write_text("import nonexistent_pkg_xyz\n")
-    failures = zoo.validate_zoo(str(zoo_dir))
-    assert [name for name, _ in failures] == ["broken.py"]
+    zoo_dir = tmp_path / PORT_ZOO
+    try:
+        zoo.zoo_init(str(zoo_dir))
+        assert "import torch" in (zoo_dir / "template.py").read_text()
+        assert zoo.zoo_build(str(zoo_dir), validate_only=True) == 0
+        (zoo_dir / "broken.py").write_text("import nonexistent_pkg_xyz\n")
+        failures = zoo.validate_zoo(str(zoo_dir))
+        assert [name for name, _ in failures] == ["broken.py"]
+    finally:
+        _drop_zoo_modules(PORT_ZOO)
+
+
+def test_port_and_jax_zoo_cycles_share_one_process(tmp_path):
+    """The port's zoo cycle, then tests/test_client.py's JAX cycle, in one
+    process (as one test-runner worker may run both files): the JAX
+    ``zoo build`` must find its own template, not a PyTorch one the port's
+    test left in the import cache."""
+    from elasticdl_tpu.client import zoo as jax_zoo
+
+    test_zoo_template_validates_on_the_meta_device(tmp_path / "port")
+    zoo_dir = str(tmp_path / "jax" / "myzoo")
+    jax_zoo.zoo_init(zoo_dir)
+    try:
+        specs, import_failures = jax_zoo.discover_model_specs(zoo_dir)
+        assert any("template" in k for k in specs) and import_failures == []
+        assert jax_zoo.zoo_build(zoo_dir, validate_only=True) == 0
+    finally:
+        _drop_zoo_modules("myzoo")
 
 
 # ---- the job in worker processes on the CPU --------------------------------
