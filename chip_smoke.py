@@ -86,6 +86,27 @@ exits non-zero without its result line:
    every task done once and the epoch's step count at the end (no step
    trained twice), the exit codes, the launch counts; the gang step p50, the
    all-reduce's share and the re-form time split into its stages.
+12. the ParameterServer strategy across ranks and the sharded optimizer,
+   two ranks on the card over gloo (``phase_ps``, ``phase_opt_shard``):
+   (a) DeepFM at phase 10's width under ``--distribution_strategy=
+   ParameterServer`` on the flat ``{dp: 2}`` mesh, half the table's rows a
+   rank: a spawned world probes every new collective on card tensors, then
+   holds the first 4 losses of each lookup route against one process's
+   replicated ``Trainer`` on the same batches of 8192 (the limit must
+   reject a dropped table gradient and one summed again over the table
+   axis); one CLI job per route (``--multihost --num_workers=2
+   --dcn_data_parallelism=1``), rank 1 SIGKILLed past step 20 in the ragged
+   one: no survivor's snapshot, both relaunches resume from the periodic
+   checkpoint, the final step is that checkpoint's plus the steps of the
+   tasks the master had not counted; per rank the table and optimizer
+   bytes, the lookup's collective ms a step by op, step p50; the last
+   checkpoint restored into a world of one equals the gathered live state
+   bit for bit and takes a step.  (b) ``transformer_lm`` at phase 4's width
+   under ``--optimizer_sharding=sharded`` over two spawned ranks, batch 8 a
+   rank, 4 steps: losses against one process at batch 16, optimizer bytes
+   a rank about half the replicated ones, the gathered state restored into
+   a world of one bit for bit, the step split into reduce-scatter,
+   all-gather and the rest.
 
 Prints the card's name and power limit first, a ``{"kernels": [...]}``
 line before the last, and ``{"ok": true, "device": {...}}`` last.  The
@@ -2286,6 +2307,544 @@ def phase_gang_pair(card: str) -> dict:
     }
 
 
+# Phase 12: the ParameterServer strategy across ranks and the sharded
+# optimizer, two ranks on the one card over gloo (NCCL refuses two ranks on
+# one device, phase 11).
+#
+# (a) DeepFM at phase 10's width under --distribution_strategy=ParameterServer
+# on the flat {dp: 2} mesh (the table on dp itself, half of its rows a
+# rank): a spawned world probes every new collective on card tensors and
+# trains the first PS_LOSS_STEPS batches of 8192 per route, and the same
+# with the table gradient dropped, summed again over the table axis (the
+# psum trap) and doubled; then one CLI job per route through the local mode
+# (batch 8192, 4096 a rank, tasks of 4 minibatches, a checkpoint every 8
+# steps), rank 1 SIGKILLed at the first task boundary past step
+# PS_KILL_STEP in the ragged one.
+PS_JOB = "chip12"
+PS_BATCH, PS_MB_PER_TASK, PS_EPOCH_STEPS = 8192, 4, 16
+PS_CKPT_STEPS, PS_KILL_STEP = 8, 20
+PS_LOSS_STEPS = 4
+# The two-rank gang's losses at its first PS_LOSS_STEPS steps against one
+# process's replicated Trainer on the same batches of 8192 from the same
+# weights (bf16 GEMMs over 4096 rows a rank against 8192, the gradient sums
+# in another order).  Set from the readings on the card (NVIDIA H100 80GB
+# HBM3, 700 W; both routes alike: 0, 7.2e-6, 3.0e-6, 2.2e-5) with room on
+# both sides: the limit must reject a gang whose table gradient is dropped
+# (0, 3.0e-4, 3.5e-4, 3.4e-4 there) or summed again over the table axis
+# (0, 1.5e-4, 2.7e-4, 3.3e-4).  A doubled table gradient reads within the
+# gang's own spread (0, 3.3e-6, 6.5e-6, 2.1e-5): Adam divides each
+# element's step by its gradient's running scale, so a constant factor
+# only moves the steps of elements whose gradient is near Adam's eps.
+PS_LOSS_ABS = 1e-4
+# (b) transformer_lm at phase 4's width, (dp=2, ep=1),
+# --optimizer_sharding=sharded, batch 8 a rank, OPT_STEPS steps; the losses
+# against one process at batch 16 within GANG_LOSS_ABS.
+OPT_STEPS, OPT_BATCH = 4, 8
+
+
+def _rank_entry(rank, world, port, fn, args, out):
+    """One spawned rank on the card: a gloo world over ``port``, then
+    ``fn(rank, world, *args)``; the result or the traceback to ``out``."""
+    import traceback
+
+    os.environ["ELASTICDL_TORCH_DIST_BACKEND"] = "gloo"
+    try:
+        from elasticdl_tpu_torch.common.device import set_matmul_precision
+        from elasticdl_tpu_torch.parallel import distributed
+
+        set_matmul_precision()
+        torch.cuda.set_device(0)
+        spec = distributed.DistributedSpec(f"127.0.0.1:{port}", world, rank,
+                                           heartbeat_timeout_s=300.0)
+        distributed.initialize(spec, torch.device("cuda", 0))
+        try:
+            out.put((rank, True, fn(rank, world, *args)))
+        finally:
+            distributed.shutdown()
+    except BaseException:
+        out.put((rank, False, traceback.format_exc()))
+
+
+def _spawn_ranks(fn, world: int, *args, timeout_s: float = 600.0) -> list:
+    """``fn`` in a spawned world of ``world`` processes on the card; the
+    results in rank order.  Every process is joined (or killed) here."""
+    import queue
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_rank_entry, args=(r, world, port, fn, args, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in range(world):
+            rank, ok, value = out.get(timeout=timeout_s)
+            if not ok:
+                raise AssertionError(f"rank {rank} failed:\n{value}")
+            results[rank] = value
+    except queue.Empty:
+        raise AssertionError(f"the spawned world of {world} did not finish in {timeout_s:.0f}s")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [results[r] for r in range(world)]
+
+
+def _probe_collectives(mesh) -> dict:
+    """Each collective of the sharded state once on card tensors through
+    the ``Reducer`` (so a refusal names its op): ``ok`` or the error."""
+    from elasticdl_tpu_torch.parallel import collectives as coll
+
+    red, group, rank = coll.Reducer(mesh), mesh.group(("dp",)), mesh.rank
+    n = mesh.size
+    probes = {
+        "all_reduce": lambda: red.all_reduce(torch.ones(4, device="cuda"), group).sum() == 4 * n,
+        "all_gather": lambda: torch.equal(
+            red.all_gather(torch.full((3,), rank, device="cuda", dtype=torch.int64), group).cpu(),
+            torch.arange(n).repeat_interleave(3)),
+        "reduce_scatter": lambda: torch.equal(
+            red.reduce_scatter(torch.arange(2.0 * n, device="cuda"), group).cpu(),
+            n * torch.arange(2.0 * n).view(n, 2)[rank]),
+        # Rank r sends r + 1 rows to each rank: uneven splits.
+        "all_to_all": lambda: torch.equal(
+            red.all_to_all(torch.empty(sum(r + 1 for r in range(n)), 2, device="cuda"),
+                           torch.full(((rank + 1) * n, 2), float(rank), device="cuda"),
+                           [r + 1 for r in range(n)], [rank + 1] * n, group)[:, 0].cpu(),
+            torch.cat([torch.full((r + 1,), float(r)) for r in range(n)])),
+    }
+    out = {}
+    for name, fn in probes.items():
+        try:
+            out[name] = "ok" if bool(fn()) else "wrong result"
+        except Exception as e:  # reported by the caller, which fails the phase
+            out[name] = f"{type(e).__name__}: {e}"[:300]
+    return out
+
+
+def _ps_loss_rank(rank, world, batches, routes):
+    """Phase 12 (a)'s spawned world: the collectives probe, then per route
+    the first steps' losses of the gang and of three wrong versions."""
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.models import deepfm
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+
+    mesh = create_mesh()
+    out = {"probe": _probe_collectives(mesh)}
+    if any(v != "ok" for v in out["probe"].values()):
+        return out
+    spec = deepfm.model_spec(**DFM_WIDTH)
+    for route in routes:
+        for variant in ("gang", "dropped", "summed", "doubled"):
+            trainer = Trainer(spec, device="cuda", mesh=mesh, config=JobConfig(
+                distribution_strategy="ParameterServer", embedding_lookup_impl=route))
+            state = trainer.init_state(0)
+            if variant == "dropped":
+                state.model.fm_table.register_hook(lambda g: g * 0)
+            elif variant == "doubled":
+                state.model.fm_table.register_hook(lambda g: g * 2)
+            elif variant == "summed":
+                trainer._table_grad_axes = trainer.reduce_axes
+            losses = []
+            for batch in batches:
+                state, m = trainer.run_train_step(state, batch)
+                losses.append(float(m["loss"]))
+            out[(route, variant)] = losses
+            if variant == "gang":
+                out[(route, "rows")] = int(state.model.fm_table.shape[0])
+                out[(route, "impl")] = trainer.ctx.embedding_impl
+            del trainer, state
+            torch.cuda.empty_cache()
+    return out
+
+
+def _ps_job(card: str, route: str, train: str, out: str, epochs: int, kill: bool) -> dict:
+    """One CLI job of phase 12 (a): DeepFM under ParameterServer on two
+    worker processes of the card; with ``kill``, rank 1 SIGKILLed at the
+    first task boundary past ``PS_KILL_STEP``.  Checks the job and returns
+    its readings."""
+    import ast
+    import shutil
+
+    from elasticdl_tpu_torch.common.checkpoint import read_manifest
+
+    job = f"{PS_JOB}{route[0]}"
+    ckpt, pods = os.path.join(out, f"ckpt_{route}"), os.path.join(out, f"pods_{route}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(pods, ignore_errors=True)
+    w0, w1 = f"{job}-worker-0", f"{job}-worker-1"
+    pod_log = {n: os.path.join(pods, f"{n}.log") for n in (w0, w1, f"{w0}-r1", f"{w1}-r1")}
+    cmd = [sys.executable, "-m", "elasticdl_tpu_torch.client.main", "train", "--local",
+           f"--job_name={job}", "--model_def=deepfm.model_spec", "--learning_rate=1e-3",
+           "--model_params=" + ";".join(
+               f"{k}={','.join(map(str, v)) if isinstance(v, tuple) else v}"
+               for k, v in DFM_WIDTH.items()),
+           f"--training_data={train}", f"--minibatch_size={PS_BATCH}",
+           f"--num_minibatches_per_task={PS_MB_PER_TASK}", f"--num_epochs={epochs}",
+           f"--checkpoint_steps={PS_CKPT_STEPS}", "--keep_checkpoint_max=2",
+           f"--checkpoint_dir={ckpt}", f"--pod_log_dir={pods}", "--max_worker_relaunch=2",
+           "--num_workers=2", "--multihost=true", "--dcn_data_parallelism=1",
+           "--distribution_strategy=ParameterServer", f"--embedding_lookup_impl={route}",
+           f"--coordinator_port={_free_port()}"]
+    if kill:
+        cmd.append(f"--chaos=stall:worker={w1},point=task,step={PS_KILL_STEP},ms=600000")
+    torch.cuda.empty_cache()
+    os.environ["ELASTICDL_TORCH_DIST_BACKEND"] = "gloo"
+    os.environ["ELASTICDL_STATE_DIGEST"] = "1"
+    cli_path = os.path.join(out, f"cli_{route}.log")
+    t0 = time.time()
+    try:
+        proc = _start_cli(cmd, cli_path)
+    finally:
+        del os.environ["ELASTICDL_TORCH_DIST_BACKEND"], os.environ["ELASTICDL_STATE_DIGEST"]
+    try:
+        if kill:
+            _wait_for(lambda: "[graftchaos] stall" in _read(pod_log[w1]),
+                      f"rank 1's boundary past step {PS_KILL_STEP}", proc, timeout_s=400)
+            time.sleep(1.0)  # rank 0 enters the step's lookup and blocks there
+            t_kill = time.time()
+            os.kill(_worker_events(_read(pod_log[w1]))["ready"]["pid"], signal.SIGKILL)
+        rc = proc.wait(timeout=400)
+        wall_s = time.time() - t0
+    finally:
+        _stop_cli(proc)
+    cli, logs = _read(cli_path), {n: _read(p) for n, p in pod_log.items()}
+    assert rc == 0, f"the {route} job exited {rc}; see {cli_path}"
+    status = ast.literal_eval(cli.split("job finished: ", 1)[1].splitlines()[0])
+    ev = {n: _worker_events(text) for n, text in logs.items() if text}
+    digests = {n: {} for n in ev}
+    for n in ev:
+        for line in logs[n].splitlines():
+            if line.startswith("[worker-event] "):
+                e = json.loads(line[len("[worker-event] "):])
+                if e["event"] == "checkpoint":
+                    digests[n][e["step"]] = e["digest"]
+    n_tasks = epochs * PS_EPOCH_STEPS // PS_MB_PER_TASK
+    assert status["finished"] and status["done"] == n_tasks, status
+    assert status["abandoned"] == 0 and status["duplicate_done"] == 0, status
+    for n in (w0, w1):
+        gang = ev[n]["gang"]
+        assert gang["world"] == 2 and gang["mesh"] == {"dp": 2}, gang
+        assert gang["distribution_strategy"] == "ParameterServer" and gang["sharded_embeddings"]
+        assert gang["embedding_lookup_impl"] == route, gang
+    last = (f"{w0}-r1", f"{w1}-r1") if kill else (w0, w1)
+    sa, sb = ev[last[0]]["summary"], ev[last[1]]["summary"]
+    assert sa["tasks"] == sb["tasks"] and sa["step"] == sb["step"]
+    manifest = read_manifest(ckpt)
+    result = {"wall_s": wall_s, "status": {k: status[k] for k in (
+        "done", "abandoned", "duplicate_done")}, "final_step": manifest["step"]}
+    if kill:
+        for needle in (f"pod {w1} exited rc=-9 -> Failed", f"pod {w0} exited rc=3 -> Restart",
+                       f"pod {w0}-r1 exited rc=0 -> Succeeded",
+                       f"pod {w1}-r1 exited rc=0 -> Succeeded"):
+            assert needle in cli, needle
+        # No survivor's snapshot with sharded state: both relaunches join from
+        # the periodic checkpoint; the tasks the master counted since it are
+        # not trained again, so the job ends at that checkpoint's step plus
+        # the steps of the tasks it had not counted.
+        assert "pre-restart snapshot at step" not in logs[w0]
+        no_snap = next(x for x in logs[w0].splitlines() if "no pre-restart snapshot" in x)
+        joined = {ev[n]["ready"]["joined_step"] for n in last}
+        assert len(joined) == 1, joined
+        resumed = joined.pop()
+        counted = logs[w0].count("accepted=True")
+        want = resumed + (n_tasks - counted) * PS_MB_PER_TASK
+        assert manifest["step"] == sa["step"] == want, (manifest["step"], sa["step"], want)
+        assert sa["steps"] == (n_tasks - counted) * PS_MB_PER_TASK, (sa["steps"], counted)
+        reform = {
+            "detect_s": _log_time(logs[w0], "collective failed in lockstep mode") - t_kill,
+            "exit3_s": _log_time(cli, f"pod {w0} exited") - t_kill,
+            "restore_s": ev[f"{w0}-r1"]["ready"]["restore_s"],
+            "first_step_s": ev[f"{w0}-r1"]["first_step"]["at"] - t_kill,
+        }
+        result.update(resumed_step=resumed, counted_before_kill=counted, reform=reform,
+                      no_snapshot_line=no_snap.split("] ", 3)[-1])
+        log(f"[ps] {route} job: SIGKILL of rank 1 at its boundary past step {PS_KILL_STEP}; "
+            f"{no_snap.split('] ', 3)[-1]}; both relaunches joined from {resumed}; the old "
+            f"world's rank 0 had {counted} tasks counted; final step {manifest['step']} = "
+            f"{resumed} + {n_tasks - counted} tasks x {PS_MB_PER_TASK} (no task trained twice); "
+            "re-form (s): " + ", ".join(f"{k} {v:.3f}" for k, v in reform.items()))
+    else:
+        assert manifest["step"] == sa["step"] == n_tasks * PS_MB_PER_TASK, manifest
+    # One gathered state in each world: equal digests at every checkpoint.
+    for a, b in ((w0, w1),) + ((last,) if kill else ()):
+        shared = sorted(set(digests[a]) & set(digests[b]))
+        assert shared and all(digests[a][k] == digests[b][k] for k in shared), (
+            a, digests[a], b, digests[b])
+    per_rank = {}
+    for n in last:
+        s = ev[n]["summary"]
+        steps = max(s["steps"], 1)
+        lookup_ms = {k.split(":", 1)[1]: v * 1e3 / steps
+                     for k, v in s["collective_by_op"].items() if k.startswith("lookup:")}
+        grads_ms = sum(v for k, v in s["collective_by_op"].items()
+                       if k.startswith("grads:")) * 1e3 / steps
+        snap_s = sum(v for k, v in s["collective_by_op"].items() if k.startswith("snapshot:"))
+        per_rank[n] = {"p50_step_ms": statistics.median(s["step_ms"]) if s["step_ms"] else float("nan"),
+                       "lookup_ms_per_step": lookup_ms, "grads_ms_per_step": grads_ms,
+                       "snapshot_gather_s": snap_s, "state_bytes": s["state_bytes"],
+                       "steps": s["steps"]}
+        sb_ = s["state_bytes"]
+        log(f"[ps] {route} {n}: step p50 {per_rank[n]['p50_step_ms']:.2f} ms over {s['steps']} "
+            f"steps; lookup collectives a step (ms) " + json.dumps(
+                {k: round(v, 3) for k, v in lookup_ms.items()})
+            + f", gradient all-reduce {grads_ms:.3f} ms; snapshot gathers {snap_s:.2f} s; "
+            f"table {sb_['tables'] / 1e6:.2f} MB, optimizer {sb_['opt'] / 1e6:.2f} MB, peak "
+            f"{sb_.get('max_memory_allocated', 0) / 2**30:.2f} GiB on the card; on {card}")
+    result.update(per_rank=per_rank, first_losses=ev[w0]["first_steps"]["losses"],
+                  first_losses_rank1=ev[w1]["first_steps"]["losses"], ckpt=ckpt,
+                  final_digest=digests[last[0]].get(manifest["step"]))
+    return result
+
+
+def phase_ps(card: str) -> dict:
+    """Phase 12 (a): DeepFM under the ParameterServer strategy on two ranks
+    of the card (module docstring)."""
+    import shutil
+
+    from elasticdl_tpu_torch.common.checkpoint import CheckpointManager
+    from elasticdl_tpu_torch.data.reader import create_data_reader
+    from elasticdl_tpu_torch.data.synthetic import synthetic_criteo
+    from elasticdl_tpu_torch.models import deepfm
+    from elasticdl_tpu_torch.ops.embedding import table_bytes
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+    from elasticdl_tpu_torch.worker.main import _state_digest
+
+    out = os.path.join(REPO, "chiprun_out", "ps")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    t = time.perf_counter()
+    train = synthetic_criteo(os.path.join(out, "train.rio"), PS_EPOCH_STEPS * PS_BATCH,
+                             seed=21, container="recordio")
+    gen_s = time.perf_counter() - t
+    spec = deepfm.model_spec(**DFM_WIDTH)
+    reader = create_data_reader(train)
+    batches = [spec.feed(reader.read_records_packed(shard))
+               for shard in reader.create_shards(PS_BATCH)[:PS_LOSS_STEPS]]
+    routes = ("ragged", "dense")
+
+    # One process, replicated: the reference losses.
+    single = Trainer(spec, device="cuda")
+    state = single.init_state(0)
+    single_losses = []
+    for batch in batches:
+        state, m = single.run_train_step(state, batch)
+        single_losses.append(float(m["loss"]))
+    del single, state
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    world = _spawn_ranks(_ps_loss_rank, 2, batches, routes)
+    world_s = time.perf_counter() - t
+    probe = world[0]["probe"]
+    log(f"[ps] data: {PS_EPOCH_STEPS * PS_BATCH} records in {gen_s:.1f} s; gloo on card "
+        f"tensors (rank 0, rank 1): {probe}, {world[1]['probe']}")
+    assert all(v == "ok" for r in world for v in r["probe"].values()), (
+        "a collective refused card tensors: " + json.dumps([r["probe"] for r in world]))
+    rows = {route: world[0][(route, "rows")] for route in routes}
+    diffs = {}
+    for route in routes:
+        assert world[0][(route, "impl")] == route
+        assert world[0][(route, "gang")] == world[1][(route, "gang")]
+        for variant in ("gang", "dropped", "summed", "doubled"):
+            diffs[(route, variant)] = [abs(a - b) for a, b in
+                                       zip(world[0][(route, variant)], single_losses)]
+        log(f"[ps] {route}: first {PS_LOSS_STEPS} losses, gang "
+            + ", ".join(f"{x:.6f}" for x in world[0][(route, 'gang')]) + " vs one process "
+            + ", ".join(f"{x:.6f}" for x in single_losses) + "; |diff| gang "
+            + ", ".join(f"{x:.2e}" for x in diffs[(route, 'gang')])
+            + f" (limit {PS_LOSS_ABS}); table gradient dropped "
+            + ", ".join(f"{x:.2e}" for x in diffs[(route, 'dropped')])
+            + "; summed again over the table axis "
+            + ", ".join(f"{x:.2e}" for x in diffs[(route, 'summed')])
+            + "; doubled " + ", ".join(f"{x:.2e}" for x in diffs[(route, 'doubled')])
+            + f"; {rows[route]} table rows a rank")
+    for route in routes:
+        assert max(diffs[(route, "gang")]) <= PS_LOSS_ABS, (route, diffs[(route, "gang")])
+        for wrong in ("dropped", "summed"):
+            assert max(diffs[(route, wrong)]) > PS_LOSS_ABS, (
+                f"the limit cannot see a table gradient {wrong}", route)
+
+    # The jobs.
+    jobs = {"dense": _ps_job(card, "dense", train, out, epochs=1, kill=False),
+            "ragged": _ps_job(card, "ragged", train, out, epochs=2, kill=True)}
+    for route, job in jobs.items():
+        for losses in (job["first_losses"], job["first_losses_rank1"]):
+            d = [abs(a - b) for a, b in zip(losses, single_losses)]
+            assert len(d) == PS_LOSS_STEPS and max(d) <= PS_LOSS_ABS, (route, losses, d)
+    replicated = {"tables": table_bytes(26 * DFM_WIDTH["buckets_per_feature"],
+                                        DFM_WIDTH["embedding_dim"] + 1)}
+
+    # The ragged job's last checkpoint into a world of one: equal to the
+    # gathered live state bit for bit (the ranks' digest of their last
+    # snapshot), then one step.
+    job = jobs["ragged"]
+    ckpt = CheckpointManager(job["ckpt"])
+    bare = Trainer(spec, device="cuda")
+    t = time.perf_counter()
+    state = bare.adopt_restored(ckpt.restore(), bare.init_state(None))
+    restore_s = time.perf_counter() - t
+    digest = _state_digest(bare.snapshot_state(state))
+    replicated["opt"] = sum(bare.opt_state_bytes_per_device(state).values())
+    assert state.step == job["final_step"] and digest == job["final_digest"], (
+        state.step, job["final_step"], digest, job["final_digest"])
+    state, m = bare.run_train_step(state, batches[0])
+    assert np.isfinite(float(m["loss"]))
+    log(f"[ps] the ragged job's checkpoint at step {job['final_step']} into a world of one: "
+        f"equal to the gathered live state bit for bit (digest {digest[:16]}), restored in "
+        f"{restore_s:.2f} s, one more step: loss {float(m['loss']):.6f}; the replicated layout "
+        f"holds table {replicated['tables'] / 1e6:.2f} MB and optimizer "
+        f"{replicated['opt'] / 1e6:.2f} MB a rank")
+    del bare, state
+    torch.cuda.empty_cache()
+    for job in jobs.values():
+        shutil.rmtree(job.pop("ckpt"))  # 327 MB a checkpoint: too much for chiprun_out/
+    os.remove(train)
+    return {"probe": [r["probe"] for r in world], "single_losses": single_losses,
+            "world_s": world_s,
+            "loss_diffs": {f"{r}/{v}": d for (r, v), d in diffs.items()},
+            "table_rows": rows, "jobs": jobs, "replicated_bytes": replicated,
+            "restore_s": restore_s}
+
+
+def _opt_rank(rank, world, batches, ckpt_dir):
+    """Phase 12 (b)'s spawned rank: transformer_lm under the sharded
+    optimizer; losses, the split of each step, bytes, launches, and the
+    digest of the gathered state (rank 0 writes it as a checkpoint)."""
+    from elasticdl_tpu_torch.common.checkpoint import CheckpointManager
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.models import transformer_lm
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.ops import kernels
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+    from elasticdl_tpu_torch.worker.main import _state_digest
+
+    spec = transformer_lm.model_spec(compute_dtype="bfloat16", remat=False, **TRAIN_WIDTH)
+    trainer = Trainer(spec, device="cuda", mesh=create_mesh(dcn_parallelism=world),
+                      config=JobConfig(optimizer_sharding="sharded", dcn_data_parallelism=world))
+    state = trainer.init_state(0)
+    auto = trainer._resolve_opt_sharding(trainer._opt_plan, trainer._param_paths(state.model),
+                                         mode="auto")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()  # the steps start here
+    losses, step_s, by_step = [], [], []
+    for batch in batches:
+        before = dict(trainer.reducer.by_op)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = trainer.run_train_step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        by_step.append({k: v - before.get(k, 0.0) for k, v in trainer.reducer.by_op.items()})
+    launches = {n: kernels.counts().get(n, 0) for n in (fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL)}
+    peak = torch.cuda.max_memory_allocated()
+    opt_bytes = sum(trainer.opt_state_bytes_per_device(state).values())
+    t = time.perf_counter()
+    snap = trainer.snapshot_state(state)
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t
+    digest = _state_digest(snap)
+    if rank == 0:
+        CheckpointManager(ckpt_dir).save(state.step, trainer.to_host(snap), wait=True)
+    return {"losses": losses, "step_s": step_s, "by_step": by_step, "launches": launches,
+            "peak": peak, "opt_bytes": opt_bytes, "gather_s": gather_s, "digest": digest,
+            "auto_sharded": auto, "step": state.step}
+
+
+def phase_opt_shard(card: str) -> dict:
+    """Phase 12 (b): the sharded optimizer on transformer_lm at phase 4's
+    width over two spawned ranks of the card (module docstring)."""
+    import shutil
+
+    from elasticdl_tpu_torch.common.checkpoint import CheckpointManager
+    from elasticdl_tpu_torch.data.codecs import encode_lm_example
+    from elasticdl_tpu_torch.models import transformer_lm
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+    from elasticdl_tpu_torch.worker.main import _state_digest
+
+    spec = transformer_lm.model_spec(compute_dtype="bfloat16", remat=False, **TRAIN_WIDTH)
+    rng = np.random.default_rng(12)
+    global_batch = 2 * OPT_BATCH
+    toks = _planted_sequences(rng, global_batch * OPT_STEPS, TRAIN_WIDTH["seq_len"],
+                              TRAIN_WIDTH["vocab"])
+    records = [encode_lm_example(t) for t in toks]
+    batches = [spec.feed(records[i * global_batch:(i + 1) * global_batch])
+               for i in range(OPT_STEPS)]
+    single = Trainer(spec, device="cuda")
+    state = single.init_state(0)
+    single_losses = []
+    for batch in batches:
+        state, m = single.run_train_step(state, batch)
+        single_losses.append(float(m["loss"]))
+    replicated_opt = sum(single.opt_state_bytes_per_device(state).values())
+    del single, state
+    torch.cuda.empty_cache()
+    ckpt_dir = os.path.join(REPO, "chiprun_out", "opt_shard")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t = time.perf_counter()
+    ranks = _spawn_ranks(_opt_rank, 2, batches, ckpt_dir)
+    world_s = time.perf_counter() - t
+    diffs = [abs(a - b) for a, b in zip(ranks[0]["losses"], single_losses)]
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+    assert max(diffs) <= GANG_LOSS_ABS, (ranks[0]["losses"], single_losses, diffs)
+    assert all(r["auto_sharded"] for r in ranks), "auto must shard 887 MB of moments"
+    assert ranks[0]["digest"] == ranks[1]["digest"]
+    for r in ranks:
+        assert r["opt_bytes"] <= replicated_opt / 2 + (1 << 20), (r["opt_bytes"], replicated_opt)
+    # The gathered state after the steps into a world of one, bit for bit.
+    ckpt = CheckpointManager(ckpt_dir)
+    bare = Trainer(spec, device="cuda")
+    state = bare.adopt_restored(ckpt.restore(), bare.init_state(None))
+    digest = _state_digest(bare.snapshot_state(state))
+    assert state.step == OPT_STEPS and digest == ranks[0]["digest"], (digest, ranks[0]["digest"])
+    del bare, state
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir)  # 1.33 GB
+    # The split of a step (rank 0, the steps after the first): reduce-scatter,
+    # all-gather, the loss's all-reduce and the rest (compute and launches).
+    r0 = ranks[0]
+    later = range(1, OPT_STEPS)
+    split = {
+        "step_ms": statistics.median(r0["step_s"][i] for i in later) * 1e3,
+        "reduce_scatter_ms": statistics.median(
+            r0["by_step"][i].get("zero:reduce_scatter", 0.0) for i in later) * 1e3,
+        "all_gather_ms": statistics.median(
+            r0["by_step"][i].get("zero:all_gather", 0.0) for i in later) * 1e3,
+        "loss_all_reduce_ms": statistics.median(
+            r0["by_step"][i].get("grads:all_reduce", 0.0) for i in later) * 1e3,
+    }
+    split["compute_ms"] = split["step_ms"] - sum(v for k, v in split.items() if k != "step_ms")
+    launches = {n: sum(r["launches"][n] for r in ranks) for n in (fa.KERNEL, fa.DQ_KERNEL,
+                                                                   fa.DKV_KERNEL)}
+    layers = TRAIN_WIDTH["n_layers"]
+    assert launches == {n: 2 * layers * OPT_STEPS for n in launches}, launches
+    log(f"[zero] transformer_lm, 2 ranks x batch {OPT_BATCH}, --optimizer_sharding=sharded "
+        f"(auto resolves to sharded too): losses " + ", ".join(f"{x:.6f}" for x in r0["losses"])
+        + " vs one process at batch 16 " + ", ".join(f"{x:.6f}" for x in single_losses)
+        + f"; |diff| " + ", ".join(f"{x:.2e}" for x in diffs) + f" (limit {GANG_LOSS_ABS}); "
+        f"optimizer bytes a rank {r0['opt_bytes'] / 1e6:.1f} / {ranks[1]['opt_bytes'] / 1e6:.1f} "
+        f"MB against the replicated {replicated_opt / 1e6:.1f} MB; peak allocated "
+        f"{r0['peak'] / 2**30:.2f} / {ranks[1]['peak'] / 2**30:.2f} GiB; gathered state equal "
+        f"to a world of one's restore bit for bit; on {card}")
+    log("[zero] step split (ms, rank 0, p50 of steps 2-4): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in split.items()) + f"; the state's gathers {r0['gather_s']:.2f} s;"
+        f" world wall {world_s:.1f} s; launches " + json.dumps(launches))
+    return {"losses": r0["losses"], "single_losses": single_losses, "abs_diff": diffs,
+            "opt_bytes": [r["opt_bytes"] for r in ranks], "replicated_opt_bytes": replicated_opt,
+            "peak_bytes": [r["peak"] for r in ranks], "split": split, "launches": launches,
+            "gather_s": r0["gather_s"], "world_s": world_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA card",
@@ -2314,6 +2873,9 @@ def main() -> int:
     report["deepfm"] = phase_deepfm(card)
     report["gang1"] = phase_gang_world1(card, report["train"]["p50_step_ms"])
     report["gang2"] = phase_gang_pair(card)
+    log(card)
+    report["ps"] = phase_ps(card)
+    report["opt_shard"] = phase_opt_shard(card)
     report["wall_s"] = time.perf_counter() - t0
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -2322,11 +2884,13 @@ def main() -> int:
     bwd = report["kernel_bwd"]["train"]
     train_launches = report["train"]["launches"]
     job_launches = report["job"]["launches"]
-    # The process-level jobs' last worker processes, and the gang phase:
-    # the world-1 trainer's run and the re-formed pair's processes.
+    # The process-level jobs' last worker processes, and the gang phases:
+    # the world-1 trainer's run, the re-formed pair's processes and the
+    # sharded optimizer's two ranks.
     proc_launches = {n: report["process_job"]["kernels"][n]
                      + report["process_job_standby"]["kernels"][n]
                      + report["gang1"]["launches"][n] + report["gang2"]["kernels"][n]
+                     + report["opt_shard"]["launches"][n]
                      for n in (fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL)}
     source = "elasticdl_tpu_torch/csrc/"
     kernels_line = {"kernels": [

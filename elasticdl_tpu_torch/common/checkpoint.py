@@ -10,6 +10,18 @@ The store half replaces Orbax:
   parameter-tree paths, the AdamW moments under the same paths, the
   optimizer count and the step.  It restores into any trainer of the same
   model through ``Trainer.adopt_restored``.
+
+Format contract (the reference's, r11): the stored layout never depends on
+the world that wrote it.  Tables are stored whole, never a rank's rows;
+optimizer moments param-shaped, never the sharded optimizer's flat
+``[padded / n]`` shards.  Writers go through ``Trainer.host_state`` or
+``Trainer.snapshot_state`` (with sharded state a collective that gathers
+the rows and the shards, so every rank of a gang calls it and rank 0
+writes); readers go through ``Trainer.restore_template`` and
+``adopt_restored``, which slice the canonical arrays into whatever layout
+the live mesh runs and refuse any other shape.  So a checkpoint of a
+two-rank sharded job restores into a world of one, and back, with its
+moments carried, never re-initialised.
 - One directory per step, ``<directory>/<step>/``: one ``.npy`` file per
   array (numpy format, loaded with ``allow_pickle=False``; the file name is
   the path with ``.`` for ``/``), written by a few threads at once, and an

@@ -43,7 +43,7 @@ from torch import nn
 
 from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.data.codecs import criteo_feed, criteo_feed_pre
-from elasticdl_tpu_torch.models.spec import ModelSpec
+from elasticdl_tpu_torch.models.spec import EmbeddingTableSpec, ModelSpec
 from elasticdl_tpu_torch.models.tabular import (
     bce_loss,
     binary_metrics,
@@ -51,6 +51,7 @@ from elasticdl_tpu_torch.models.tabular import (
     log_normalize,
 )
 from elasticdl_tpu_torch.ops.embedding import (
+    ParallelContext,
     embedding_lookup,
     exceeds_hbm_guard,
     pack_table,
@@ -136,7 +137,8 @@ class DeepFM(nn.Module):
                 put(layer.b, tree["mlp"][name]["b"])
         return self
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, batch: Dict[str, torch.Tensor],
+                ctx: ParallelContext = ParallelContext()) -> torch.Tensor:
         cd, dim = self.compute_dtype, self.embedding_dim
         # Preprocessed batches (criteo_feed_pre) arrive with the host
         # transforms applied: float16 dense is log1p'd, uint16 cat ids are
@@ -150,7 +152,7 @@ class DeepFM(nn.Module):
             ids = (c.view(torch.int16).to(torch.int64) & 0xFFFF) + offsets * self.buckets_per_feature
         else:
             ids = fuse_feature_ids(c, self.buckets_per_feature)  # [b, 26]
-        vecs = embedding_lookup(self.fm_table, ids, dim=dim + 1)
+        vecs = embedding_lookup(self.fm_table, ids, ctx, dim=dim + 1)
         emb, lin = vecs[..., :dim], vecs[..., dim]  # [b, 26, dim], [b, 26]
 
         emb = emb.to(cd)
@@ -176,13 +178,15 @@ class DeepFM(nn.Module):
         return first + fm + deep
 
 
-def _apply(model: DeepFM, batch: Dict[str, torch.Tensor], train: bool = False) -> torch.Tensor:
-    return model(batch)
+def _apply(model: DeepFM, batch: Dict[str, torch.Tensor], train: bool = False,
+           ctx: ParallelContext = ParallelContext()) -> torch.Tensor:
+    return model(batch, ctx)
 
 
-def _predict(model: DeepFM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+def _predict(model: DeepFM, batch: Dict[str, torch.Tensor],
+             ctx: ParallelContext = ParallelContext()) -> torch.Tensor:
     """Inference entry: the click probability in [0, 1], not the logit."""
-    return torch.sigmoid(model(batch))
+    return torch.sigmoid(model(batch, ctx))
 
 
 def _loss(logits: torch.Tensor, batch: Dict[str, torch.Tensor], mask=None) -> torch.Tensor:
@@ -317,4 +321,5 @@ def model_spec(
             else criteo_feed
         ),
         example_batch=functools.partial(_example_batch, pre=pipeline_preprocess),
+        embedding_tables=[EmbeddingTableSpec(("fm_table",), vocab, dim + 1)],
     )

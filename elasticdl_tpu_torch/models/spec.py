@@ -25,6 +25,10 @@ over pytrees; here the state is an ``nn.Module`` and the functions take it:
   reference's optax transformation is state-free, a torch optimizer owns
   the parameters it updates
 - ``feed(records) -> {name: ndarray}``      decodes a batch of records
+- ``embedding_tables``                      the row-shardable tables
+  (``EmbeddingTableSpec``): under the ParameterServer strategy the
+  trainer keeps only this rank's rows of each (``parallel/trainer.py``)
+  and ``apply`` takes the trainer's ``ParallelContext`` as ``ctx``
 
 The training fields default to None: a spec without them serves but does
 not train.
@@ -34,9 +38,24 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbeddingTableSpec:
+    """One row-shardable embedding table of the model.
+
+    ``path`` names the module parameter that holds it (``("fm_table",)``;
+    nested modules as in ``named_parameters``, one name a level), in the
+    padded packed ``[P, pack*stride]`` layout of ``ops/embedding.py``.
+    Sharded over ``n`` ranks, rank ``i`` holds the contiguous physical rows
+    ``[i*P/n, (i+1)*P/n)``, the reference's div-sharded layout."""
+
+    path: Tuple[str, ...]
+    vocab_size: int
+    dim: int
 
 
 @dataclasses.dataclass
@@ -52,6 +71,7 @@ class ModelSpec:
     metrics: Optional[Callable[..., Dict[str, Any]]] = None  # (outputs, batch[, mask])
     optimizer: Optional[Callable[..., Any]] = None  # (parameters) -> Optimizer
     feed: Optional[Callable[[Sequence[bytes]], Dict[str, np.ndarray]]] = None
+    embedding_tables: List[EmbeddingTableSpec] = dataclasses.field(default_factory=list)
 
 
 def load_model_spec(model_zoo: str, model_def: str, **params: Any) -> ModelSpec:

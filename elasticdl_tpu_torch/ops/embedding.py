@@ -23,14 +23,38 @@ the card is a device-side assert that poisons the process's CUDA context,
 so the ids are masked first: redirected to row 0, and the rows they read
 replaced by NaN (which also gives them a zero cotangent).
 
-The sharded routes (``ragged``, ``dense`` over a mesh axis) are a later
-slice of the port; ``embedding_lookup`` raises for them.
+**Sharded routes** (the ParameterServer strategy, ``ParallelContext``
+with ``sharded_embeddings``): each rank of the table's axis group holds a
+contiguous range of whole physical rows of the padded packed table, ``P /
+n`` of them; logical id ``i`` lives on shard ``i // rows_local`` at local
+row ``i - shard * rows_local`` (``rows_local = logical_rows(local_table,
+dim)``).  The lookup is collective, as in the reference:
+
+- ``dense``: ``all_gather`` every rank's ids, gather the rows this shard
+  owns (zeros elsewhere), reduce-scatter the ``[n, L, dim]`` vectors so
+  each rank gets its own ``L`` rows summed over the shards (one nonzero
+  each, so the sum is exact).  Its backward is the transpose: all-gather
+  the cotangents, scatter-add the owned ones into the local shard.
+- ``ragged``: sort the ids by owner, exchange the ``[n]`` send counts
+  (``all_gather`` into ``[n, n]``), ``all_to_all_single`` the ids to their
+  owners, gather locally, ``all_to_all_single`` the vectors back, unsort.
+  Its backward replays the same plan, requester to owner, then
+  ``index_add_``s into a zeroed local-shard gradient.
+
+Ids that no shard owns (either sign, past the padded vocab) read NaN rows
+and their cotangents are dropped on both routes, as on one device: the
+ragged route clamps them to an owner, where they miss its range.
+``resolve_impl`` picks the route: ``dense`` on a one-rank axis (whose
+``n == 1`` path is the local gather) and on the CPU, ``ragged`` on the card
+across ranks.  Every collective goes through the trainer's ``Reducer``
+(``ParallelContext.reducer``), which times it and names the op when it
+fails.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -47,15 +71,36 @@ PHYSICAL_ROW_MULTIPLE = 256
 HOST_TIER_GUARD_BYTES = 4 << 30
 
 
+#: Lookup implementations (``ParallelContext.embedding_impl``, the
+#: ``--embedding_lookup_impl`` flag).
+IMPL_AUTO = "auto"
+IMPL_RAGGED = "ragged"
+#: The reference's CPU stand-in for the ragged all-to-all, which XLA:CPU
+#: lacks.  gloo has ``all_to_all_single`` on the CPU, so in the port it runs
+#: the real ragged route.
+IMPL_RAGGED_EMULATED = "ragged_emulated"
+IMPL_DENSE = "dense"
+LOOKUP_IMPLS = (IMPL_AUTO, IMPL_RAGGED, IMPL_RAGGED_EMULATED, IMPL_DENSE)
+
+
 @dataclasses.dataclass(frozen=True)
 class ParallelContext:
     """How the current step is parallelised (the reference's trace-time
-    context, without the sharded routes' choice): ``axis_name`` is the mesh
-    axis a sharded step runs under (None on one device),
-    ``sharded_embeddings`` whether tables are row-sharded over it."""
+    context): ``axis_name`` is the mesh axis tables shard over (None on one
+    device), ``sharded_embeddings`` whether tables are row-sharded over it,
+    ``embedding_impl`` the sharded route (resolved by the trainer through
+    ``resolve_impl``).  The port adds what the reference's ``lax``
+    collectives know from the trace: the axis's size, this rank's position
+    on it, its process group and the ``Reducer`` the collectives run
+    through."""
 
     axis_name: Optional[str] = None
     sharded_embeddings: bool = False
+    embedding_impl: str = IMPL_AUTO
+    axis_size: int = 1
+    axis_index: int = 0
+    group: Any = None
+    reducer: Any = None
 
 
 def row_stride(dim: int) -> int:
@@ -175,8 +220,10 @@ def embedding_lookup(
     dim: Optional[int] = None,
 ) -> torch.Tensor:
     """Look up ``ids`` (any shape) in a packed 2-D ``table``; the output has
-    shape ``ids.shape + (dim,)``.  The local route only: a sharded context
-    raises."""
+    shape ``ids.shape + (dim,)``.  In a sharded context ``table`` is this
+    rank's row range of the padded global table and the lookup is
+    collective (module docstring): every rank of the axis group must call
+    it, with the same number of ids."""
     if table.dim() != 2:
         raise ValueError(
             f"table must be 2-D packed [P, pack*stride] (got shape "
@@ -185,10 +232,137 @@ def embedding_lookup(
     if dim is None:
         dim = table.shape[1]
     _pack_geometry(table.shape[1], dim)  # raises on an inconsistent width/dim
-    if ctx.sharded_embeddings and ctx.axis_name:
-        raise NotImplementedError(
-            "sharded embedding lookups (ragged, dense over a mesh axis) are "
-            "not ported yet (ROADMAP, PyTorch port queue: sharded embedding "
-            "lookups)"
-        )
-    return gather_rows(table, ids, dim)
+    if not (ctx.sharded_embeddings and ctx.axis_name):
+        return gather_rows(table, ids, dim)
+    impl = resolve_impl(ctx.embedding_impl, table.device.type, ctx.axis_size)
+    # n = 1 is a local gather on the dense route; an explicit ragged request
+    # still runs the ragged route, as in the reference.
+    if impl == IMPL_DENSE or (ctx.axis_size == 1 and impl == IMPL_RAGGED_EMULATED):
+        if ctx.axis_size == 1:
+            return gather_rows(table, ids, dim)
+        return _DenseLookup.apply(table, ids, ctx, dim)
+    return _RaggedLookup.apply(table, ids, ctx, dim)
+
+
+def resolve_impl(impl: str, platform: Optional[str] = None,
+                 axis_size: Optional[int] = None) -> str:
+    """``auto`` for (platform, axis size): ``dense`` on a one-rank axis (the
+    local gather, without the ragged route's sort and exchange), ``ragged``
+    on the card across ranks (the reference's multi-chip answer), ``dense``
+    on the CPU.  Explicit impls pass through; an unknown one raises."""
+    if impl not in LOOKUP_IMPLS:
+        raise ValueError(f"unknown embedding lookup impl {impl!r}; one of {LOOKUP_IMPLS}")
+    if impl != IMPL_AUTO:
+        return impl
+    if axis_size == 1:
+        return IMPL_DENSE
+    return IMPL_RAGGED if platform == "cuda" else IMPL_DENSE
+
+
+def _scatter_add_rows(shape, rows: torch.Tensor, g: torch.Tensor, dim: int) -> torch.Tensor:
+    """The transpose of ``gather_rows``: ``g`` (``[m, dim]``) added into a
+    zeroed packed table gradient of ``shape`` at logical ``rows``; rows
+    outside the table drop their cotangents."""
+    _, stride = _pack_geometry(shape[1], dim)
+    grad = g.new_zeros((shape[0] * shape[1] // stride, stride))
+    oob = (rows < 0) | (rows >= grad.shape[0])
+    # Masked rather than filtered: a boolean index would sync with the card.
+    g = g.masked_fill(oob[:, None], 0.0)
+    grad[:, :dim].index_add_(0, torch.where(oob, 0, rows), g)
+    return grad.reshape(shape)
+
+
+def _reducer(ctx: ParallelContext):
+    if ctx.reducer is None:
+        raise ValueError("a sharded lookup needs ParallelContext.reducer (the trainer's)")
+    return ctx.reducer
+
+
+class _DenseLookup(torch.autograd.Function):
+    """The dense route (n > 1): all_gather the ids, masked local gather,
+    reduce-scatter the vectors; NaN rows for ids no shard owns."""
+
+    @staticmethod
+    def forward(fctx, local_table, ids, ctx: ParallelContext, dim: int):
+        n, me, red = ctx.axis_size, ctx.axis_index, _reducer(ctx)
+        rows_local = logical_rows(local_table, dim)
+        flat = ids.reshape(-1).to(torch.int64)
+        count = flat.shape[0]
+        bad = (flat < 0) | (flat >= n * rows_local)
+        all_ids = red.all_gather(flat, ctx.group, tag="lookup")  # [n * L]
+        owner = torch.div(all_ids, rows_local, rounding_mode="floor")
+        mine = owner == me
+        safe = torch.where(mine, all_ids - owner * rows_local, 0)
+        vectors = gather_rows(local_table, safe, dim).masked_fill(~mine[:, None], 0.0)
+        # Each rank its own block, summed over the shards (one nonzero each).
+        out = red.reduce_scatter(vectors.reshape(-1), ctx.group, tag="lookup")
+        out = out.view(count, dim).masked_fill(bad[:, None], float("nan"))
+        fctx.save_for_backward(safe, mine, bad)
+        fctx.table_shape, fctx.ctx, fctx.dim = tuple(local_table.shape), ctx, dim
+        return out.reshape(tuple(ids.shape) + (dim,))
+
+    @staticmethod
+    def backward(fctx, g):
+        safe, mine, bad = fctx.saved_tensors
+        ctx, dim = fctx.ctx, fctx.dim
+        g = g.reshape(-1, dim).masked_fill(bad[:, None], 0.0).contiguous()
+        # The transpose of the reduce-scatter: every rank's cotangents.
+        g_all = _reducer(ctx).all_gather(g.reshape(-1), ctx.group, tag="lookup").view(-1, dim)
+        rows = torch.where(mine, safe, -1)
+        return _scatter_add_rows(fctx.table_shape, rows, g_all, dim), None, None, None
+
+
+class _RaggedLookup(torch.autograd.Function):
+    """The ragged route: ids sorted by owner travel to their owners and the
+    vectors back, by ``all_to_all_single`` with exactly sized buffers.  The
+    split sizes must be on the host, so each direction costs one
+    device-to-host copy of the ``[n, n]`` count matrix (forward and
+    backward: the backward reuses the forward's plan).  The reference sizes
+    its receive buffer ``n * L`` statically, an XLA shape rule."""
+
+    @staticmethod
+    def forward(fctx, local_table, ids, ctx: ParallelContext, dim: int):
+        n, me = ctx.axis_size, ctx.axis_index
+        rows_local = logical_rows(local_table, dim)
+        flat = ids.reshape(-1).to(torch.int64)
+        # Junk ids get a clamped owner; their value then misses that owner's
+        # row range and reads NaN there.
+        owner = torch.div(flat, rows_local, rounding_mode="floor").clamp_(0, n - 1)
+        perm = torch.argsort(owner, stable=True)
+        send_dev = torch.bincount(owner, minlength=n)
+        if n > 1:
+            counts = _reducer(ctx).all_gather(send_dev, ctx.group, tag="lookup").view(n, n)
+        else:
+            counts = send_dev.view(1, 1)
+        counts = counts.cpu()  # the host sync the split sizes need
+        send = counts[me].tolist()
+        recv = counts[:, me].tolist()
+        recv_ids = _exchange(flat[perm], recv, send, ctx)
+        local_rows = recv_ids - me * rows_local
+        vecs = gather_rows(local_table, local_rows, dim)  # NaN where not owned
+        sorted_out = _exchange(vecs, send, recv, ctx)
+        out = torch.empty_like(sorted_out)
+        out[perm] = sorted_out
+        fctx.save_for_backward(perm, local_rows)
+        fctx.plan = (send, recv)
+        fctx.table_shape, fctx.ctx, fctx.dim = tuple(local_table.shape), ctx, dim
+        return out.reshape(tuple(ids.shape) + (dim,))
+
+    @staticmethod
+    def backward(fctx, g):
+        perm, local_rows = fctx.saved_tensors
+        send, recv = fctx.plan
+        ctx, dim = fctx.ctx, fctx.dim
+        g_sorted = g.reshape(-1, dim)[perm]
+        g_at_owner = _exchange(g_sorted, recv, send, ctx)
+        return _scatter_add_rows(fctx.table_shape, local_rows, g_at_owner, dim), None, None, None
+
+
+def _exchange(x: torch.Tensor, out_splits, in_splits, ctx: ParallelContext) -> torch.Tensor:
+    """``all_to_all_single`` of ``x``'s rows: ``in_splits[j]`` rows to rank
+    ``j``, ``out_splits[j]`` rows from it; one rank keeps its rows."""
+    if ctx.axis_size == 1:
+        return x.clone()
+    out = x.new_empty((sum(out_splits),) + tuple(x.shape[1:]))
+    return _reducer(ctx).all_to_all(out, x.contiguous(), out_splits, in_splits, ctx.group,
+                                    tag="lookup")

@@ -32,8 +32,17 @@ too: in the installed PyTorch its CUDA path takes ``all_reduce``,
 and copies through host memory itself (checked on an H100, PyTorch 2.11),
 so the port hands it card tensors as they are.
 
-``psum_scatter`` (the sharded optimizer) and the tensor-parallel pair
-``tp_all_reduce``/``tp_grad_sync`` are later slices of the port.
+**The sharded state's collectives** (the ParameterServer strategy's
+lookups, the sharded optimizer): ``Reducer.all_gather``,
+``reduce_scatter`` and ``all_to_all``, and ``psum_scatter`` (a
+reduce-scatter over one axis's group, flat on the wire, shard ``i`` on
+axis position ``i``, as the reference's).  Every call goes through
+``Reducer._collective``, which times it by tag and op (``by_op``) and, when
+the backend refuses or a peer is gone, raises ``CollectiveFailed`` naming
+the op; nothing retries or moves a tensor elsewhere.
+
+The tensor-parallel pair ``tp_all_reduce``/``tp_grad_sync`` is a later
+slice of the port.
 """
 
 from __future__ import annotations
@@ -179,10 +188,18 @@ def leaf_elems(x) -> int:
     return int(np.prod(shape)) if len(shape) else 1
 
 
+class CollectiveFailed(RuntimeError):
+    """A collective call failed (a peer is gone, the group timed out, or
+    the backend refused the tensors); the message names the op."""
+
+
 class Reducer:
     """The collectives of one mesh: the group of each reduction and the
-    seconds spent inside the collective calls (``seconds``, ``calls``).
-    Under gloo the call returns once the reduction is done; on card
+    seconds spent inside the collective calls (``seconds``, ``calls``, and
+    per ``"<tag>:<op>"`` in ``by_op``: ``grads`` for the gradient and metric
+    reductions, ``lookup`` for the sharded embedding routes, ``zero`` for
+    the sharded optimizer, ``snapshot`` for the gathers of a canonical
+    state).  Under gloo the call returns once the reduction is done; on card
     tensors the stream's earlier work is waited for first, outside the
     clock, so ``seconds`` is the collective's own.  Under NCCL the call
     only enqueues, and ``seconds`` is the host's enqueue time."""
@@ -192,22 +209,68 @@ class Reducer:
         self.topo = topo
         self.seconds = 0.0
         self.calls = 0
+        self.by_op: Dict[str, float] = {}
 
-    def _collective(self, fn, group, tensors: List[torch.Tensor]) -> None:
+    def _collective(self, fn, group, tensors: List[torch.Tensor], op: str = "all_reduce",
+                    tag: str = "grads") -> None:
         import torch.distributed as dist
 
         if tensors[0].is_cuda and dist.get_backend(group) == "gloo":
             torch.cuda.current_stream().synchronize()
         t0 = time.perf_counter()
-        fn()
-        self.seconds += time.perf_counter() - t0
+        try:
+            fn()
+        except Exception as e:
+            where = "card" if tensors[0].is_cuda else "host"
+            raise CollectiveFailed(f"{op} ({tag}) of {where} tensors failed: {e}") from e
+        dt = time.perf_counter() - t0
+        self.seconds += dt
         self.calls += 1
+        key = f"{tag}:{op}"
+        self.by_op[key] = self.by_op.get(key, 0.0) + dt
 
-    def all_reduce(self, buf: torch.Tensor, group) -> torch.Tensor:
+    def all_reduce(self, buf: torch.Tensor, group, tag: str = "grads") -> torch.Tensor:
         import torch.distributed as dist
 
-        self._collective(lambda: dist.all_reduce(buf, group=group), group, [buf])
+        self._collective(lambda: dist.all_reduce(buf, group=group), group, [buf],
+                         "all_reduce", tag)
         return buf
+
+    def all_gather(self, x: torch.Tensor, group, tag: str = "grads") -> torch.Tensor:
+        """Every rank's ``x`` (equal sizes), flat, in group-rank order:
+        ``[n * x.numel()]`` (``all_gather_into_tensor``)."""
+        import torch.distributed as dist
+
+        flat = x.reshape(-1).contiguous()
+        out = flat.new_empty(dist.get_world_size(group) * flat.numel())
+        self._collective(lambda: dist.all_gather_into_tensor(out, flat, group=group),
+                         group, [flat], "all_gather", tag)
+        return out
+
+    def reduce_scatter(self, flat: torch.Tensor, group, tag: str = "grads") -> torch.Tensor:
+        """The sum over the group of ``flat`` (``[n * k]``), chunk ``i`` to
+        group rank ``i`` (``reduce_scatter_tensor``): this rank's ``[k]``."""
+        import torch.distributed as dist
+
+        n = dist.get_world_size(group)
+        if flat.numel() % n:
+            raise ValueError(f"reduce_scatter of {flat.numel()} elements over {n} ranks")
+        flat = flat.contiguous()
+        out = flat.new_empty(flat.numel() // n)
+        self._collective(lambda: dist.reduce_scatter_tensor(out, flat, group=group),
+                         group, [flat], "reduce_scatter", tag)
+        return out
+
+    def all_to_all(self, out: torch.Tensor, x: torch.Tensor, out_splits: List[int],
+                   in_splits: List[int], group, tag: str = "lookup") -> torch.Tensor:
+        """``all_to_all_single`` along dim 0: ``in_splits[j]`` rows of ``x``
+        to group rank ``j``, ``out_splits[j]`` rows from it into ``out``."""
+        import torch.distributed as dist
+
+        self._collective(
+            lambda: dist.all_to_all_single(out, x, out_splits, in_splits, group=group),
+            group, [x], "all_to_all", tag)
+        return out
 
     def _hier_reduce(self, flat: torch.Tensor) -> torch.Tensor:
         """The 3-step hierarchical all-reduce of one flat buffer over
@@ -224,12 +287,12 @@ class Reducer:
         part = flat.new_empty(flat.numel() // topo.n_local)
         self._collective(
             lambda: dist.reduce_scatter_tensor(part, flat, group=topo.local_pg),
-            topo.local_pg, [flat])
+            topo.local_pg, [flat], "reduce_scatter")
         self.all_reduce(part, topo.cross_pg)
         full = flat.new_empty(flat.numel())
         self._collective(
             lambda: dist.all_gather_into_tensor(full, part, group=topo.local_pg),
-            topo.local_pg, [part])
+            topo.local_pg, [part], "all_gather")
         return full[:n]
 
     def psum(self, tree: Dict[str, torch.Tensor], axes: Axes) -> Dict[str, torch.Tensor]:
@@ -272,11 +335,15 @@ class Reducer:
         return {k: v / n for k, v in self.psum(tree, axes).items()}
 
 
-def psum_scatter(*_args, **_kwargs):
-    raise NotImplementedError(
-        "psum_scatter (the sharded optimizer's reduce-scatter) is not ported "
-        "yet (ROADMAP, PyTorch port queue: the sharded optimizer)"
-    )
+def psum_scatter(x: torch.Tensor, axis: str, reducer: Reducer, tag: str = "zero") -> torch.Tensor:
+    """The reference's ``psum_scatter(x, axis, tiled=True)`` over the
+    port's process groups: ``x`` flattened and summed over ``axis``'s group
+    by one ``reduce_scatter``, flat on the wire, this rank's ``1/n`` chunk
+    returned (shard ``i`` on axis position ``i``).  A line of one rank
+    keeps the input."""
+    flat = x.reshape(-1)
+    group = reducer.mesh.group((axis,))
+    return flat if group is None else reducer.reduce_scatter(flat, group, tag)
 
 
 def tp_all_reduce(*_args, **_kwargs):

@@ -22,12 +22,45 @@ outer axes for a sequence-parallel one, the reference's
 mask's sum), sums the gradients, the loss and the metrics over the group
 through ``collectives`` in one reduction, then steps the optimizer, so a
 failed collective leaves the module and the optimizer as they were
-(``CollectiveError``).  Eval reduces the same way.  The state stays
-replicated, so checkpoints stay topology-agnostic.  A mesh whose inner
-axis is larger than one rank (the sequence ring, sharded tables) is a
-later slice and raises.
+(``CollectiveError``).  Eval reduces the same way.  A sequence-parallel
+model over a mesh axis of more than one rank (the ring) is a later slice
+and raises.
 
-The canonical state is a flat ``{path: numpy array}`` dict:
+**Sharded state** (the reference's ParameterServer half, read from the
+job config):
+
+- ``--distribution_strategy=ParameterServer`` with a spec that declares
+  ``embedding_tables``: each table is row-sharded over the mesh's LAST
+  axis (``axis_name``; ``dp`` itself on a flat ``{dp: n}`` mesh, ``ep`` on
+  ``(dp, ep)``).  The module's table parameter holds this rank's ``P / n``
+  physical rows, the forward's lookup is collective (``ParallelContext``,
+  ``ops/embedding.py``), and the table's gradient, which the lookup's
+  backward already summed over the table axis, is reduced over the other
+  axes only (``_tree_psum_except``: on a flat mesh not at all; summing it
+  over the table axis too would multiply it by ``n``).
+- ``--optimizer_sharding=sharded`` (or ``auto`` past
+  ``--optimizer_sharding_auto_mb`` of moments): the ZeRO-style update over
+  the OUTER (``dp``) axis.  Every dense leaf is flattened and zero-padded
+  to ``padded`` (a multiple of ``n``); this rank keeps shard ``[padded /
+  n]`` of each as a parameter of its optimizer (views into one flat
+  buffer); the gradient is reduce-scattered instead of all-reduced, the
+  optimizer steps the shards (and the local table rows), and an all-gather
+  writes the updated shards back into the full leaves.  That is the
+  reference's gather-the-updates-then-apply, since Adam(W) is elementwise
+  and neither model clips by a global norm.  Table leaves keep their
+  co-sharded moments (``_OPT_KEEP``).
+
+``--embedding_lookup_impl`` picks the lookup route (``resolve_impl``); a
+value of any of the three flags the port cannot honour raises.  Every
+collective of a step runs before ``optimizer.step()`` except the sharded
+optimizer's all-gather, which runs right after it: when that one fails,
+the shards have stepped and the full leaves have not, so it raises
+``CollectiveError`` with ``state_intact=False`` and the caller rebuilds
+from a checkpoint (the reference's gangs always resume from the periodic
+checkpoint).
+
+The canonical state is a flat ``{path: numpy array}`` dict, whatever the
+world and layout that wrote it (whole tables, param-shaped moments):
 
 - ``params/<p>``: each parameter, ``<p>`` its module path with ``/`` for
   ``.`` — the JAX parameter-tree path (``params/blocks/b0/wqkv``), as
@@ -35,6 +68,11 @@ The canonical state is a flat ``{path: numpy array}`` dict:
 - ``opt_state/mu/<p>`` and ``opt_state/nu/<p>``: the Adam(W) moments (optax's
   ``ScaleByAdamState`` ``mu``/``nu``; torch's ``exp_avg``/``exp_avg_sq``);
 - ``opt_state/count``: the optimizer's update count; ``step``: the step.
+
+With sharded state, ``snapshot_state`` (and ``host_state``) gathers the
+tables' rows and the flat moments from the ranks: a collective every rank
+must call at the same point; ``adopt_restored`` slices a canonical state
+into this rank's layout without one.
 """
 
 from __future__ import annotations
@@ -46,9 +84,17 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from elasticdl_tpu_torch.common.config import DistributionStrategy
 from elasticdl_tpu_torch.common.device import resolve_device, set_matmul_precision
 from elasticdl_tpu_torch.common.metrics import HIST_PREFIX
-from elasticdl_tpu_torch.models.spec import ModelSpec
+from elasticdl_tpu_torch.models.spec import EmbeddingTableSpec, ModelSpec
+from elasticdl_tpu_torch.ops.embedding import (
+    IMPL_AUTO,
+    ParallelContext,
+    pack_table,
+    resolve_impl,
+    table_shape,
+)
 from elasticdl_tpu_torch.parallel import collectives as coll
 from elasticdl_tpu_torch.parallel.mesh import Mesh
 
@@ -59,6 +105,9 @@ MASK_KEY = "__mask__"
 #: Canonical-state path prefixes and keys (see the module docstring).
 PARAMS, MU, NU = "params/", "opt_state/mu/", "opt_state/nu/"
 COUNT_KEY, STEP_KEY = "opt_state/count", "step"
+
+#: ``--optimizer_sharding`` values.
+OPT_MODES = ("replicated", "sharded", "auto")
 
 
 @dataclasses.dataclass
@@ -92,9 +141,167 @@ class TrainLoopError(RuntimeError):
 
 class CollectiveError(RuntimeError):
     """A collective of a train or eval step failed (a peer died, the
-    group timed out).  Every collective of a step runs before the
-    optimizer's update, so the module and the optimizer are as they were
-    before the step."""
+    group timed out).  ``state_intact``: the module and the optimizer are
+    as they were before the step, which holds for every collective before
+    the optimizer's update; only the sharded optimizer's all-gather after
+    it leaves them torn (False)."""
+
+    def __init__(self, message: str, state_intact: bool = True):
+        super().__init__(message)
+        self.state_intact = state_intact
+
+
+class _OptShard:
+    """How one dense leaf's optimizer slots lay out over the data-parallel
+    axis: the canonical leaf flattens to ``[size]``, zero-pads to
+    ``[padded]`` (a multiple of the shard count) and each rank keeps
+    ``[padded / n]``, at ``offset`` in its flat shard buffer."""
+
+    __slots__ = ("shape", "size", "padded", "offset")
+
+    def __init__(self, shape: Tuple[int, ...], size: int, padded: int, offset: int):
+        self.shape, self.size, self.padded, self.offset = shape, size, padded, offset
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"_OptShard(shape={self.shape}, size={self.size}, padded={self.padded})"
+
+
+#: Plan marker for the leaves the dp-sharding leaves alone: row-sharded
+#: tables, whose optimizer slots already co-shard with their rows.
+_OPT_KEEP = "keep"
+
+
+def opt_shard_plan(
+    params: List[Tuple[str, torch.Tensor]],
+    tables: List[EmbeddingTableSpec],
+    sharded_embeddings: bool,
+    n_shards: int,
+) -> Dict[str, Any]:
+    """``{path: _OptShard or _OPT_KEEP}`` over the model's parameters in
+    their order: ``_OPT_KEEP`` for row-sharded tables, an ``_OptShard``
+    (offsets packed in that order) for every other leaf."""
+    table_paths = {"/".join(t.path) for t in tables} if sharded_embeddings else set()
+    plan: Dict[str, Any] = {}
+    offset = 0
+    for path, p in params:
+        if path in table_paths:
+            plan[path] = _OPT_KEEP
+            continue
+        size = p.numel()
+        padded = -(-size // n_shards) * n_shards
+        plan[path] = _OptShard(tuple(p.shape), size, padded, offset)
+        offset += padded // n_shards
+    return plan
+
+
+def _tree_psum_except(reducer: "coll.Reducer", tree: Dict[str, torch.Tensor], skip,
+                      axes, skip_axes) -> Dict[str, torch.Tensor]:
+    """psum ``tree`` over ``axes``, except the keys in ``skip``, which psum
+    over ``skip_axes`` only (empty: left alone).  Sharded-table gradients
+    come out of the collective lookup's backward already summed over the
+    table axis; they still need the other axes' contributions (other
+    examples), but summing them over the table axis again would multiply
+    them by its size."""
+    main = {k: v for k, v in tree.items() if k not in skip}
+    rest = {k: v for k, v in tree.items() if k in skip}
+    out = reducer.psum(main, axes) if main else {}
+    if rest:
+        out.update(reducer.psum(rest, skip_axes) if skip_axes else rest)
+    return out
+
+
+def _module_param(model: torch.nn.Module, path: Tuple[str, ...]):
+    """(owning module, attribute name) of the parameter at ``path``."""
+    module = model
+    for name in path[:-1]:
+        module = getattr(module, name)
+    return module, path[-1]
+
+
+def pad_embedding_tables(model: torch.nn.Module, tables: List[EmbeddingTableSpec]) -> None:
+    """Bring each declared table parameter into the padded packed ``[P,
+    pack*stride]`` layout (``ops/embedding.py``), in place, so its shape is
+    the same over every mesh size; tables already in it stay as they are,
+    plain ``[V, dim]`` or flat ``[V*dim]`` ones are packed and zero-padded."""
+    for t in tables:
+        module, name = _module_param(model, t.path)
+        leaf = getattr(module, name)
+        target = table_shape(t.vocab_size, t.dim)
+        if leaf.dim() == 2 and tuple(leaf.shape) == target:
+            continue
+        with torch.no_grad():
+            packed = pack_table(leaf.detach(), t.dim)
+        if packed.shape[1] != target[1] or packed.shape[0] > target[0]:
+            raise ValueError(
+                f"table {t.path}: shape {tuple(leaf.shape)} packs to "
+                f"{tuple(packed.shape)}, incompatible with the declared vocab "
+                f"{t.vocab_size} x dim {t.dim} (padded shape {target})"
+            )
+        if packed.shape[0] < target[0]:
+            packed = torch.cat([packed, packed.new_zeros(target[0] - packed.shape[0], target[1])])
+        setattr(module, name, torch.nn.Parameter(packed))
+
+
+class _ZeroShards:
+    """This rank's shards of the dense leaves under the sharded optimizer:
+    one flat buffer ``buf`` of ``sum(padded / n)`` elements, and per leaf a
+    parameter viewing its ``[padded / n]`` slice (``params``, which the
+    optimizer steps).  The model's full leaves stay the ones the forward
+    reads."""
+
+    def __init__(self, leaves: List[Tuple[str, torch.nn.Parameter, _OptShard]],
+                 n: int, pos: int):
+        dtypes = {p.dtype for _, p, _ in leaves}
+        if len(dtypes) != 1:
+            raise ValueError(f"the sharded optimizer needs one parameter dtype, got {dtypes}")
+        self.leaves, self.n, self.pos = leaves, n, pos
+        self.total = sum(e.padded // n for _, _, e in leaves)
+        self.buf = torch.zeros(self.total, dtype=dtypes.pop(), device=leaves[0][1].device)
+        self.params = [torch.nn.Parameter(self.buf[e.offset:e.offset + e.padded // n])
+                       for _, _, e in leaves]
+        self.refresh()
+
+    def refresh(self) -> None:
+        """The shards from the live full leaves (after a load)."""
+        with torch.no_grad():
+            for (_, p, e), shard in zip(self.leaves, self.params):
+                shard.copy_(self.split(p.detach().reshape(-1), e))
+
+    def split(self, flat: torch.Tensor, e: _OptShard) -> torch.Tensor:
+        """This rank's ``[padded / n]`` chunk of a flat ``[size]`` leaf."""
+        k = e.padded // self.n
+        lo, hi = self.pos * k, min((self.pos + 1) * k, e.size)
+        part = flat[lo:hi] if hi > lo else flat[:0]
+        return torch.nn.functional.pad(part, (0, k - part.numel()))
+
+    def grad_buffer(self) -> torch.Tensor:
+        """Every leaf's flat padded gradient laid out for one reduce-scatter:
+        ``[n, total]``, row ``i`` the concatenation of each leaf's chunk
+        ``i``, flattened."""
+        rows = []
+        for _, p, e in self.leaves:
+            g = p.grad.reshape(-1) if p.grad is not None else p.new_zeros(e.size)
+            rows.append(torch.nn.functional.pad(g, (0, e.padded - e.size)).view(self.n, -1))
+        return torch.cat(rows, dim=1).reshape(-1)
+
+    def set_grads(self, shard: torch.Tensor) -> None:
+        for (_, _, e), p in zip(self.leaves, self.params):
+            p.grad = shard[e.offset:e.offset + e.padded // self.n]
+
+    def unflatten(self, full: torch.Tensor, e: _OptShard) -> torch.Tensor:
+        """A leaf in its shape from an all-gathered ``[n * total]`` buffer."""
+        k = e.padded // self.n
+        return full.view(self.n, self.total)[:, e.offset:e.offset + k].reshape(-1)[:e.size].view(e.shape)
+
+    def write_back(self, full: torch.Tensor) -> None:
+        """The gathered updated shards into the full leaves."""
+        with torch.no_grad():
+            for _, p, e in self.leaves:
+                p.copy_(self.unflatten(full, e))
+
+
+def _zero_of(optimizer) -> Optional[_ZeroShards]:
+    return getattr(optimizer, "_zero_shards", None)
 
 
 class Snapshot(dict):
@@ -113,6 +320,24 @@ class Trainer:
         self.device = resolve_device(device)
         self.config = config
         set_matmul_precision()
+        # The three flags of the sharded state, checked here: a value the
+        # port cannot honour raises, never falls back.
+        self.strategy = getattr(config, "distribution_strategy", DistributionStrategy.ALLREDUCE)
+        if self.strategy not in DistributionStrategy.ALL:
+            raise ValueError(f"--distribution_strategy must be one of "
+                             f"{DistributionStrategy.ALL}, got {self.strategy!r}")
+        self.optimizer_sharding = getattr(config, "optimizer_sharding", "replicated")
+        if self.optimizer_sharding not in OPT_MODES:
+            raise ValueError(f"--optimizer_sharding must be one of {OPT_MODES}, "
+                             f"got {self.optimizer_sharding!r}")
+        self.embedding_lookup_impl = getattr(config, "embedding_lookup_impl", IMPL_AUTO)
+        resolve_impl(self.embedding_lookup_impl)  # raises on an unknown route
+        self._apply_takes_ctx = "ctx" in inspect.signature(spec.apply).parameters
+        self._predict_takes_ctx = spec.predict is not None and (
+            "ctx" in inspect.signature(spec.predict).parameters)
+        # The sharded optimizer's plan, resolved per state (``init_state``);
+        # None: the replicated layout.
+        self._opt_plan: Optional[Dict[str, Any]] = None
         self._loss_takes_mask = spec.loss is not None and (
             "mask" in inspect.signature(spec.loss).parameters
         )
@@ -128,22 +353,18 @@ class Trainer:
         over every axis; contributors are the EXAMPLE shards, every axis
         for a data-parallel model and the outer axes for a
         sequence-parallel one (its inner-axis slices hold pieces of the
-        same examples).  The collective topology resolves here and the
-        contributor mask resets to all-active."""
+        same examples).  Embedding tables shard over the LAST axis, the
+        sharded optimizer over the first.  The collective topology and the
+        lookup's context resolve here and the contributor mask resets to
+        all-active."""
         names = mesh.axis_names
         inner = mesh.shape[names[-1]]
-        if inner > 1 and (len(names) > 1 or self.spec.batch_shard_dim == 1):
-            if self.spec.batch_shard_dim == 1:
-                raise NotImplementedError(
-                    f"sequence parallelism over a mesh axis of {inner} ranks (the "
-                    "ring) is not ported yet (ROADMAP, PyTorch port queue: ring "
-                    "and tensor-parallel attention); set --dcn_data_parallelism "
-                    "to the world size"
-                )
+        if inner > 1 and self.spec.batch_shard_dim == 1:
             raise NotImplementedError(
-                f"embedding tables sharded over an ep axis of {inner} ranks are not "
-                "ported yet (ROADMAP, PyTorch port queue: sharded embedding "
-                "lookups); set --dcn_data_parallelism to the world size"
+                f"sequence parallelism over a mesh axis of {inner} ranks (the "
+                "ring) is not ported yet (ROADMAP, PyTorch port queue: ring "
+                "and tensor-parallel attention); set --dcn_data_parallelism "
+                "to the world size"
             )
         self.mesh = mesh
         self.reduce_axes = names
@@ -162,6 +383,33 @@ class Trainer:
             coll.contributor_count(mesh, self.contributor_axes) if self.contributor_axes else 1,
             np.float32,
         )
+        self.axis_name = names[-1]  # the embedding axis
+        tables = self.spec.embedding_tables
+        self.sharded_embeddings = (
+            self.strategy == DistributionStrategy.PARAMETER_SERVER and bool(tables))
+        n_table = int(mesh.shape[self.axis_name])
+        if self.sharded_embeddings:
+            for t in tables:
+                rows = table_shape(t.vocab_size, t.dim)[0]
+                if rows % n_table:
+                    raise ValueError(
+                        f"table {t.path}: {rows} physical rows do not divide over the "
+                        f"{self.axis_name!r} axis of {n_table} ranks")
+        self._table_keys = {"/".join(t.path) for t in tables} if self.sharded_embeddings else set()
+        # Table gradients reduce over the axes other than the table's.
+        self._table_grad_axes = tuple(a for a in self.reduce_axes if a != self.axis_name)
+        self.ctx = ParallelContext(
+            axis_name=self.axis_name,
+            sharded_embeddings=self.sharded_embeddings,
+            # Against the trainer's device and the TABLE axis's size: a
+            # one-rank axis resolves to the local gather.
+            embedding_impl=resolve_impl(self.embedding_lookup_impl, self.device.type, n_table),
+            axis_size=n_table,
+            axis_index=mesh.position(self.axis_name),
+            group=mesh.group((self.axis_name,)),
+            reducer=self.reducer,
+        )
+        self.opt_axis = names[0]  # the sharded optimizer's (data-parallel) axis
 
     def num_contributors(self) -> int:
         """Contributor-mask slots: one per example shard of this mesh."""
@@ -194,21 +442,84 @@ class Trainer:
              if self.contributor_axes else float(self._active_np[0]))
         return w, max(float(self._active_np.sum()), 1.0)
 
-    def _psum(self, tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def _psum(self, tree: Dict[str, torch.Tensor], skip=(), skip_axes=()) -> Dict[str, torch.Tensor]:
+        """``tree`` summed over the reduce axes (the keys in ``skip`` over
+        ``skip_axes`` only: ``_tree_psum_except``)."""
         try:
-            return self.reducer.psum(tree, self.reduce_axes)
+            return _tree_psum_except(self.reducer, tree, set(skip), self.reduce_axes, skip_axes)
         except Exception as e:
             raise CollectiveError(f"collective over {self.reduce_axes} failed: {e}") from e
+
+    def _apply(self, model: torch.nn.Module, batch: Dict[str, torch.Tensor], train: bool):
+        """The spec's forward, with this trainer's ``ParallelContext`` when
+        it takes one (a sharded lookup's collectives run inside it and in
+        its backward; the callers turn their failures into
+        ``CollectiveError``)."""
+        if self._apply_takes_ctx:
+            return self.spec.apply(model, batch, train=train, ctx=self.ctx)
+        return self.spec.apply(model, batch, train=train)
+
+    def sharded_state(self) -> bool:
+        """Whether no rank holds the whole state: tables row-sharded over
+        more than one rank, or the sharded optimizer on.  Then
+        ``snapshot_state`` is a collective, and a lone rank cannot save."""
+        return (self.sharded_embeddings and self.ctx.axis_size > 1) or self._opt_plan is not None
 
     # ---- state ----
 
     def init_state(self, seed: Optional[int]) -> TrainState:
         """Step 0: fresh weights from ``seed`` (None: uninitialised storage,
         for a restore to fill) on this trainer's device and, when the spec
-        trains, their optimizer."""
+        trains, their optimizer.  Every rank draws the whole model from the
+        seed; under sharding it keeps its rows of each table and its shards
+        of the dense leaves' optimizer slots."""
         model = self.spec.init(seed=seed, device=self.device)
-        optimizer = self.spec.optimizer(model.parameters()) if self.spec.optimizer else None
+        pad_embedding_tables(model, self.spec.embedding_tables)
+        if self.sharded_embeddings and self.ctx.axis_size > 1:
+            n, i = self.ctx.axis_size, self.ctx.axis_index
+            for t in self.spec.embedding_tables:
+                module, name = _module_param(model, t.path)
+                full = getattr(module, name).detach()
+                k = full.shape[0] // n
+                setattr(module, name, torch.nn.Parameter(full[i * k:(i + 1) * k].clone()))
+                del full
+        optimizer = self._make_optimizer(model) if self.spec.optimizer else None
         return TrainState(step=0, model=model, optimizer=optimizer)
+
+    def _make_optimizer(self, model: torch.nn.Module):
+        """The spec's optimizer over the module's parameters, or, under the
+        sharded optimizer, over this rank's shards of the dense leaves and
+        its table rows (the shards ride on the optimizer as
+        ``_zero_shards``)."""
+        paths = self._param_paths(model)
+        n = int(self.mesh.shape[self.opt_axis])
+        plan = opt_shard_plan(paths, self.spec.embedding_tables, self.sharded_embeddings, n)
+        self._opt_plan = plan if self._resolve_opt_sharding(plan, paths) else None
+        if self._opt_plan is None:
+            return self.spec.optimizer(model.parameters())
+        leaves = [(path, p, plan[path]) for path, p in paths if plan[path] is not _OPT_KEEP]
+        zero = _ZeroShards(leaves, n, self.mesh.position(self.opt_axis))
+        kept = [p for path, p in paths if plan[path] is _OPT_KEEP]
+        optimizer = self.spec.optimizer(zero.params + kept)
+        optimizer._zero_shards = zero
+        return optimizer
+
+    def _resolve_opt_sharding(self, plan: Dict[str, Any], paths, mode: Optional[str] = None) -> bool:
+        """Whether this mesh runs the sharded optimizer (the reference's
+        ``_resolve_opt_sharding``) in ``mode`` (default: the flag's): never
+        on a data-parallel axis of one rank; ``auto`` when the dense
+        leaves' two Adam moments reach ``--optimizer_sharding_auto_mb`` a
+        replica (row-sharded tables do not count: ``_OPT_KEEP``)."""
+        mode = mode or self.optimizer_sharding
+        if mode == "replicated" or int(self.mesh.shape[self.opt_axis]) <= 1:
+            return False
+        if mode == "sharded":
+            return True
+        itemsize = {path: p.element_size() for path, p in paths}
+        per_replica = sum(2 * e.size * itemsize[path] for path, e in plan.items()
+                          if isinstance(e, _OptShard))
+        threshold = float(getattr(self.config, "optimizer_sharding_auto_mb", 64.0)) * (1 << 20)
+        return per_replica >= threshold
 
     def _to_device(self, value: Any) -> torch.Tensor:
         if isinstance(value, torch.Tensor):
@@ -266,7 +577,7 @@ class Trainer:
         mask = batch.pop(MASK_KEY, None)
         model, optimizer = state.model, state.optimizer
         optimizer.zero_grad(set_to_none=True)
-        out = spec.apply(model, batch, train=True)
+        out = self._apply(model, batch, train=True)
         masked = mask is not None and self._loss_takes_mask
         if masked:
             # The reference weighs a shard's loss by count/total over the
@@ -297,30 +608,42 @@ class Trainer:
         """The data-parallel step over the process group (the reference's
         ``local_step``): this rank's loss weighed by ``count / total``
         (``total = psum(count)``, each count times this rank's contributor
-        weight) or by ``w / |G'|``, its gradients; then ONE reduction of the
-        gradients, the loss and the metrics (``psum(v * count) / total``
-        or ``psum(v * w) / |G'|``) before the optimizer's update."""
+        weight) or by ``w / |G'|``, its gradients (a sharded lookup's
+        collectives run inside the forward and the backward); then ONE
+        reduction of the gradients, the loss and the metrics (``psum(v *
+        count) / total`` or ``psum(v * w) / |G'|``; table gradients over the
+        non-table axes only) before the optimizer's update.  Under the
+        sharded optimizer the dense gradients are reduce-scattered instead,
+        and the updated shards all-gathered after the update."""
         spec = self.spec
         batch = dict(batch)
         mask = batch.pop(MASK_KEY, None)
         model, optimizer = state.model, state.optimizer
+        zero = _zero_of(optimizer)
         w, n_active = self._weight()
         optimizer.zero_grad(set_to_none=True)
-        out = spec.apply(model, batch, train=True)
+        if zero is not None:  # the full leaves are not the optimizer's
+            model.zero_grad(set_to_none=True)
         masked = mask is not None and self._loss_takes_mask
-        if masked:
-            # The real examples of the active ranks: one scalar reduction
-            # before the backward, which weighs by it.
-            count = mask.float().sum() * w
-            total = self._psum({"count": count})["count"].clamp_min(1e-12)
-            loss = spec.loss(out, batch, mask=mask) * count / total
-        else:
-            loss = spec.loss(out, batch) * w / n_active
-        loss.backward()
+        try:
+            out = self._apply(model, batch, train=True)
+            if masked:
+                # The real examples of the active ranks: one scalar reduction
+                # before the backward, which weighs by it.
+                count = mask.float().sum() * w
+                total = self._psum({"count": count})["count"].clamp_min(1e-12)
+                loss = spec.loss(out, batch, mask=mask) * count / total
+            else:
+                loss = spec.loss(out, batch) * w / n_active
+            loss.backward()
+        except coll.CollectiveFailed as e:
+            raise CollectiveError(f"a collective of the forward or backward failed: {e}") from e
         tree: Dict[str, torch.Tensor] = {}
-        params = [p for p in model.parameters() if p.grad is not None]
-        for i, p in enumerate(params):
-            tree[f"grad/{i}"] = p.grad
+        params = [(path, p) for path, p in self._param_paths(model) if p.grad is not None]
+        if zero is not None:
+            params = [(path, p) for path, p in params if path in self._table_keys]
+        for path, p in params:
+            tree["grad/" + path] = p.grad
         tree["loss"] = loss.detach()
         if spec.metrics is not None:
             with torch.no_grad():
@@ -332,10 +655,25 @@ class Trainer:
             for k, v in raw.items():
                 if not k.startswith(HIST_PREFIX):
                     tree["metric/" + k] = v
-        summed = self._psum(tree)
-        for i, p in enumerate(params):
-            p.grad = summed[f"grad/{i}"]
+        tables = {"grad/" + k for k in self._table_keys}
+        summed = self._psum(tree, skip=tables, skip_axes=self._table_grad_axes)
+        if zero is not None:
+            zero.set_grads(self._zero_scatter(zero))
+        for path, p in params:
+            p.grad = summed["grad/" + path]
         optimizer.step()
+        if zero is not None:
+            try:
+                full = self.reducer.all_gather(zero.buf, self.mesh.group((self.opt_axis,)),
+                                               tag="zero")
+            except coll.CollectiveFailed as e:
+                # After the update: the shards and their moments have
+                # stepped, the full leaves have not.
+                raise CollectiveError(
+                    f"the sharded optimizer's all-gather failed after the update: {e}",
+                    state_intact=False) from e
+            zero.write_back(full)
+            model.zero_grad(set_to_none=True)
         by_count = masked and self._metrics_take_mask
         metrics = {
             key[len("metric/"):]: v / total if by_count else v / n_active
@@ -343,6 +681,19 @@ class Trainer:
         }
         metrics["loss"] = summed["loss"]
         return TrainState(state.step + 1, model, optimizer), metrics
+
+    def _zero_scatter(self, zero: _ZeroShards) -> torch.Tensor:
+        """The dense gradients summed over every axis, this rank's shards
+        of them: a psum over the axes other than the shard axis (``ep`` on
+        ``(dp, ep)``), then one reduce-scatter over it."""
+        flat = zero.grad_buffer()
+        try:
+            rest = tuple(a for a in self.reduce_axes if a != self.opt_axis)
+            if rest:
+                flat = self.reducer.psum({"g": flat}, rest)["g"]
+            return coll.psum_scatter(flat, self.opt_axis, self.reducer)
+        except Exception as e:
+            raise CollectiveError(f"the sharded optimizer's reduce-scatter failed: {e}") from e
 
     def run_train_step(self, state: TrainState, batch: Dict[str, Any]):
         """A training step from a HOST batch: place, then step."""
@@ -376,9 +727,9 @@ class Trainer:
             try:
                 state, metrics = self.train_step(state, batch)
             except CollectiveError as e:
-                # The failed step never reached the update: the state
-                # before it is intact.
-                raise TrainLoopError(state, e) from e
+                # Before the update the state before the step is intact;
+                # the sharded optimizer's all-gather after it tears it.
+                raise TrainLoopError(state if e.state_intact else None, e) from e
             except Exception as e:
                 raise TrainLoopError(None, e) from e
             metrics_out.append(metrics)
@@ -407,7 +758,10 @@ class Trainer:
         model.eval()
         try:
             with torch.no_grad():
-                out = spec.apply(model, batch, train=False)
+                try:
+                    out = self._apply(model, batch, train=False)
+                except coll.CollectiveFailed as e:
+                    raise CollectiveError(f"a collective of the eval forward failed: {e}") from e
                 if mask is not None and self._metrics_take_mask:
                     metrics = spec.metrics(out, batch, mask=mask)
                     count = mask.float().sum()
@@ -443,28 +797,46 @@ class Trainer:
         """The canonical state as fresh DEVICE copies (one clone per array,
         enqueued on the current stream): no later step's in-place update
         reaches them, so the host copy and the write can run off the task
-        loop while training continues.  Never waits for the device; on the
-        card, ``ready`` marks the clones' end on the stream.  ``copy=False``:
-        the live tensors themselves, valid until the next step."""
+        loop while training continues.  On the card, ``ready`` marks the
+        clones' end on the stream.  ``copy=False``: the live tensors
+        themselves where they are whole, valid until the next step.
+
+        With sharded state this is a collective (every rank calls it at the
+        same point, on the thread that runs the steps): each table's rows
+        are all-gathered over the table axis and the dense leaves' moment
+        shards over the data-parallel axis, so every rank ends with the
+        whole canonical state and rank 0 can write it.  Without, it never
+        waits for the device."""
         def take(t: torch.Tensor) -> torch.Tensor:
             return t.detach().clone() if copy else t.detach()
 
         snap = Snapshot({STEP_KEY: np.asarray(state.step, np.int64)})
+        optimizer = state.optimizer
+        opt_state = optimizer.state if optimizer is not None else {}
+        zero = _zero_of(optimizer)
+        stepped = bool(opt_state)  # every rank alike: the steps are lockstep
+        zero_moments = self._gather_zero_moments(zero, opt_state) if zero and stepped else {}
         count = 0
-        opt_state = state.optimizer.state if state.optimizer is not None else {}
+        for st in opt_state.values():
+            count = st["step"]
+            break
         for path, p in self._param_paths(state.model):
-            snap[PARAMS + path] = take(p)
-            if state.optimizer is None:
+            table = path in self._table_keys
+            snap[PARAMS + path] = self._gather_rows(p) if table else take(p)
+            if optimizer is None:
+                continue
+            full_shape = snap[PARAMS + path].shape
+            if path in zero_moments:
+                snap[MU + path], snap[NU + path] = zero_moments[path]
                 continue
             st = opt_state.get(p)
             if st:
-                snap[MU + path] = take(st["exp_avg"])
-                snap[NU + path] = take(st["exp_avg_sq"])
-                count = st["step"]
+                for key, name in ((MU, "exp_avg"), (NU, "exp_avg_sq")):
+                    snap[key + path] = self._gather_rows(st[name]) if table else take(st[name])
             else:
-                snap[MU + path] = torch.zeros_like(p, memory_format=torch.contiguous_format)
-                snap[NU + path] = torch.zeros_like(p, memory_format=torch.contiguous_format)
-        if state.optimizer is not None:
+                snap[MU + path] = torch.zeros(full_shape, dtype=p.dtype, device=p.device)
+                snap[NU + path] = torch.zeros(full_shape, dtype=p.dtype, device=p.device)
+        if optimizer is not None:
             # torch keeps the count as a float tensor per parameter (all
             # equal); optax as one int32.
             snap[COUNT_KEY] = (
@@ -475,6 +847,35 @@ class Trainer:
             snap.ready = torch.cuda.Event()
             snap.ready.record()
         return snap
+
+    def _gather_rows(self, local: torch.Tensor) -> torch.Tensor:
+        """A row-sharded table (or its moment) whole: the table axis's ranks'
+        rows in order (a fresh tensor); one rank: a clone."""
+        group = self.ctx.group if self.ctx.axis_size > 1 else None
+        if group is None:
+            return local.detach().clone()
+        try:
+            full = self.reducer.all_gather(local.detach(), group, tag="snapshot")
+        except coll.CollectiveFailed as e:
+            raise CollectiveError(f"gathering a table's rows failed: {e}") from e
+        return full.view((-1,) + tuple(local.shape[1:]))
+
+    def _gather_zero_moments(self, zero: _ZeroShards, opt_state) -> Dict[str, tuple]:
+        """Every dense leaf's (mu, nu), param-shaped, from the ranks' flat
+        shards: ONE all-gather of this rank's shards of both moments."""
+        mine = torch.cat([opt_state[p][name] for name in ("exp_avg", "exp_avg_sq")
+                          for p in zero.params])
+        try:
+            full = self.reducer.all_gather(mine, self.mesh.group((self.opt_axis,)), tag="snapshot")
+        except coll.CollectiveFailed as e:
+            raise CollectiveError(f"gathering the optimizer's shards failed: {e}") from e
+        full = full.view(zero.n, 2, zero.total)
+        mu = full[:, 0].reshape(-1)
+        nu = full[:, 1].reshape(-1)
+        dense = torch.contiguous_format
+        return {path: (zero.unflatten(mu, e).clone(memory_format=dense),
+                       zero.unflatten(nu, e).clone(memory_format=dense))
+                for path, _, e in zero.leaves}
 
     @staticmethod
     def to_host(snapshot: Dict[str, Any]) -> Dict[str, np.ndarray]:
@@ -513,18 +914,42 @@ class Trainer:
         checkpoints store and every restore reads."""
         return self.to_host(self.snapshot_state(state))
 
+    def restore_template(self, state: TrainState) -> Dict[str, Tuple[int, ...]]:
+        """The canonical state's keys and shapes for ``state``'s model (the
+        reference's ``restore_template``: what a checkpoint must hold to
+        restore into this layout): whole tables and param-shaped moments,
+        whatever this rank keeps of them."""
+        shapes: Dict[str, Tuple[int, ...]] = {STEP_KEY: ()}
+        n = self.ctx.axis_size if self.sharded_embeddings else 1
+        for path, p in self._param_paths(state.model):
+            shape = tuple(p.shape)
+            if path in self._table_keys:
+                shape = (shape[0] * n,) + shape[1:]
+            shapes[PARAMS + path] = shape
+            if state.optimizer is not None:
+                shapes[MU + path] = shapes[NU + path] = shape
+        if state.optimizer is not None:
+            shapes[COUNT_KEY] = ()
+        return shapes
+
     def adopt_restored(
         self, arrays: Dict[str, Any], state: Optional[TrainState] = None
     ) -> TrainState:
         """Load a canonical state into ``state`` (default: a new one from
         ``init_state(None)``) on this trainer's device: parameters copied in
-        place, AdamW moments and count set, the step taken.  The paths
-        must match the model's exactly; a state without an optimizer (a
-        serving replica's) takes the parameters and the step only."""
+        place, Adam(W) moments and count set, the step taken.  Under
+        sharding each rank takes its rows of the tables and its shards of
+        the dense moments, without a collective, so a checkpoint of any
+        world size and layout restores into any other (the reference's
+        ``shard_state`` of a canonical state is this, into a fresh state).  The paths must
+        match the model's exactly; a state without an optimizer (a serving
+        replica's) takes the parameters and the step only."""
         if state is None:
             state = self.init_state(None)
         model, optimizer = state.model, state.optimizer
+        zero = _zero_of(optimizer)
         paths = self._param_paths(model)
+        template = self.restore_template(state)
         params = {STEP_KEY} | {PARAMS + path for path, _ in paths}
         opt = {COUNT_KEY} | {MU + path for path, _ in paths} | {NU + path for path, _ in paths}
         required = params | opt if optimizer is not None else params
@@ -535,37 +960,79 @@ class Trainer:
                 "canonical state does not match the model: missing "
                 f"{sorted(missing)[:8]}, unexpected {sorted(unexpected)[:8]}"
             )
+        n, i = self.ctx.axis_size, self.ctx.axis_index
 
-        def load(value: Any, dst: torch.Tensor) -> torch.Tensor:
-            arr = np.asarray(value, np.float32)
-            if tuple(arr.shape) != tuple(dst.shape):
-                raise ValueError(f"shape {arr.shape} does not match {tuple(dst.shape)}")
+        def host(key: str, path: str) -> np.ndarray:
+            arr = np.asarray(arrays[key], np.float32)
+            if tuple(arr.shape) != template[key]:
+                raise ValueError(f"{key}: shape {arr.shape} does not match {template[key]}")
+            if path in self._table_keys and n > 1:
+                k = arr.shape[0] // n
+                arr = arr[i * k:(i + 1) * k]
+            return arr
+
+        def load(arr: np.ndarray, dst: torch.Tensor) -> torch.Tensor:
             # On the card from pinned memory on the current stream, as
             # _to_device places a batch (a replica's reload runs on its own
             # stream while steps or flushes run on another).
-            host = torch.from_numpy(np.ascontiguousarray(arr))
-            dst.copy_(host.pin_memory() if dst.is_cuda else host, non_blocking=True)
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+            dst.copy_(t.pin_memory() if dst.is_cuda else t, non_blocking=True)
             return dst
 
-        def moment(value: Any, p: torch.Tensor) -> torch.Tensor:
-            return load(value, torch.empty_like(p, memory_format=torch.contiguous_format))
+        def moment(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+            return load(arr, torch.empty_like(like, memory_format=torch.contiguous_format))
 
         with torch.no_grad():
             for path, p in paths:
-                load(arrays[PARAMS + path], p)
+                load(host(PARAMS + path, path), p)
+            if zero is not None:
+                zero.refresh()
             if optimizer is not None:
                 count = int(np.asarray(arrays[COUNT_KEY]))
                 optimizer.state.clear()
                 if count > 0:
+                    def entry(mu, nu, like):
+                        return {"step": torch.tensor(float(count), dtype=torch.float32),
+                                "exp_avg": moment(mu, like), "exp_avg_sq": moment(nu, like)}
+
+                    shards = {}
+                    if zero is not None:
+                        shards = {path: (e, sp) for (path, _, e), sp in zip(zero.leaves, zero.params)}
                     for path, p in paths:
-                        optimizer.state[p] = {
-                            "step": torch.tensor(float(count), dtype=torch.float32),
-                            "exp_avg": moment(arrays[MU + path], p),
-                            "exp_avg_sq": moment(arrays[NU + path], p),
-                        }
+                        mu, nu = host(MU + path, path), host(NU + path, path)
+                        if path in shards:
+                            e, sp = shards[path]
+                            mu, nu = (zero.split(torch.from_numpy(np.ascontiguousarray(a)).reshape(-1), e)
+                                      .numpy() for a in (mu, nu))
+                            optimizer.state[sp] = entry(mu, nu, sp)
+                        else:
+                            optimizer.state[p] = entry(mu, nu, p)
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
         return TrainState(int(np.asarray(arrays[STEP_KEY])), model, optimizer)
+
+    def opt_state_bytes_per_device(self, state: TrainState) -> Dict[str, int]:
+        """This rank's resident optimizer-state bytes (the moments and the
+        counts), keyed by its rank: the number the sharded optimizer and
+        the sharded tables cut (the reference keys device ids)."""
+        total = 0
+        if state.optimizer is not None:
+            for st in state.optimizer.state.values():
+                total += sum(int(v.nbytes) for v in st.values() if isinstance(v, torch.Tensor))
+        return {str(self.mesh.rank): total}
+
+    def collective_bytes_per_step(self, state: TrainState) -> Dict[str, int]:
+        """Analytic per-replica inter-host bytes of one step's dense-gradient
+        all-reduce under this mesh's resolved topology against the flat
+        route (``collectives.interhost_bytes_per_step``), sharded tables
+        left out: their gradients never cross the table axis."""
+        sizes = [p.numel() for path, p in self._param_paths(state.model)
+                 if path not in self._table_keys]
+        n = coll.contributor_count(self.mesh, self.reduce_axes)
+        return {
+            "flat": coll.interhost_bytes_per_step(sizes, n, None),
+            "resolved": coll.interhost_bytes_per_step(sizes, n, self.reducer.topo),
+        }
 
     # ---- prediction ----
 
@@ -580,8 +1047,10 @@ class Trainer:
         tensors = {k: self._to_device(v) for k, v in batch.items()}
         with torch.inference_mode():
             if self.spec.predict is not None:
+                if self._predict_takes_ctx:
+                    return self.spec.predict(state, tensors, ctx=self.ctx)
                 return self.spec.predict(state, tensors)
-            return self.spec.apply(state, tensors, train=False)
+            return self._apply(state, tensors, train=False)
 
 
 def outputs_to_numpy(outputs: Any) -> Any:

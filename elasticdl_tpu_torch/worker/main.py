@@ -37,10 +37,12 @@ load),
 ``first_step`` (the wall time its first training step finished on the
 device, its loss), ``first_steps`` (the losses of its first
 ``FIRST_STEPS`` steps), in gang mode ``gang`` (the seconds of the settle and of
-``init_process_group``, the rank and world) and, at its end, ``summary``
-(the steps and eval steps it ran, its step times on the device, its
-kernel launch counts, the task ids it ran, the seconds inside its
-collectives).
+``init_process_group``, the rank and world, the mesh, the sharded state's
+flags as the trainer resolved them) and, at its end, ``summary`` (the
+steps and eval steps it ran, its step times on the device, its kernel
+launch counts, the task ids it ran, the seconds inside its collectives,
+in all and by tag and op, its state's bytes: tables, parameters,
+optimizer, the card's peak allocation).
 
 Run as ``python -m elasticdl_tpu_torch.worker.main``.
 """
@@ -307,6 +309,7 @@ class _StepClock:
         self.steps = 0
         self.eval_steps = 0
         self.eval_collective_s = 0.0  # the eval steps' share of the collectives
+        self.eval_by_op: dict = {}  # ... by tag and op (``Reducer.by_op``)
         self._events: collections.deque = collections.deque(maxlen=STEP_WINDOW)
         losses = []
         train_step, eval_step = trainer.train_step, trainer.eval_step
@@ -332,11 +335,13 @@ class _StepClock:
 
         def counted_eval_step(state, batch):
             self.eval_steps += 1
-            before = trainer.reducer.seconds
+            before, by_op = trainer.reducer.seconds, dict(trainer.reducer.by_op)
             try:
                 return eval_step(state, batch)
             finally:
                 self.eval_collective_s += trainer.reducer.seconds - before
+                for k, v in trainer.reducer.by_op.items():
+                    self.eval_by_op[k] = self.eval_by_op.get(k, 0.0) + v - by_op.get(k, 0.0)
 
         trainer.train_step = timed_train_step
         trainer.eval_step = counted_eval_step
@@ -461,16 +466,24 @@ def main(argv: Optional[List[str]] = None) -> int:
         hosts = [addresses.get(w, "") for w in sorted(ranks, key=ranks.get)]
         mesh = MeshManager(config.dcn_data_parallelism,
                            hosts if all(hosts) and spec.enabled else ()).mesh
-        _event("gang", worker_id=worker_id, settle_s=settle_s,
-               init_process_group_s=time.time() - t0, rank=spec.process_id,
-               world=spec.num_processes, version=membership["version"],
-               mesh=dict(mesh.shape))
+        gang_event = dict(worker_id=worker_id, settle_s=settle_s,
+                          init_process_group_s=time.time() - t0, rank=spec.process_id,
+                          world=spec.num_processes, version=membership["version"],
+                          mesh=dict(mesh.shape))
 
+    # The job config reaches the trainer whole: --distribution_strategy,
+    # --optimizer_sharding(_auto_mb) and --embedding_lookup_impl with it.
     worker = Worker(
         config, master, build_job_reader(config), worker_id=worker_id,
         device=device, gauges=gauge.default(), incarnation=incarnation,
         mesh=mesh,
     )
+    if mesh is not None:
+        tr = worker.trainer
+        _event("gang", **gang_event, distribution_strategy=tr.strategy,
+               optimizer_sharding=tr.optimizer_sharding,
+               embedding_lookup_impl=tr.ctx.embedding_impl,
+               sharded_embeddings=tr.sharded_embeddings)
     if os.environ.get(DIGEST_ENV) == "1":
         worker.checkpoint_hook = lambda step, snap: _event(
             "checkpoint", worker_id=worker_id, step=step, digest=_state_digest(snap))
@@ -516,12 +529,23 @@ def main(argv: Optional[List[str]] = None) -> int:
         if metrics_server is not None:
             metrics_server.stop()
     logger.info("worker %s finished: %s", worker_id, result)
+    tr = worker.trainer
+    table_keys = {"params/" + k for k in tr._table_keys}
+    state_bytes = {
+        "tables": sum(int(p.nbytes) for name, p in tr._param_paths(worker.state.model)
+                      if "params/" + name in table_keys),
+        "params": sum(int(p.nbytes) for p in worker.state.model.parameters()),
+        "opt": sum(tr.opt_state_bytes_per_device(worker.state).values()),
+        "sharded_state": tr.sharded_state(),
+    }
+    if tr.device.type == "cuda":
+        state_bytes["max_memory_allocated"] = int(torch.cuda.max_memory_allocated(tr.device))
     _event("summary", worker_id=worker_id, step=result["step"], steps=clock.steps,
            eval_steps=clock.eval_steps, step_ms=clock.step_ms(), launches=kernels.counts(),
            phase_times=result["phase_times"], tasks=result["tasks"],
-           collective_s=worker.trainer.reducer.seconds,
-           collective_calls=worker.trainer.reducer.calls,
-           eval_collective_s=clock.eval_collective_s)
+           collective_s=tr.reducer.seconds, collective_calls=tr.reducer.calls,
+           collective_by_op=tr.reducer.by_op, eval_collective_s=clock.eval_collective_s,
+           eval_collective_by_op=clock.eval_by_op, state_bytes=state_bytes)
     distributed.shutdown()
     return 0
 

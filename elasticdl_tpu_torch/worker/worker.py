@@ -31,7 +31,11 @@ Gang mode (``multihost``): the worker processes of one membership form a
 every rank walks the master's group task log (``GetGroupTask``) in the
 same order, takes its slice of each global batch and sums the gradients
 over the group (``parallel/trainer.py``); only rank 0 reports tasks and
-writes checkpoints (the state is replicated).  A gang settles each task
+writes checkpoints.  Under the ParameterServer strategy or the sharded
+optimizer no rank holds the whole state (``Trainer.sharded_state``): every
+rank takes part in each checkpoint's snapshot, whose gathers are
+collectives, on the task loop's thread, and there is no survivor's
+snapshot (below).  A gang settles each task
 (metrics, rank 0's report, checkpoint) right after its steps, so between
 tasks the state holds exactly the tasks rank 0 has reported.  A membership
 change raises ``WorkerRestartRequired``: the process exits 3 and its
@@ -39,8 +43,9 @@ relaunch forms the new world, as in the reference.  Before it, the old
 world's rank 0, if it survived, snapshots the state the master's record
 holds: the state at the failed task's start (a device copy taken there),
 and only when the master counted its last report; it alone knows what it
-reported.  Otherwise the relaunch resumes from the periodic checkpoint, as
-the reference's gangs do.  A collective that fails on a dead peer
+reported.  Otherwise, and always with sharded state, the relaunch resumes
+from the periodic checkpoint, as the reference's gangs do; the tasks the
+master counted since that checkpoint are not trained again.  A collective that fails on a dead peer
 leaves the state of the last completed step (``CollectiveError``), so the
 survivor waits for the master to see the departure and takes the same
 snapshot-and-restart path; a member blocked in a collective that never
@@ -383,7 +388,8 @@ class Worker:
         # ``checkpoint_hook(step, arrays)``: called on every rank at each
         # periodic checkpoint with the canonical arrays of the state: rank
         # 0's device snapshot, the other ranks' live tensors (worker/main.py
-        # digests them when asked to).
+        # digests them when asked to); with sharded state every rank's
+        # gathered snapshot, at the final checkpoint too.
         self.checkpoint_hook = None
         # Gang mode, rank 0 with a checkpoint directory: (step, device copy)
         # of the state at the current training task's start, which a
@@ -486,8 +492,12 @@ class Worker:
         too.  It saves the state the master's record holds
         (``_record_state``), and nothing when the master did not count its
         last report; no other rank knows whether rank 0's last report
-        landed.  Without gang mode this worker's device is its whole world,
-        which no view changes."""
+        landed.  With sharded state (tables row-sharded, the sharded
+        optimizer: ``Trainer.sharded_state``) rank 0 never held the other
+        ranks' rows and moments, so no rank saves, as the reference's
+        multi-process gangs never do: the relaunch resumes from the newest
+        periodic checkpoint.  Without gang mode this worker's device is its
+        whole world, which no view changes."""
         version = membership["version"]
         if version == self._membership_version:
             return
@@ -509,7 +519,13 @@ class Worker:
         if self.config.multihost and not initial:
             saver = prev_ranks.get(self.worker_id) == 0 and self.worker_id in ranks
             if self._ckpt is not None and saver and self.state is not None:
-                if not self._record_counted:
+                if self.trainer.sharded_state():
+                    logger.warning(
+                        "no pre-restart snapshot: the state is sharded over the gang's "
+                        "ranks; the relaunch resumes from the periodic checkpoint "
+                        "(step %s)", self._ckpt.latest_step(),
+                    )
+                elif not self._record_counted:
                     logger.warning(
                         "no pre-restart snapshot: the master did not count the last "
                         "task this state holds; the relaunch resumes from the "
@@ -892,16 +908,27 @@ class Worker:
     def _save_group_snapshot_background(self, step: int) -> None:
         """The gang's periodic checkpoint: every rank moves its watermark at
         the same boundary (the lockstep order makes the arithmetic equal);
-        rank 0 alone takes the device snapshot and writes, publishes and
-        reports it in the background, as ``_save_snapshot_background``.  The
-        state is replicated, so no rank waits for another (the reference's
-        saves are collective).  A failed save keeps the watermark: a rollback
-        on one rank would desynchronise the ranks' save schedules."""
+        rank 0 writes, publishes and reports it in the background, as
+        ``_save_snapshot_background``.  A replicated state needs no other
+        rank: rank 0 alone takes the device snapshot.  A sharded state's
+        snapshot is a collective (``Trainer.snapshot_state`` gathers the
+        rows and moments), so every rank takes it here, on the task loop's
+        thread between the same two steps: issued from the background
+        thread, its gathers would interleave with the next step's
+        collectives on the same process group.  Only the host copy and the
+        write go to the background.  A failed save keeps the watermark: a
+        rollback on one rank would desynchronise the ranks' save
+        schedules."""
         self._join_ckpt()
         with self._ckpt_lock:
             self._last_ckpt_step = step
+        sharded = self.trainer.sharded_state()
         if self._rank != 0:
-            if self.checkpoint_hook is not None:
+            if sharded:
+                snap = self._snapshot_state()  # this rank's part of the gathers
+                if self.checkpoint_hook is not None:
+                    self.checkpoint_hook(step, snap)
+            elif self.checkpoint_hook is not None:
                 self.checkpoint_hook(step, self.trainer.snapshot_state(self.state, copy=False))
             return
         snap = self._snapshot_state()
@@ -1147,9 +1174,11 @@ class Worker:
             # the entry, once per entry.
             self._gang_last_task = task.task_id
             self._gang_dispatched += 1
-        if self._group_mode and self._rank == 0 and self._ckpt is not None:
+        if (self._group_mode and self._rank == 0 and self._ckpt is not None
+                and not self.trainer.sharded_state()):
             # The survivor's snapshot if a collective fails after some of
             # this task's steps (``_record_state``); the old copy goes first.
+            # Sharded state has no survivor's snapshot (``_apply_membership``).
             self._task_start = None
             self._task_start = (self.state.step, self._snapshot_state())
         # graftchaos: stall(point=step), a dispatch-side straggler.
@@ -1320,6 +1349,9 @@ class Worker:
             resp = self.master.call("ReportTaskResult", report)
         if training:
             self._record_counted = bool((resp or {}).get("accepted", True))
+            logger.info("training task %d reported at step %d: accepted=%s",
+                        report["task_id"], report.get("model_version", -1),
+                        self._record_counted)
 
     def _group_resync(self, report: dict, context: str, cause: Optional[BaseException] = None) -> None:
         """A gang member that failed a task is out of step: its peers' next
@@ -1703,10 +1735,30 @@ class Worker:
         """Final checkpoint so a completed job is resumable and servable.
         When the newest complete step already holds this state (a periodic
         save at the same step), it is not written twice; it is reported
-        either way."""
+        either way.  Rank 0 writes; with sharded state every rank of the
+        gang takes part in the snapshot's gathers first, deciding by the
+        watermark, which all ranks share (the directory's newest step is
+        rank 0's to move)."""
         with self.phases.phase("checkpoint"):
             self._join_ckpt()
             step = self.state.step
+            if self._group_mode and self.trainer.sharded_state():
+                with self._ckpt_lock:
+                    saved = self._last_ckpt_step == step
+                snap = None if saved else self._snapshot_state()
+                if snap is not None and self.checkpoint_hook is not None:
+                    self.checkpoint_hook(step, snap)
+                if self._rank != 0:
+                    return
+                if snap is not None:
+                    self._save_snapshot(step, wait=True, state=snap)
+                elif self._ckpt.latest_step() == step:
+                    self.master.call("ReportCheckpoint", self._checkpoint_report(step))
+                else:
+                    # No rank holds the whole state to save it again alone.
+                    logger.error("the periodic save at step %d failed; the state is "
+                                 "sharded, so no final checkpoint", step)
+                return
             if self._ckpt.latest_step() != step:
                 self._save_snapshot(step, wait=True)
             else:
@@ -1852,7 +1904,8 @@ class Worker:
             self._prep_pool.shutdown(wait=True)
             self._prep_pool = None
         self._ingest.shutdown()
-        if self._ckpt is not None and self._rank == 0:
+        if self._ckpt is not None and (
+                self._rank == 0 or (self._group_mode and self.trainer.sharded_state())):
             self._final_checkpoint()
         with self.phases.phase("control"):
             self._ship_trace_tail()

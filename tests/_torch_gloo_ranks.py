@@ -173,3 +173,141 @@ def card_reduce_and_steps(rank, world, model_kw, batches):
         losses.append(float(m["loss"]))
     host = {k: np.asarray(v) for k, v in trainer.host_state(state).items()}
     return summed, losses, host
+
+
+def sharded_lookup_cases(rank, world, cases):
+    """Each case (``dict``: ``impl``, the global ``table`` in its layout,
+    ``dim``, the global ``ids`` and cotangents ``cot``) through the port's
+    sharded lookup: this rank holds rows ``[rank*P/n, (rank+1)*P/n)`` of
+    the table and slice ``rank`` of the ids (dim 0).  Returns, per case,
+    this rank's output and the gradient of ``sum(where(isnan(out), 0, out *
+    cot))`` with respect to its rows."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.ops.embedding import ParallelContext, embedding_lookup
+    from elasticdl_tpu_torch.parallel import collectives as coll
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh()
+    reducer = coll.Reducer(mesh)
+    out = []
+    for case in cases:
+        ctx = ParallelContext(axis_name="dp", sharded_embeddings=True,
+                              embedding_impl=case["impl"], axis_size=world,
+                              axis_index=rank, group=mesh.group(("dp",)), reducer=reducer)
+        table, ids, cot = case["table"], case["ids"], case["cot"]
+        k, b = table.shape[0] // world, ids.shape[0] // world
+        local = torch.tensor(table[rank * k:(rank + 1) * k], requires_grad=True)
+        my_ids = torch.from_numpy(ids[rank * b:(rank + 1) * b].copy())
+        my_cot = torch.from_numpy(cot[rank * b:(rank + 1) * b].copy())
+        vec = embedding_lookup(local, my_ids, ctx, dim=case["dim"])
+        torch.where(torch.isnan(vec), 0.0, vec * my_cot).sum().backward()
+        out.append((vec.detach().numpy().copy(), local.grad.numpy().copy()))
+    return {"cases": out, "by_op": dict(reducer.by_op)}
+
+
+def _canonical_from(trainer, state, params_tree):
+    """A canonical state holding ``params_tree`` (a JAX params tree of
+    numpy arrays, whole tables) with zero moments: what a checkpoint of
+    those weights before any step holds."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.parallel.trainer import COUNT_KEY, MU, NU, PARAMS, STEP_KEY
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, prefix + k + "/")
+            else:
+                yield prefix + k, np.asarray(v, np.float32)
+
+    arrays = {STEP_KEY: np.asarray(0, np.int64), COUNT_KEY: np.asarray(0, np.int32)}
+    for path, v in flat(params_tree):
+        arrays[PARAMS + path] = v
+        arrays[MU + path] = np.zeros_like(v)
+        arrays[NU + path] = np.zeros_like(v)
+    return arrays
+
+
+def ps_steps(rank, world, dcn, variants, model_kw, jax_params, batches):
+    """DeepFM under ``--distribution_strategy=ParameterServer`` over the
+    ``create_mesh(dcn_parallelism=dcn)`` mesh of this world, from the
+    carried JAX weights, once per variant ``(impl, optimizer_sharding)``:
+    each step's metrics, the gathered canonical parameters after the
+    steps, one eval step's metrics, this rank's table rows and optimizer
+    bytes, and the lookup's collective seconds by op."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.models import deepfm
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+
+    mesh = create_mesh(dcn_parallelism=dcn)
+    out = {}
+    for impl, opt in variants:
+        config = JobConfig(distribution_strategy="ParameterServer", embedding_lookup_impl=impl,
+                           optimizer_sharding=opt, dcn_data_parallelism=dcn)
+        trainer = Trainer(deepfm.model_spec(**model_kw), device="cpu", mesh=mesh, config=config)
+        state = trainer.adopt_restored(_canonical_from(trainer, trainer.init_state(0), jax_params))
+        metrics = []
+        for batch in batches:
+            state, m = trainer.run_train_step(state, batch)
+            metrics.append({k: np.asarray(v.detach()).copy() for k, v in m.items()})
+        ev = trainer.run_eval_step(state, batches[0])
+        host = trainer.host_state(state)
+        out[(impl, opt)] = {
+            "metrics": metrics,
+            "params": {k[len("params/"):]: np.asarray(v) for k, v in host.items()
+                       if k.startswith("params/")},
+            "eval": {k: np.asarray(v).copy() for k, v in ev.items()},
+            "table_rows": int(state.model.fm_table.shape[0]),
+            "impl": trainer.ctx.embedding_impl,
+            "sharded_opt": trainer._opt_plan is not None,
+            "by_op": dict(trainer.reducer.by_op),
+        }
+    return out
+
+
+def opt_shard_steps(rank, world, model_kw, batches, canonical=None):
+    """``transformer_lm`` over ``(dp=world, ep=1)``: the replicated and the
+    sharded optimizer from the same seed on the same global batches (each
+    step's loss, the canonical state after, this rank's optimizer bytes);
+    with ``canonical``, the sharded trainer first restores it and reports
+    what it gathers back before and after one more step."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.models import transformer_lm
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+
+    mesh = create_mesh(dcn_parallelism=world)
+    spec = transformer_lm.model_spec(**model_kw)
+
+    def host(trainer, state):
+        return {k: np.asarray(v).copy() for k, v in trainer.host_state(state).items()}
+
+    sharded = Trainer(spec, device="cpu", mesh=mesh,
+                      config=JobConfig(optimizer_sharding="sharded"))
+    if canonical is not None:
+        state = sharded.adopt_restored(canonical)
+        restored = host(sharded, state)
+        state, m = sharded.run_train_step(state, batches[0])
+        return {"restored": restored, "after": host(sharded, state), "loss": float(m["loss"]),
+                "opt_bytes": sharded.opt_state_bytes_per_device(state)}
+    out = {}
+    for name, trainer in (("sharded", sharded),
+                          ("replicated", Trainer(spec, device="cpu", mesh=mesh,
+                                                 config=JobConfig()))):
+        state = trainer.init_state(0)
+        losses = []
+        for batch in batches:
+            state, m = trainer.run_train_step(state, batch)
+            losses.append(float(m["loss"]))
+        out[name] = {"losses": losses, "state": host(trainer, state),
+                     "opt_bytes": sum(trainer.opt_state_bytes_per_device(state).values()),
+                     "plan": trainer._opt_plan is not None,
+                     "by_op": dict(trainer.reducer.by_op)}
+    return out

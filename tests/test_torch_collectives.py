@@ -19,6 +19,7 @@ import types
 import jax
 import numpy as np
 import pytest
+import torch
 from jax.sharding import PartitionSpec as P
 
 from elasticdl_tpu.common.jax_compat import shard_map
@@ -178,8 +179,10 @@ def test_two_d_mesh_lines_and_positions():
 
 
 def test_left_out_collectives_name_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="sharded optimizer"):
-        coll.psum_scatter(None, "dp")
+    # psum_scatter is ported (tests/test_torch_opt_shard.py runs it across
+    # ranks); over a line of one rank it keeps its input.
+    x = torch.arange(6.0)
+    assert torch.equal(coll.psum_scatter(x, "dp", coll.Reducer(tmesh.Mesh({"dp": 1}))), x)
     for fn in (coll.tp_all_reduce, coll.tp_grad_sync):
         with pytest.raises(NotImplementedError, match="ring and tensor-parallel attention"):
             fn(None, "tp")

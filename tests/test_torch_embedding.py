@@ -141,8 +141,10 @@ def test_lookup_validation_and_the_sharded_route():
         temb.embedding_lookup(torch.zeros(64), torch.zeros(2, dtype=torch.int64), ctx)
     with pytest.raises(ValueError, match="stride"):
         temb.embedding_lookup(torch.zeros(64, 6), torch.zeros(2, dtype=torch.int64), ctx, dim=3)
-    sharded = temb.ParallelContext(axis_name="dp", sharded_embeddings=True)
-    with pytest.raises(NotImplementedError, match="sharded embedding lookups"):
+    # The sharded routes are ported (tests/test_torch_sharded_embedding.py
+    # runs them across ranks); across ranks they need the trainer's Reducer.
+    sharded = temb.ParallelContext(axis_name="dp", sharded_embeddings=True, axis_size=2)
+    with pytest.raises(ValueError, match="reducer"):
         temb.embedding_lookup(torch.zeros(64, 8), torch.zeros(2, dtype=torch.int64), sharded)
     # Replicated tables under a mesh axis take the local route, as in the
     # reference.

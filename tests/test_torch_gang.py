@@ -32,7 +32,9 @@
    trained twice (the final step is the epoch's).  In-process, the
    survivor's choice of state: the state of the reported tasks, the copy
    taken at a failed task's start, nothing when its last report was
-   refused or it was not rank 0.
+   refused or it was not rank 0.  (DeepFM on ``(dp=2, ep=2)`` builds now,
+   with its table sharded over ``ep``; tests/test_torch_opt_shard.py trains
+   it against the JAX 4-device mesh.)
 
 Each process test waits at most ``WAIT_S`` for its processes.
 """
@@ -187,8 +189,14 @@ def test_inner_axes_larger_than_one_rank_name_their_roadmap_items():
         Trainer(tlm.model_spec(**LM), device="cpu", mesh=Mesh({"dp": 2}))
     with pytest.raises(NotImplementedError, match="ring and tensor-parallel attention"):
         Trainer(tlm.model_spec(**LM), device="cpu", mesh=Mesh({"dp": 1, "ep": 2}))
-    with pytest.raises(NotImplementedError, match="sharded embedding lookups"):
-        Trainer(deepfm.model_spec(**DFM), device="cpu", mesh=Mesh({"dp": 2, "ep": 2}))
+    # Sharded tables over an ep axis of two ranks are ported: DeepFM under
+    # the ParameterServer strategy builds on (dp=2, ep=2) and shards its
+    # table over ep.
+    tr = Trainer(deepfm.model_spec(**DFM), device="cpu", mesh=Mesh({"dp": 2, "ep": 2}, rank=3),
+                 config=JobConfig(distribution_strategy="ParameterServer"))
+    assert tr.axis_name == "ep" and tr.sharded_embeddings
+    assert (tr.ctx.axis_name, tr.ctx.axis_size, tr.ctx.axis_index) == ("ep", 2, 1)
+    assert tr._table_grad_axes == ("dp",)
 
 
 # ---- 2. settle_membership ------------------------------------------------------------
