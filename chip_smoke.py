@@ -107,6 +107,26 @@ exits non-zero without its result line:
    a rank about half the replicated ones, the gathered state restored into
    a world of one bit for bit, the step split into reduce-scatter,
    all-gather and the rest.
+13. the PS host tier (``phase_host_tier``): DeepFM at 2^20 buckets a
+   feature, whose "auto" resolution puts the FM table in the native host
+   store (27,262,976 rows), dim 8, MLP 400-400, batch 8192. (a) In
+   process: the card against the CPU at f32 over 3 steps, each side with
+   a fresh store (losses and step 1's gradients within ``DFM_F32_REL``,
+   the touched rows by ``HOST_ROW_FLIPS``); on one store, 5 warm steps and
+   6 pairs of 10 timed steps sync and ``use_async`` (depth 1), the order
+   alternating: each pair's step p50s and ratio, examples/s, the sync
+   step's parts (pull, H2D,
+   device, the wait for the gradients' copy, push; the copy alone), the
+   store's rows and the resident memory. (b) The CLI job with
+   ``--num_ps_pods=2 --use_async`` on a synthetic Criteo RecordIO file
+   (4 tasks of 4 minibatches, a checkpoint every 8 steps, an eval round):
+   PS shard 1 SIGKILLed after the first checkpoint, relaunched, restoring
+   its slice; the job ends at step 16; the job's step p50, the relaunch
+   time, the AUC. (c) A replica on the card over (b)'s checkpoint with
+   ``ps_addresses`` (a fleet restored from it) behind the hot-id cache: 64
+   requests with skewed ids, the cache's hit rate after warm-up, request
+   and flush p50; after pushes under it, a publish empties the cache and
+   the answers equal a fresh pull's. No flash kernel runs here.
 
 Prints the card's name and power limit first, a ``{"kernels": [...]}``
 line before the last, and ``{"ok": true, "device": {...}}`` last.  The
@@ -1816,21 +1836,21 @@ def phase_deepfm(card: str) -> dict:
     # measured on one placed batch.
     placed = trainer.shard_batch(dict(native))
     for _ in range(DFM_WARM_STEPS):
-        state, _ = trainer.train_step(state, placed)
+        state = trainer.train_step(state, placed)[0]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t = time.perf_counter()
     start.record()
     for _ in range(DFM_STEPS):
-        state, metrics = trainer.train_step(state, placed)
+        state, metrics, _ = trainer.train_step(state, placed)
     end.record()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t) * 1e3 / DFM_STEPS
     step_event_ms = start.elapsed_time(end) / DFM_STEPS
     peak_bytes = torch.cuda.max_memory_allocated() - held_bytes
     t = time.perf_counter()
-    state, _ = trainer.train_step(state, placed)
+    state = trainer.train_step(state, placed)[0]
     enqueue_ms = (time.perf_counter() - t) * 1e3
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3
@@ -2845,6 +2865,473 @@ def phase_opt_shard(card: str) -> dict:
             "gather_s": r0["gather_s"], "world_s": world_s}
 
 
+# Phase 13: the PS host tier on the card.  Host-tier DeepFM at the width
+# whose table "auto" promotes to the host store (2^20 buckets a feature:
+# 27,262,976 rows, 5.2 GB with two Adam moments, past the 4 GiB HBM guard),
+# dim 8, MLP 400-400, batch 8192, bf16 over f32.
+HOST_WIDTH = dict(buckets_per_feature=1 << 20, embedding_dim=8, hidden=(400, 400))
+HOST_BATCH, HOST_PARITY_STEPS, HOST_WARM, HOST_SPLIT_STEPS = 8192, 3, 5, 5
+# (a) Sync against async on one store: HOST_PAIRS pairs of HOST_PAIR_STEPS
+# timed steps each way, the order alternating from pair to pair.
+HOST_PAIRS, HOST_PAIR_STEPS = 6, 10
+# (b) One epoch of 131,072 records: 4 tasks of 4 minibatches, a checkpoint
+# every 8 steps, an eval round at the end; the worker stalls at its first
+# task boundary past the first checkpoint while PS shard 1 is SIGKILLed.
+HOST_JOB, HOST_MB_PER_TASK, HOST_TASKS, HOST_CKPT_STEPS = "chip13", 4, 4, 8
+HOST_VAL, HOST_STALL_MS = 20000, 10000
+# (c) 64 requests of 8 examples; skewed ids (zipf, a = 1.2, over each
+# feature's id range), the first 16 the warm-up of the hot-id cache.
+HOST_REQUESTS, HOST_REQUEST_ROWS, HOST_WARM_REQUESTS = 64, 8, 16
+HOST_DEVICE = "cuda"
+# (a) The stores' rows after the card's and the CPU's 3 steps: the share of
+# touched row values that differ by more than 1e-4.  The store's adagrad
+# moves a value by lr * g / (sqrt(sum g^2) + eps) with lr 0.01: about
+# +-lr at a value's first update whatever |g|, so a value whose gradient is
+# float noise on both sides (a near-cancelling sum) takes +-0.01 at random,
+# and the rows it feeds move the next steps' gradients a little.  Set from
+# the card's reading (NVIDIA H100 80GB HBM3, 700 W: 204 of 5,634,873
+# values, 3.6e-5, largest 0.0188) with room; a lost or doubled push, or a
+# wrong id, moves about a third of the values (a step's 1.9 million).
+HOST_ROW_FLIPS = 2e-4
+
+
+def _host_batches(n: int, seed: int, rows: int = HOST_BATCH) -> list:
+    """``n`` raw Criteo batches as ``criteo_feed`` decodes them, drawn as
+    ``data/synthetic.synthetic_criteo`` draws its records (dense integers
+    below 1000, ids below 2^20, the planted label rule)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        dense = rng.integers(0, 1000, (rows, 13))
+        cat = rng.integers(0, 1 << 20, (rows, 26))
+        score = 0.002 * dense[:, 0] - 0.001 * dense[:, 1] + ((cat[:, 0] % 7) - 3) * 0.3
+        labels = (rng.random(rows) < 1 / (1 + np.exp(-score))).astype(np.int32)
+        out.append({"dense": dense.astype(np.float32), "cat": cat.astype(np.int32),
+                    "labels": labels})
+    return out
+
+
+def _sync() -> None:
+    if HOST_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _rss_gib() -> float:
+    with open("/proc/self/status") as f:
+        kb = next(int(x.split()[1]) for x in f if x.startswith("VmRSS:"))
+    return kb / 2**20
+
+
+def _host_timed(trainer, state, batches: list, use_async: bool) -> tuple:
+    """``run_train_steps`` over ``batches``, stamping the host clock each
+    time the loop takes its next batch: (state, per-step ms, examples/s)."""
+    stamps = []
+
+    def stamped():
+        for b in batches:
+            stamps.append(time.perf_counter())
+            yield b
+
+    state, metrics = trainer.run_train_steps(state, stamped(), use_async=use_async)
+    _sync()
+    stamps.append(time.perf_counter())
+    assert np.isfinite(float(metrics[-1]["loss"]))
+    step_ms = list(np.diff(stamps) * 1e3)
+    return state, step_ms, len(batches) * HOST_BATCH / (stamps[-1] - stamps[0])
+
+
+def _host_split(trainer, state, batches: list) -> tuple:
+    """The synchronous step in its parts, one batch at a time: the pull
+    (host), the upload of the batch and the rows (CUDA events), the device
+    step with the rows' gradient copy to pinned memory inside it (CUDA
+    events), the host's wait for that copy, the push (host); medians."""
+    from elasticdl_tpu_torch.parallel.trainer import HostGrad
+
+    parts = {k: [] for k in ("pull", "h2d", "device", "wait", "push", "enqueue")}
+    for batch in batches:
+        t0 = time.perf_counter()
+        rows, ids = trainer._pull_host_rows(batch)
+        t1 = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        placed = trainer.shard_batch(batch)
+        placed.update((k, trainer._to_device(v)) for k, v in rows.items())
+        ev[1].record()
+        t2 = time.perf_counter()
+        state, _, grads = trainer.train_step(state, placed)
+        ev[2].record()
+        t3 = time.perf_counter()
+        for g in grads.values():
+            g.numpy()
+        t4 = time.perf_counter()
+        trainer._push_host_grads(ids, grads)
+        t5 = time.perf_counter()
+        torch.cuda.synchronize()
+        parts["pull"].append((t1 - t0) * 1e3)
+        parts["h2d"].append(ev[0].elapsed_time(ev[1]))
+        parts["device"].append(ev[1].elapsed_time(ev[2]))
+        parts["enqueue"].append((t3 - t2) * 1e3)
+        parts["wait"].append((t4 - t3) * 1e3)
+        parts["push"].append((t5 - t4) * 1e3)
+    grad = torch.randn(HOST_BATCH, 26, 9, device="cuda")
+    d2h = time_ms(lambda: HostGrad(grad))  # the copy alone: 7.67 MB to pinned memory
+    split = {k: statistics.median(v) for k, v in parts.items()}
+    split["d2h"] = d2h
+    return state, split
+
+
+def _host_job(card: str, out: str) -> dict:
+    """(b) The CLI job with ``--num_ps_pods=2 --use_async`` on the card:
+    PS shard 1 SIGKILLed after the first checkpoint; its relaunch restores
+    its slice, the job ends at the epoch's step count."""
+    import ast
+    import shutil
+
+    from elasticdl_tpu_torch.common.checkpoint import read_manifest
+    from elasticdl_tpu_torch.data.synthetic import synthetic_criteo
+    from elasticdl_tpu_torch.models.deepfm import HOST_FM_KEY
+    from elasticdl_tpu_torch.ps.service import snapshot_filename
+
+    t = time.perf_counter()
+    train = synthetic_criteo(os.path.join(out, "train.rio"),
+                             HOST_TASKS * HOST_MB_PER_TASK * HOST_BATCH, seed=13,
+                             container="recordio")
+    val = synthetic_criteo(os.path.join(out, "val.rio"), HOST_VAL, seed=14,
+                           container="recordio")
+    gen_s = time.perf_counter() - t
+    ckpt, pods = os.path.join(out, "ckpt"), os.path.join(out, "pods")
+    steps = HOST_TASKS * HOST_MB_PER_TASK
+    w0, ps1 = f"{HOST_JOB}-worker-0", f"{HOST_JOB}-ps-1"
+    cmd = [sys.executable, "-m", "elasticdl_tpu_torch.client.main", "train", "--local",
+           f"--job_name={HOST_JOB}", "--model_def=deepfm.model_spec", "--learning_rate=1e-3",
+           "--model_params=" + ";".join(
+               f"{k}={','.join(map(str, v)) if isinstance(v, tuple) else v}"
+               for k, v in HOST_WIDTH.items()),
+           f"--training_data={train}", f"--validation_data={val}",
+           f"--minibatch_size={HOST_BATCH}", f"--num_minibatches_per_task={HOST_MB_PER_TASK}",
+           "--num_epochs=1", f"--evaluation_steps={steps}",
+           f"--checkpoint_steps={HOST_CKPT_STEPS}", f"--checkpoint_dir={ckpt}",
+           f"--pod_log_dir={pods}", "--num_ps_pods=2", "--use_async=true",
+           "--max_worker_relaunch=2",
+           f"--chaos=stall:worker={w0},point=task,step={HOST_CKPT_STEPS},ms={HOST_STALL_MS}"]
+    cli_path = os.path.join(out, "cli.log")
+    first = os.path.join(ckpt, "host_stores", str(HOST_CKPT_STEPS))
+    t0 = time.time()
+    proc = _start_cli(cmd, cli_path)
+    try:
+        _wait_for(lambda: all(os.path.exists(os.path.join(first, snapshot_filename(
+            HOST_FM_KEY, s, 2))) for s in range(2)), "the first host-store snapshot", proc,
+            timeout_s=400)
+        _wait_for(lambda: "[graftchaos] stall" in _read(os.path.join(pods, f"{w0}.log")),
+                  "the worker's stall past the first checkpoint", proc, timeout_s=120)
+        pid = _ps_pid(_read(os.path.join(pods, f"{ps1}.log")))
+        t_kill = time.time()
+        os.kill(pid, signal.SIGKILL)
+        rc = proc.wait(timeout=400)
+        wall_s = time.time() - t0
+    finally:
+        _stop_cli(proc)
+    cli = _read(cli_path)
+    assert rc == 0, f"the host-tier job exited {rc}; see {cli_path}"
+    status = ast.literal_eval(cli.split("job finished: ", 1)[1].splitlines()[0])
+    relaunch = _read(os.path.join(pods, f"{ps1}-r1.log"))
+    restored = next(x for x in relaunch.splitlines() if "restored PS shard 1 from step" in x)
+    relaunch_s = _log_time(relaunch, "PS shard 1/2 serving") - t_kill
+    ev = _worker_events(_read(os.path.join(pods, f"{w0}.log")))
+    summary = ev["summary"]
+    manifest = read_manifest(ckpt)
+    assert status["finished"] and status["done"] == HOST_TASKS and status["abandoned"] == 0, status
+    assert manifest["step"] == summary["step"] == steps, (manifest, summary["step"])
+    assert restored.rstrip().endswith(f"from step {HOST_CKPT_STEPS}"), restored
+    assert f"pod {ps1} exited rc=-9 -> Failed" in cli
+    auc = status["eval_metrics"]["auc"]
+    assert status["eval_rounds"] >= 1 and 0.0 < auc < 1.0, status
+    assert summary["launches"] == {} or not any(summary["launches"].values())
+    p50 = statistics.median(summary["step_ms"]) if summary["step_ms"] else float("nan")
+    for s in range(2):
+        assert os.path.exists(os.path.join(ckpt, "host_stores", str(steps),
+                                           snapshot_filename(HOST_FM_KEY, s, 2)))
+    log(f"[host] (b) CLI job: data {gen_s:.1f} s; rc {rc} in {wall_s:.1f} s; {status['done']} "
+        f"tasks, step {summary['step']}; SIGKILL of PS shard 1 after the step-"
+        f"{HOST_CKPT_STEPS} snapshot, relaunched and serving after {relaunch_s:.2f} s ("
+        f"{restored.split('] ', 3)[-1]}); job step p50 {p50:.2f} ms (CUDA events between "
+        f"step ends, {summary['steps']} steps); eval AUC {auc:.4f}; on {card}")
+    log(f"[host] (b) worker phases (s): " + json.dumps(
+        {k: round(v, 3) for k, v in summary["phase_times"].items() if v}))
+    for path in (train, val):
+        os.remove(path)
+    return {"wall_s": wall_s, "gen_s": gen_s, "relaunch_s": relaunch_s,
+            "restored": restored.split("] ", 3)[-1], "step_p50_ms": p50,
+            "steps": summary["steps"], "eval": status["eval_metrics"], "ckpt": ckpt,
+            "manifest_step": manifest["step"], "phase_times": summary["phase_times"]}
+
+
+def _ps_pid(text: str) -> int:
+    """The pid in a PS pod's "PS shard i/n serving ... (pid N)" line."""
+    line = next(x for x in text.splitlines() if "serving" in x and "(pid " in x)
+    return int(line.rsplit("(pid ", 1)[1].split(")")[0])
+
+
+def _host_serving(card: str, ckpt: str) -> dict:
+    """(c) A replica on the card over (b)'s checkpoint, its rows from a
+    2-shard PS fleet restored from the same directory, behind the hot-id
+    cache: 64 requests; a publish invalidates the cache, and the answers are
+    then a fresh pull's."""
+    from elasticdl_tpu_torch.common import gauge as gaugelib
+    from elasticdl_tpu_torch.common.checkpoint import CheckpointManager
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.models import deepfm
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+    from elasticdl_tpu_torch.ps.service import PSServer, RemoteEmbeddingStore
+    from elasticdl_tpu_torch.serving.client import ServingClient
+    from elasticdl_tpu_torch.serving.server import ServingServer
+
+    spec = deepfm.model_spec(**HOST_WIDTH)
+    key = deepfm.HOST_FM_KEY
+    fleet = [PSServer(spec.host_io, shard=s, num_shards=2, gauges=gaugelib.Registry())
+             for s in range(2)]
+    t = time.perf_counter()
+    restored = [s.restore_latest(ckpt) for s in fleet]
+    restore_s = time.perf_counter() - t
+    for s in fleet:
+        s.start()
+    addrs = ",".join(s.address for s in fleet)
+    server = ServingServer(spec, checkpoint_dir=ckpt, ps_addresses=addrs, max_batch=64,
+                           batch_buckets=[HOST_REQUEST_ROWS], max_delay_ms=2,
+                           poll_interval_s=3600, device=HOST_DEVICE).start()
+    client = ServingClient(server.address)
+    rng = np.random.default_rng(15)
+    offsets = np.arange(26)
+
+    def request():
+        ids = (rng.zipf(1.2, (HOST_REQUEST_ROWS, 26)) * 7919 + offsets * 104729) % (1 << 20)
+        return {"dense": rng.integers(0, 1000, (HOST_REQUEST_ROWS, 13)).astype(np.float32),
+                "cat": ids.astype(np.int32)}
+
+    try:
+        client.wait_ready(30.0)
+        warm_s = server.warmup()
+        live_step = server.live_step
+        walls, stats0 = [], None
+        for i in range(HOST_REQUESTS):
+            if i == HOST_WARM_REQUESTS:
+                stats0 = client.model_info()["cache"][key]
+            feats = request()
+            t = time.perf_counter()
+            outs = client.predict(feats)["outputs"]
+            walls.append((time.perf_counter() - t) * 1e3)
+            assert len(outs) == HOST_REQUEST_ROWS and all(0.0 <= o <= 1.0 for o in outs)
+        stats = client.model_info()["cache"][key]
+        hits, misses = stats["hits"] - stats0["hits"], stats["misses"] - stats0["misses"]
+        hit_rate = hits / max(hits + misses, 1)
+        # The flush alone, on one full bucket: the rows come from the cache.
+        batch = dict(feats, __mask__=np.ones(HOST_REQUEST_ROWS, np.float32))
+        flush_ms = []
+        for _ in range(20):
+            t = time.perf_counter()
+            server._run_batch(dict(batch), HOST_REQUEST_ROWS)
+            flush_ms.append((time.perf_counter() - t) * 1e3)
+        # Training pushes under the replica, then a publish: the cache is
+        # emptied, and the next answer equals a fresh pull's on the same model.
+        before = np.asarray(client.predict(feats)["outputs"])
+        ids = np.unique(spec.host_io[key].ids_fn(feats))
+        store = RemoteEmbeddingStore(key, spec.host_io[key].dim, addrs.split(","))
+        for _ in range(30):
+            store.push_grad(ids, np.ones((ids.size, store.dim), np.float32))
+        store.close()
+        assert np.array_equal(np.asarray(client.predict(feats)["outputs"]), before)
+        mgr = CheckpointManager(ckpt)
+        mgr.save(live_step + 1, mgr.restore(live_step), wait=True)
+        mgr.publish(live_step + 1)
+        invalidations = client.model_info()["cache"][key]["invalidations"]
+        assert server._watcher.poke()
+        info = client.model_info()
+        assert info["step"] == live_step + 1
+        assert info["cache"][key]["invalidations"] == invalidations + 1
+        assert info["cache"][key]["size"] == 0
+        after = np.asarray(client.predict(feats)["outputs"])
+        fresh = Trainer(spec, device=HOST_DEVICE, config=JobConfig(ps_addresses=addrs))
+        with server._state_lock:
+            model = server._live.state
+        want = fresh.run_predict_step(model, feats).float().cpu().numpy()
+        moved = float(np.abs(after - before).max())
+        fresh_err = float(np.abs(after - want).max())
+        assert moved > 1e-4 and fresh_err <= 1e-6, (moved, fresh_err)
+    finally:
+        client.close()
+        server.stop(grace=0)
+        for s in fleet:
+            s.stop(grace=0)
+    p50_req, p50_flush = statistics.median(walls), statistics.median(flush_ms)
+    log(f"[host] (c) replica over (b)'s step {live_step} with a 2-shard fleet (restored "
+        f"{restored} in {restore_s:.2f} s; warm-up {warm_s:.2f} s): {HOST_REQUESTS} requests "
+        f"of {HOST_REQUEST_ROWS}, request p50 {p50_req:.3f} ms, flush p50 {p50_flush:.3f} ms; "
+        f"hot-id cache hit rate after {HOST_WARM_REQUESTS} warm-up requests {hit_rate:.4f} "
+        f"({hits} hits, {misses} misses, {stats['size']} rows); after 30 pushes and a publish "
+        f"the cache was emptied and the answers moved by {moved:.4g}, equal to a fresh "
+        f"pull's within {fresh_err:.3g}; on {card}")
+    return {"restored": restored, "restore_s": restore_s, "request_p50_ms": p50_req,
+            "flush_p50_ms": p50_flush, "hit_rate": hit_rate, "cache": stats,
+            "moved": moved, "fresh_err": fresh_err}
+
+
+def phase_host_tier(card: str) -> dict:
+    """Phase 13: the PS host tier on the card.  (a) In process: "auto"
+    resolves the full-width table to the host tier; the card against the
+    CPU at f32 over 3 steps, each side with a fresh store; on one store, 5
+    warm steps and pairs of timed sync and use_async (depth 1) runs at
+    B=8192, the order alternating, with the sync step in its parts; the
+    store's rows and the process's resident memory.
+    (b) The CLI job with two PS pods, one SIGKILLed.  (c) A replica with
+    ``ps_addresses`` behind the hot-id cache."""
+    import shutil
+
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.models import deepfm
+    from elasticdl_tpu_torch.ops import kernels
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    out = os.path.join(REPO, "chiprun_out", "host")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    launched = dict(kernels.counts())
+    key = deepfm.HOST_FM_KEY
+    spec = deepfm.model_spec(**HOST_WIDTH)
+    assert sorted(spec.host_io) == [key] and not spec.embedding_tables, "auto -> host tier"
+
+    # (a) The card against the CPU at f32, 3 steps, fresh stores each side.
+    # Held at DFM_F32_REL (norm over norm): every step's loss, and the first
+    # step's row gradients (pushed) and dense gradients, which both sides
+    # compute from the same weights and rows; the stores' rows after the 3
+    # steps at HOST_ROW_FLIPS (see there).  The later steps' gradients are
+    # reported: they start from rows that differ by those flips.
+    spec32 = deepfm.model_spec(**HOST_WIDTH, compute_dtype="float32")
+    sides = {}
+    batches = _host_batches(HOST_PARITY_STEPS, seed=31)
+    tree = None
+    for dev in ("cpu", HOST_DEVICE):
+        tr = Trainer(spec32, device=dev)
+        state = tr.init_state(0 if tree is None else None)
+        if tree is None:
+            tree = deepfm.params_to_jax(state.model)
+        else:
+            state.model.load_jax_params(tree)
+        pushed = []
+        store = tr._host_stores[key]
+        push = store.push_grad
+        store.push_grad = lambda i, g, push=push, pushed=pushed: (pushed.append(np.array(g)),
+                                                                  push(i, g))[1]
+        state, metrics = tr.run_train_steps(state, batches[:1])
+        first = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+        state, more = tr.run_train_steps(state, batches[1:])
+        sides[dev] = (tr, state, [float(m["loss"]) for m in metrics + more], pushed, first)
+    (ctr, cs, closs, cpush, cfirst), (gtr, gs, gloss, gpush, gfirst) = (
+        sides["cpu"], sides[HOST_DEVICE])
+    parity = {f"loss{i}": abs(a - b) / abs(b) for i, (a, b) in enumerate(zip(gloss, closs))}
+    parity["row_grad0"] = _rel(torch.from_numpy(gpush[0]), torch.from_numpy(cpush[0]))
+    parity.update({f"grad0/{n}": _rel(g, cfirst[n]) for n, g in gfirst.items()})
+    later = {f"row_grad{i}": _rel(torch.from_numpy(gpush[i]), torch.from_numpy(cpush[i]))
+             for i in range(1, HOST_PARITY_STEPS)}
+    ids = np.unique(np.concatenate([spec.host_io[key].ids_fn(b).ravel() for b in batches]))
+    rows = {dev: sides[dev][0]._host_stores[key].pull(ids) for dev in sides}
+    diff = np.abs(rows[HOST_DEVICE] - rows["cpu"])
+    flips = int((diff > 1e-4).sum())
+    rows_rel = _rel(torch.from_numpy(rows[HOST_DEVICE]), torch.from_numpy(rows["cpu"]))
+    cpu_params = dict(cs.model.named_parameters())
+    params_rel = {n: _rel(p, cpu_params[n]) for n, p in gs.model.named_parameters()}
+    worst = max(parity, key=parity.get)
+    log(f"[host] (a) card vs CPU, f32, {HOST_PARITY_STEPS} steps of {HOST_BATCH}: losses "
+        + ", ".join(f"{x:.6f}" for x in gloss) + " (rel " + ", ".join(
+            f"{parity[f'loss{i}']:.3g}" for i in range(HOST_PARITY_STEPS))
+        + f"); step 1's row gradients {parity['row_grad0']:.3g}; largest held reading {worst} "
+        f"{parity[worst]:.3g} (limit {DFM_F32_REL}); later steps' row gradients "
+        + ", ".join(f"{v:.3g}" for v in later.values()) + f"; {ids.size} touched rows: rel "
+        f"{rows_rel:.3g}, {flips} of {diff.size} values off by more than 1e-4 (largest "
+        f"{diff.max():.3g}; limit a share of {HOST_ROW_FLIPS}); parameters after the steps "
+        "rel " + json.dumps({k: float(f"{v:.3g}") for k, v in params_rel.items()}))
+    assert all(v <= DFM_F32_REL for v in parity.values()), parity
+    assert flips <= HOST_ROW_FLIPS * diff.size, (flips, diff.size)
+    parity.update(later, rows=rows_rel, row_flips=flips, row_values=int(diff.size),
+                  params_after=params_rel)
+    del sides, ctr, cs, gtr, gs, rows, diff
+
+    # (a) After 5 warm steps, HOST_PAIRS pairs of a sync and an async
+    # (depth 1) run on one trainer and store, the order alternating (sync
+    # first in even pairs): a drift along the call (the store fills) moves
+    # both halves of a pair alike, and each pair gives its own ratio.  Then
+    # the sync step in its parts.
+    tr = Trainer(spec, device=HOST_DEVICE, config=JobConfig(async_staleness=1))
+    state = tr.init_state(0)
+    state, _ = tr.run_train_steps(state, _host_batches(HOST_WARM, seed=40))
+    # The store's own time in each pull and push call (host clock; a push's
+    # wait for its gradients comes before the call).
+    store = tr._host_stores[key]
+    spent = {"pull": [], "push": []}
+
+    def timed(fn, name):
+        def call(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            spent[name].append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    store.pull, store.push_grad = timed(store.pull, "pull"), timed(store.push_grad, "push")
+    pairs = []
+    for i in range(HOST_PAIRS):
+        pair = {}
+        for j, mode in enumerate(("sync", "async") if i % 2 == 0 else ("async", "sync")):
+            batches = _host_batches(HOST_PAIR_STEPS, seed=41 + 2 * i + j)
+            for v in spent.values():
+                v.clear()
+            state, step_ms, eps = _host_timed(tr, state, batches, mode == "async")
+            pair[mode] = {"p50_ms": statistics.median(step_ms), "examples_per_s": eps,
+                          "pull_ms": statistics.median(spent["pull"]),
+                          "push_ms": statistics.median(spent["push"])}
+        pair["ratio"] = pair["async"]["p50_ms"] / pair["sync"]["p50_ms"]
+        pairs.append(pair)
+    del store.pull, store.push_grad
+    ratios = [p["ratio"] for p in pairs]
+    ratio = statistics.median(ratios)
+    store_rows = len(tr._host_stores[key])
+    rss = _rss_gib()
+    state, split = _host_split(tr, state, _host_batches(HOST_SPLIT_STEPS, seed=42))
+
+    log(f"[host] (a) in process at B={HOST_BATCH}, one store, {HOST_WARM} warm-up steps, then "
+        f"{HOST_PAIRS} pairs of {HOST_PAIR_STEPS} steps sync and async (depth 1), sync first "
+        "in even pairs; p50 ms sync/async (ratio): " + "; ".join(
+            f"{p['sync']['p50_ms']:.2f}/{p['async']['p50_ms']:.2f} ({p['ratio']:.3f})"
+            for p in pairs)
+        + f"; median ratio {ratio:.3f} (range {min(ratios):.3f}-{max(ratios):.3f}); examples/s "
+        f"sync {statistics.median(p['sync']['examples_per_s'] for p in pairs):.0f}, async "
+        f"{statistics.median(p['async']['examples_per_s'] for p in pairs):.0f} (medians); "
+        "the store's pull and push ms, sync/async (medians a run): " + "; ".join(
+            f"{p['sync']['pull_ms']:.2f}/{p['async']['pull_ms']:.2f} and "
+            f"{p['sync']['push_ms']:.2f}/{p['async']['push_ms']:.2f}" for p in pairs)
+        + f"; store rows {store_rows} after all runs; the process's resident memory "
+        f"{rss:.2f} GiB; on {card}")
+    log("[host] (a) the sync step's parts (ms, medians of "
+        f"{HOST_SPLIT_STEPS}): pull {split['pull']:.3f}, H2D {split['h2d']:.3f} (events), device "
+        f"{split['device']:.3f} (events, the gradient's copy out included; host enqueue "
+        f"{split['enqueue']:.3f}), wait for the copy {split['wait']:.3f}, push "
+        f"{split['push']:.3f}; the 7.67 MB D2H copy alone {split['d2h']:.4f}")
+    del tr, state
+    torch.cuda.empty_cache()
+
+    # (b) The job, then (c) serving over its checkpoint.
+    job = _host_job(card, out)
+    serving = _host_serving(card, job["ckpt"])
+    shutil.rmtree(job["ckpt"])  # the host stores' snapshots: too much to bring back
+    assert kernels.counts() == launched, "phase 13 launches no flash kernel"
+    wall = time.perf_counter() - t_phase
+    log(f"[host] phase 13 in {wall:.1f} s")
+    return {"config": dict(HOST_WIDTH, batch=HOST_BATCH, compute_dtype="bfloat16",
+                           table_rows=26 * HOST_WIDTH["buckets_per_feature"]),
+            "parity": parity, "pairs": pairs, "async_over_sync": ratio, "split": split,
+            "rss_gib": rss, "job": job, "serving": serving, "wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA card",
@@ -2876,6 +3363,7 @@ def main() -> int:
     log(card)
     report["ps"] = phase_ps(card)
     report["opt_shard"] = phase_opt_shard(card)
+    report["host_tier"] = phase_host_tier(card)
     report["wall_s"] = time.perf_counter() - t0
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

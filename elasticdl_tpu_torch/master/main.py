@@ -7,7 +7,10 @@ PodManager (worker fleet), then supervises the job to completion:
 
 - dead-worker reaping (stale heartbeats -> membership bump -> task requeue),
 - pod failure events -> membership removal + relaunch (PodManager policy),
-- end-of-job: final eval round, fleet teardown, job status summary.
+- end-of-job: final eval round, fleet teardown, job status summary,
+- the PS fleet (``--num_ps_pods``): the host tier's service shards
+  (``python -m elasticdl_tpu_torch.ps.main``), launched and ready before
+  the workers, relaunched on failure.
 
 Run as ``python -m elasticdl_tpu_torch.master.main`` (the CLI's train/evaluate/
 predict subcommands spawn exactly this), or embed via ``Master`` for tests.
@@ -46,6 +49,24 @@ from elasticdl_tpu_torch.master.task_dispatcher import (
 
 logger = get_logger("master.main")
 
+
+def _pick_free_ports(n: int) -> List[int]:
+    """``n`` distinct currently-free localhost ports (bind-0 then release).
+    Racy by nature (another process could take one before the PS pod
+    binds), but the pod's relaunch absorbs a lost bind."""
+    import socket
+
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            s.bind(("", 0))
+            socks.append(s)
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
 #: The coarse task-progress watermark under checkpoint_dir: the restart
 #: fallback when the journal is missing/corrupt, and the consistency
 #: anchor tying task progress to the restorable model step.
@@ -61,10 +82,9 @@ class Master:
         pod_backend: Optional[PodBackend] = None,
         port: int = 0,
         heartbeat_timeout_s: float = 30.0,
+        ps_backend: Optional[PodBackend] = None,
     ):
         config.validate()
-        if config.num_ps_pods > 0:
-            self._build_ps_backend(config)  # the host tier is not ported
         self.config = config
         if config.chaos:
             # graftchaos (r18): the master is now a fault TARGET too
@@ -256,6 +276,43 @@ class Master:
         # Workers learn the master address through the config bus.
         config.master_addr = self.server.address
 
+        # -- PS fleet (the host tier's service shards, ps/service.py) --
+        # Launched BEFORE the workers, so config.ps_addresses is on their
+        # config bus; fixed in size (the id mod n partition: resizing a live
+        # fleet would move every row's owner); a shard relaunches on failure
+        # and restores its slice from the newest snapshot (ps/main.py).  It
+        # runs for every job type: evaluation or prediction over a PS-trained
+        # checkpoint needs the shards serving their restored slices.
+        self.ps_manager: Optional[PodManager] = None
+        if config.num_ps_pods > 0:
+            ps_env: Dict[str, str] = {}
+            if config.pod_backend == "kubernetes":
+                # Cross-pod DNS needs a governing headless service named
+                # "<job>-ps"; every shard serves the fixed PS port at its
+                # slot's stable hostname (render_ps_pod_manifest), so a
+                # relaunched shard answers at the address workers hold.
+                port_ps = 2222
+                ps_env["ELASTICDL_PS_PORTS"] = ",".join(
+                    str(port_ps) for _ in range(config.num_ps_pods)
+                )
+                hosts = [
+                    f"{config.job_name}-ps-{i}.{config.job_name}-ps."
+                    f"{config.namespace}.svc:{port_ps}"
+                    for i in range(config.num_ps_pods)
+                ]
+            else:
+                ports = _pick_free_ports(config.num_ps_pods)
+                ps_env["ELASTICDL_PS_PORTS"] = ",".join(map(str, ports))
+                hosts = [f"localhost:{p}" for p in ports]
+            config.ps_addresses = ",".join(hosts)
+            self.ps_manager = PodManager(
+                ps_backend if ps_backend is not None
+                else self._build_ps_backend(config),
+                config,
+                worker_env=ps_env,
+                name_prefix=f"{config.job_name}-ps",
+            )
+
         # -- worker fleet --
         self.pod_manager = PodManager(
             pod_backend if pod_backend is not None else self._build_backend(config),
@@ -300,15 +357,18 @@ class Master:
         )
 
     def _collect_pod_gauges(self) -> None:
-        """Scrape-time collector: PodManager fleet churn into the master
-        registry."""
+        """Scrape-time collector: PodManager fleet churn (worker and PS
+        fleets) into the master registry."""
         reg = self.servicer.fleet.registry
-        for key, v in self.pod_manager.counts().items():
-            reg.gauge(
-                f"edl_pods_{key}",
-                "pod-fleet state (PodManager.counts)",
-                labels={"fleet": "worker"},
-            ).set(float(v))
+        for prefix, mgr in (("worker", self.pod_manager), ("ps", self.ps_manager)):
+            if mgr is None:
+                continue
+            for key, v in mgr.counts().items():
+                reg.gauge(
+                    f"edl_pods_{key}",
+                    "pod-fleet state (PodManager.counts)",
+                    labels={"fleet": prefix},
+                ).set(float(v))
 
     def _fleet_died_with_old_master(self) -> Optional[bool]:
         """Whole-job-restart probe: True when the pod reattach registry
@@ -483,10 +543,45 @@ class Master:
 
     @staticmethod
     def _build_ps_backend(config: JobConfig) -> PodBackend:
-        raise NotImplementedError(
-            "PS pods (num_ps_pods) are not ported yet (ROADMAP, PyTorch port "
-            "queue: the PS host tier)"
+        if config.pod_backend == "kubernetes":
+            from elasticdl_tpu_torch.master.pod_manager import (
+                KubernetesPodBackend,
+                render_ps_pod_manifest,
+            )
+
+            return KubernetesPodBackend(
+                config, namespace=config.namespace,
+                renderer=render_ps_pod_manifest, image=config.worker_image,
+            )
+        if config.pod_backend == "fake":
+            from elasticdl_tpu_torch.master.pod_manager import FakePodBackend
+
+            return FakePodBackend()
+        return ProcessPodBackend(
+            argv=[sys.executable, "-m", "elasticdl_tpu_torch.ps.main"],
+            log_dir=config.pod_log_dir or None,
         )
+
+    def _wait_ps_ready(self, timeout_s: float = 60.0) -> None:
+        """Block until every PS shard's channel is ready: workers launched
+        against an unreachable fleet would spend their relaunch budgets."""
+        if self.ps_manager is None or self.config.pod_backend == "fake":
+            return
+        import grpc
+
+        from elasticdl_tpu_torch.common.rpc import wait_channel_ready
+
+        for addr in self.config.ps_addresses.split(","):
+            channel = grpc.insecure_channel(addr)
+            try:
+                wait_channel_ready(
+                    channel, service="ps", budget_s=timeout_s,
+                    terminal=lambda e, n, t, addr=addr: RuntimeError(
+                        f"PS shard at {addr} not reachable after {t:.0f}s"
+                    ),
+                )
+            finally:
+                channel.close()
 
     @staticmethod
     def _build_backend(config: JobConfig) -> PodBackend:
@@ -524,6 +619,12 @@ class Master:
         self.server.start()
         last_reap = time.monotonic()
         try:
+            if self.ps_manager is not None:
+                # The shards come up BEFORE the workers dial them; inside
+                # the try, so a readiness timeout still tears down the pods
+                # already launched.
+                self.ps_manager.start(self.config.num_ps_pods)
+                self._wait_ps_ready()
             self.rendezvous.set_expected(self.config.num_workers)
             self.pod_manager.start()
             while not self.servicer.job_finished():
@@ -563,6 +664,10 @@ class Master:
         if self.metrics_server is not None:
             self.metrics_server.stop()
         self.pod_manager.stop()
+        if self.ps_manager is not None:
+            # After the workers: their final checkpoint fans a Save out to
+            # the shards, which must still be serving.
+            self.ps_manager.stop()
         self.server.stop()
         if self.metrics_writer is not None:
             self.metrics_writer.close()

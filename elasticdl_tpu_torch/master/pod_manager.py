@@ -654,12 +654,43 @@ def render_worker_pod_manifest(
     return manifest
 
 
+def render_ps_pod_manifest(
+    config: JobConfig,
+    pod_name: str,
+    env: Dict[str, str],
+    image: str = "elasticdl-tpu:latest",
+) -> dict:
+    """A V1Pod dict for one PS shard of the port (``python -m
+    elasticdl_tpu_torch.ps.main``): CPU-only, no GPU resource, its memory
+    dominated by its slice of the host-tier tables.  Cross-pod reachability
+    relies on a headless service named ``<job>-ps`` governing these pods
+    (``master/main.py`` renders shard addresses as
+    ``<job>-ps-<slot>.<job>-ps.<namespace>.svc:2222``)."""
+    manifest = render_base_pod_manifest(
+        config.job_name,
+        pod_name,
+        "ps",
+        image,
+        ["python", "-m", "elasticdl_tpu_torch.ps.main"],
+        env,
+    )
+    # Per-pod DNS under the headless service needs both hostname and
+    # subdomain.  The hostname comes from the shard's SLOT, not the pod
+    # name: a relaunched shard gets a fresh pod name but must answer at the
+    # address the master gave the workers at job start.
+    slot = env.get("ELASTICDL_WORKER_SLOT", "0")
+    manifest["spec"]["hostname"] = f"{config.job_name}-ps-{slot}"
+    manifest["spec"]["subdomain"] = f"{config.job_name}-ps"
+    return manifest
+
+
 class KubernetesPodBackend(PodBackend):
     """Drives rendered manifests through the kubernetes python client.
 
     Import-gated: constructing it without the ``kubernetes`` package raises —
     the manifest renderer above stays testable anywhere.  ``renderer`` picks
-    the manifest shape (worker pods by default).
+    the manifest shape (worker pods by default; ``render_ps_pod_manifest``
+    for PS shards).
     """
 
     def __init__(

@@ -1,5 +1,6 @@
-"""DeepFM on Criteo — the PyTorch port of ``elasticdl_tpu/models/deepfm.py``
-(the mesh tier on one device).
+"""DeepFM on Criteo — the PyTorch port of ``elasticdl_tpu/models/deepfm.py``:
+the device tier (the fused table a parameter) and the host tier (the table
+in the native host store).
 
 Criteo schema: 13 numeric features (log1p-normalised) and 26 categorical
 ones, hashed into ONE fused table (``models/tabular.py``).  The model is a
@@ -27,8 +28,17 @@ default: float16 log1p dense, uint16 bucket ids, uint8 labels, 79 bytes an
 example), which the trainer uploads as they are and the model widens on
 the device.  The optimizer is ``torch.optim.Adam`` with optax.adam's
 constants, dense over the whole table (not ``SparseAdam``, which updates
-only the touched rows).  The host tier (``host_tier=True``) is a later
-slice of the port.
+only the touched rows).
+
+The host tier (``host_tier=True``, or ``"auto"`` past the HBM guard): the
+module holds no ``fm_table``; the FM rows (``embedding_dim + 1`` values an
+id, as in the device table) live in the native host store under
+``HOST_FM_KEY`` (``spec.host_io``: adagrad at ten times the learning rate,
+init scale 0.01), the trainer pulls each batch's rows by ``_host_ids`` (the
+raw 32-bit ids hashed on the host, ``fuse_feature_ids_np``) and the forward
+reads them from ``batch[HOST_FM_KEY]``.  It needs raw batches
+(``criteo_feed``): the preprocessed feed's uint16 ids are bucket ids, not
+the raw ids the host hash takes.
 """
 
 from __future__ import annotations
@@ -43,11 +53,12 @@ from torch import nn
 
 from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.data.codecs import criteo_feed, criteo_feed_pre
-from elasticdl_tpu_torch.models.spec import EmbeddingTableSpec, ModelSpec
+from elasticdl_tpu_torch.models.spec import EmbeddingTableSpec, HostTableIO, ModelSpec
 from elasticdl_tpu_torch.models.tabular import (
     bce_loss,
     binary_metrics,
     fuse_feature_ids,
+    fuse_feature_ids_np,
     log_normalize,
 )
 from elasticdl_tpu_torch.ops.embedding import (
@@ -60,6 +71,9 @@ from elasticdl_tpu_torch.ops.embedding import (
 
 NUM_DENSE = 13
 NUM_CAT = 26
+
+#: The batch key of the host-tier FM rows (the reference's).
+HOST_FM_KEY = "__host__fm_table"
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -81,13 +95,17 @@ class DeepFM(nn.Module):
         hidden: tuple,
         compute_dtype: torch.dtype,
         device: torch.device,
+        host_tier: bool = False,
     ):
         super().__init__()
         self.buckets_per_feature = buckets_per_feature
         self.embedding_dim = embedding_dim
         self.compute_dtype = compute_dtype
-        rows, width = table_shape(NUM_CAT * buckets_per_feature, embedding_dim + 1)
-        self.fm_table = nn.Parameter(torch.zeros(rows, width, device=device))
+        self.host_tier = host_tier
+        if not host_tier:
+            # The host tier keeps no device table: its rows arrive in the batch.
+            rows, width = table_shape(NUM_CAT * buckets_per_feature, embedding_dim + 1)
+            self.fm_table = nn.Parameter(torch.zeros(rows, width, device=device))
         self.dense_linear = _Linear(NUM_DENSE, 1, device)
         layers: Dict[str, nn.Module] = {}
         in_dim = NUM_CAT * embedding_dim + NUM_DENSE
@@ -101,14 +119,14 @@ class DeepFM(nn.Module):
         """The reference's init from a seeded generator: the FM columns
         normal x 0.01, the first-order column and every bias zero, the MLP
         weights truncated-normal Glorot (std sqrt(2/(in+out)) / .8796, cut
-        at two of them)."""
+        at two of them).  The host tier's rows are the store's to init."""
         vocab, dim = NUM_CAT * self.buckets_per_feature, self.embedding_dim
-        dev = self.fm_table.device
         with torch.no_grad():
-            logical = torch.zeros(vocab, dim + 1, device=dev)
-            logical[:, :dim].normal_(0.0, 1.0, generator=generator).mul_(0.01)
-            self.fm_table.copy_(pack_table(logical, dim + 1))
-            del logical
+            if not self.host_tier:
+                logical = torch.zeros(vocab, dim + 1, device=self.fm_table.device)
+                logical[:, :dim].normal_(0.0, 1.0, generator=generator).mul_(0.01)
+                self.fm_table.copy_(pack_table(logical, dim + 1))
+                del logical
             for layer in self.mlp.values():
                 fan_in, fan_out = layer.w.shape
                 std = math.sqrt(2.0 / (fan_in + fan_out)) / 0.87962566103423978
@@ -118,7 +136,8 @@ class DeepFM(nn.Module):
             self.dense_linear.b.zero_()
 
     def load_jax_params(self, tree: Dict[str, Any]) -> "DeepFM":
-        """Copy a JAX ``deepfm`` params tree (numpy arrays) into this module."""
+        """Copy a JAX ``deepfm`` params tree (numpy arrays) into this module
+        (a host-tier tree has no ``fm_table``, as this module then has none)."""
 
         def put(p: torch.Tensor, value: Any) -> None:
             arr = np.array(value, np.float32)  # a writable copy
@@ -126,8 +145,13 @@ class DeepFM(nn.Module):
                 raise ValueError(f"shape {arr.shape} does not match {tuple(p.shape)}")
             p.copy_(torch.from_numpy(arr))
 
+        if ("fm_table" in tree) == self.host_tier:
+            raise ValueError(
+                f"params tree {'with' if 'fm_table' in tree else 'without'} fm_table "
+                f"does not fit a model with host_tier={self.host_tier}")
         with torch.no_grad():
-            put(self.fm_table, tree["fm_table"])
+            if not self.host_tier:
+                put(self.fm_table, tree["fm_table"])
             put(self.dense_linear.w, tree["dense_linear"]["w"])
             put(self.dense_linear.b, tree["dense_linear"]["b"])
             if sorted(tree["mlp"]) != sorted(self.mlp):
@@ -146,13 +170,18 @@ class DeepFM(nn.Module):
         # is thin).
         d = batch["dense"]
         dense = d.float() if d.dtype == torch.float16 else log_normalize(d)
-        c = batch["cat"]
-        if c.dtype == torch.uint16:
-            offsets = torch.arange(NUM_CAT, dtype=torch.int64, device=c.device)
-            ids = (c.view(torch.int16).to(torch.int64) & 0xFFFF) + offsets * self.buckets_per_feature
+        if HOST_FM_KEY in batch:
+            # The host tier: rows pulled from the store and placed by the
+            # trainer; their gradient goes back to the store.
+            vecs = batch[HOST_FM_KEY]  # [b, 26, dim + 1]
         else:
-            ids = fuse_feature_ids(c, self.buckets_per_feature)  # [b, 26]
-        vecs = embedding_lookup(self.fm_table, ids, ctx, dim=dim + 1)
+            c = batch["cat"]
+            if c.dtype == torch.uint16:
+                offsets = torch.arange(NUM_CAT, dtype=torch.int64, device=c.device)
+                ids = (c.view(torch.int16).to(torch.int64) & 0xFFFF) + offsets * self.buckets_per_feature
+            else:
+                ids = fuse_feature_ids(c, self.buckets_per_feature)  # [b, 26]
+            vecs = embedding_lookup(self.fm_table, ids, ctx, dim=dim + 1)
         emb, lin = vecs[..., :dim], vecs[..., dim]  # [b, 26, dim], [b, 26]
 
         emb = emb.to(cd)
@@ -224,9 +253,10 @@ def _init(
     embedding_dim: int = 8,
     hidden: tuple = (400, 400),
     compute_dtype: torch.dtype = torch.bfloat16,
+    host_tier: bool = False,
 ) -> DeepFM:
     dev = resolve_device(device)
-    model = DeepFM(buckets_per_feature, embedding_dim, hidden, compute_dtype, dev)
+    model = DeepFM(buckets_per_feature, embedding_dim, hidden, compute_dtype, dev, host_tier)
     if seed is not None:
         model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
     return model
@@ -240,11 +270,13 @@ def params_from_jax(
     device: Any = None,
 ) -> DeepFM:
     """The port's model holding a JAX ``deepfm`` params tree (numpy arrays,
-    as ``jax.device_get`` returns them)."""
+    as ``jax.device_get`` returns them); a tree without ``fm_table`` (the
+    host tier's) gives a host-tier model, whose rows carry across as the
+    native store's file."""
     n_hidden = len(tree["mlp"]) - 1
     hidden = tuple(np.shape(tree["mlp"][f"layer{i}"]["w"])[1] for i in range(n_hidden))
     model = _init(None, device, buckets_per_feature, embedding_dim, hidden,
-                  _DTYPES[compute_dtype])
+                  _DTYPES[compute_dtype], host_tier="fm_table" not in tree)
     return model.load_jax_params(tree)
 
 
@@ -253,16 +285,20 @@ def params_to_jax(model: DeepFM) -> Dict[str, Any]:
     ``deepfm`` params tree of f32 numpy arrays."""
 
     def get(p: torch.Tensor) -> np.ndarray:
-        return p.detach().float().cpu().numpy()
+        # A copy on either device: a CPU tensor's numpy view would follow
+        # the module's later in-place updates.
+        return p.detach().to("cpu", torch.float32, copy=True).numpy()
 
     def linear(layer: _Linear) -> Dict[str, np.ndarray]:
         return {"w": get(layer.w), "b": get(layer.b)}
 
-    return {
-        "fm_table": get(model.fm_table),
+    tree = {
         "dense_linear": linear(model.dense_linear),
         "mlp": {name: linear(layer) for name, layer in model.mlp.items()},
     }
+    if not model.host_tier:
+        tree["fm_table"] = get(model.fm_table)
+    return tree
 
 
 def model_spec(
@@ -276,11 +312,13 @@ def model_spec(
 ) -> ModelSpec:
     """The reference's arguments and their ``"auto"`` resolution.
 
-    ``host_tier``: "auto" resolves to the host tier when the padded table
-    and its Adam moments would exceed the HBM guard (``ops.embedding``); the
-    host tier is not ported, so it raises.  ``pipeline_preprocess``: the
-    feature transforms in the native decoder (``criteo_feed_pre``); "auto"
-    turns it on whenever the bucket count fits uint16.
+    ``host_tier``: True places the FM table in the native host store;
+    "auto" does so when the padded table and its Adam moments would exceed
+    the HBM guard (``ops.embedding.exceeds_hbm_guard``, one device).
+    ``pipeline_preprocess``: the feature transforms in the native decoder
+    (``criteo_feed_pre``); "auto" turns it on for the device tier whenever
+    the bucket count fits uint16, and never for the host tier, whose host
+    hash needs the raw ids.
     """
     if isinstance(hidden, (list, tuple)):
         hidden = tuple(int(h) for h in hidden)
@@ -291,15 +329,11 @@ def model_spec(
     vocab, dim = NUM_CAT * buckets_per_feature, embedding_dim
     if host_tier == "auto":
         host_tier = exceeds_hbm_guard(vocab, dim + 1)
-    if host_tier:
-        raise NotImplementedError(
-            "deepfm host_tier (the FM table in the native host store) is not "
-            "ported yet (ROADMAP, PyTorch port queue: the PS host tier)"
-        )
+    host_tier = bool(host_tier)
     if pipeline_preprocess == "auto":
-        pipeline_preprocess = buckets_per_feature <= 65536
+        pipeline_preprocess = not host_tier and buckets_per_feature <= 65536
     pipeline_preprocess = bool(pipeline_preprocess)
-    if pipeline_preprocess and buckets_per_feature > 65536:
+    if pipeline_preprocess and (host_tier or buckets_per_feature > 65536):
         raise ValueError(
             "pipeline_preprocess requires the mesh-tier model and "
             "buckets_per_feature <= 65536"
@@ -308,7 +342,7 @@ def model_spec(
         name="deepfm",
         init=functools.partial(
             _init, buckets_per_feature=buckets_per_feature, embedding_dim=dim,
-            hidden=hidden, compute_dtype=_DTYPES[compute_dtype],
+            hidden=hidden, compute_dtype=_DTYPES[compute_dtype], host_tier=host_tier,
         ),
         apply=_apply,
         predict=_predict,
@@ -321,5 +355,24 @@ def model_spec(
             else criteo_feed
         ),
         example_batch=functools.partial(_example_batch, pre=pipeline_preprocess),
-        embedding_tables=[EmbeddingTableSpec(("fm_table",), vocab, dim + 1)],
+        embedding_tables=[] if host_tier else [EmbeddingTableSpec(("fm_table",), vocab, dim + 1)],
+        host_io=(
+            {
+                HOST_FM_KEY: HostTableIO(
+                    ids_fn=functools.partial(_host_ids, buckets_per_feature=buckets_per_feature),
+                    dim=dim + 1,
+                    optimizer="adagrad",
+                    learning_rate=learning_rate * 10,
+                    init_scale=0.01,
+                )
+            }
+            if host_tier
+            else {}
+        ),
     )
+
+
+def _host_ids(batch: Dict[str, np.ndarray], buckets_per_feature: int) -> np.ndarray:
+    """The host tier's fused ids of a numpy batch: the device hash's, bit
+    for bit (``fuse_feature_ids_np``)."""
+    return fuse_feature_ids_np(batch["cat"], buckets_per_feature)

@@ -29,6 +29,9 @@ over pytrees; here the state is an ``nn.Module`` and the functions take it:
   (``EmbeddingTableSpec``): under the ParameterServer strategy the
   trainer keeps only this rank's rows of each (``parallel/trainer.py``)
   and ``apply`` takes the trainer's ``ParallelContext`` as ``ctx``
+- ``host_io``                               the host-tier tables
+  (``HostTableIO``), keyed by the batch key ``apply`` reads their rows
+  under: the rows live in the native host store, not on the device
 
 The training fields default to None: a spec without them serves but does
 not train.
@@ -58,6 +61,32 @@ class EmbeddingTableSpec:
     dim: int
 
 
+@dataclasses.dataclass(frozen=True)
+class HostTableIO:
+    """One HOST-TIER embedding table: its rows live in the native C++ store
+    (``ps/host_store.HostEmbeddingStore``, or the PS service's shards), not
+    on the device; the reference's external-PS tier, for tables too large
+    for the card.
+
+    Each step the trainer computes the batch's ids on the host (``ids_fn``:
+    numpy batch -> int64 ids ``[b, F]``, equal to the model's own id math),
+    pulls their rows, places them on the device under the table's batch key
+    as a leaf the step differentiates, and pushes the rows' gradients back;
+    the store applies its own optimizer per distinct id with duplicates
+    summed first (IndexedSlices semantics, server side).
+    """
+
+    ids_fn: Callable[[Dict[str, np.ndarray]], Any]
+    dim: int
+    optimizer: str = "adagrad"
+    learning_rate: float = 0.01
+    init_scale: float = 0.05
+    # Sequence-parallel models only: ids_fn returns per-TOKEN ids [b, S(,
+    # ...)] whose dim 1 is the sequence dim, so the rows may shard with the
+    # sequence; without it the trainer refuses such a model.
+    per_token: bool = False
+
+
 @dataclasses.dataclass
 class ModelSpec:
     name: str
@@ -72,6 +101,10 @@ class ModelSpec:
     optimizer: Optional[Callable[..., Any]] = None  # (parameters) -> Optimizer
     feed: Optional[Callable[[Sequence[bytes]], Dict[str, np.ndarray]]] = None
     embedding_tables: List[EmbeddingTableSpec] = dataclasses.field(default_factory=list)
+    # Host-tier tables: batch key -> HostTableIO.  ``apply`` reads the
+    # injected rows from the batch under the key instead of looking up a
+    # parameter table.
+    host_io: Dict[str, HostTableIO] = dataclasses.field(default_factory=dict)
 
 
 def load_model_spec(model_zoo: str, model_def: str, **params: Any) -> ModelSpec:

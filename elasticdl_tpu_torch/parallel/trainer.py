@@ -9,8 +9,8 @@ Port of ``elasticdl_tpu/parallel/trainer.py``: ``TrainState``,
 (``run_predict_step``, ``build_predict_step``) the serving tier runs, and
 the canonical state (``host_state``, ``snapshot_state``,
 ``adopt_restored``: the reference's ``host_state``, ``snapshot_state``,
-``restore_template`` and ``adopt_restored``).  Host-tier tables and the
-fused scan variants are later slices of the port.
+``restore_template`` and ``adopt_restored``), and the host half of the
+host tier (below).  The fused scan variants are a later slice of the port.
 
 Data parallelism over a process group (``mesh``: ``parallel/mesh.py``):
 each rank owns one device and holds the whole state; every rank feeds the
@@ -73,19 +73,42 @@ With sharded state, ``snapshot_state`` (and ``host_state``) gathers the
 tables' rows and the flat moments from the ranks: a collective every rank
 must call at the same point; ``adopt_restored`` slices a canonical state
 into this rank's layout without one.
+
+**The host tier** (``spec.host_io``, the reference's pull/inject/push):
+each table's rows live in a native store, in this process
+(``HostEmbeddingStore``) or behind the PS service's shards
+(``RemoteEmbeddingStore``, when ``config.ps_addresses`` is set; a world of
+more than one rank needs it).  A step computes the batch's ids on the host,
+pulls their rows (this rank's contributor slice only), uploads them from
+pinned memory as a leaf the step differentiates, and right after
+``backward`` starts the copy of the leaf's gradient into pinned host memory
+with an event behind it (``HostGrad``); the push reads that copy and is the
+step's one wait for the device (the loss and the metrics stay there).  With
+``use_async`` up to ``async_staleness`` pushes stay outstanding while the
+next batches pull and their steps are enqueued: the reference's async-PS
+window, rows one (or D) pushes stale, the dense state exact.  A failed pull
+or push fails the run through ``TrainLoopError``; it is never skipped.
+Host stores checkpoint beside the canonical state as
+``host_stores/<step>/<key>.bin`` (native format), or, on a PS fleet, as each
+shard's own slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import os
+import shutil
+from collections import deque
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from elasticdl_tpu_torch.common import durable
 from elasticdl_tpu_torch.common.config import DistributionStrategy
 from elasticdl_tpu_torch.common.device import resolve_device, set_matmul_precision
+from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.metrics import HIST_PREFIX
 from elasticdl_tpu_torch.models.spec import EmbeddingTableSpec, ModelSpec
 from elasticdl_tpu_torch.ops.embedding import (
@@ -97,6 +120,8 @@ from elasticdl_tpu_torch.ops.embedding import (
 )
 from elasticdl_tpu_torch.parallel import collectives as coll
 from elasticdl_tpu_torch.parallel.mesh import Mesh
+
+logger = get_logger("parallel.trainer")
 
 #: The padding mask of a batch: real examples 1.0, padding 0.0.  The loss
 #: weighs by it; the model never sees it (the reference pops it too).
@@ -300,6 +325,30 @@ class _ZeroShards:
                 p.copy_(self.unflatten(full, e))
 
 
+class HostGrad:
+    """A host-tier table's gradient on its way to the store.  On the card
+    the copy into pinned host memory is started without waiting and an
+    event recorded behind it; ``numpy()`` waits for that event alone, the
+    step's one synchronisation with the device."""
+
+    __slots__ = ("tensor", "event")
+
+    def __init__(self, grad: torch.Tensor):
+        grad = grad.detach()
+        if grad.is_cuda:
+            self.tensor = torch.empty(grad.shape, dtype=grad.dtype, pin_memory=True)
+            self.tensor.copy_(grad, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.tensor, self.event = grad, None
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.tensor.numpy()
+
+
 def _zero_of(optimizer) -> Optional[_ZeroShards]:
     return getattr(optimizer, "_zero_shards", None)
 
@@ -345,6 +394,59 @@ class Trainer:
             "mask" in inspect.signature(spec.metrics).parameters
         )
         self._adopt_mesh_axes(mesh or Mesh({"dp": 1}))
+        # Host-tier tables (spec.host_io): in this process, or behind the
+        # PS service's shards (config.ps_addresses).  Replaced wholesale on
+        # a restore that re-initialises them (task loop only).
+        self._host_stores: Dict[str, Any] = {}  # single-writer: main
+        self._remote_ps = False
+        if spec.host_io:
+            self._host_stores = self._make_host_stores()
+
+    def _make_host_stores(self) -> Dict[str, Any]:
+        """The host-tier stores: one ``RemoteEmbeddingStore`` a table over
+        the PS fleet when ``config.ps_addresses`` is set (the only legal
+        layout in a world of several ranks, whose processes must share one
+        store), else in-process ``HostEmbeddingStore``s."""
+        spec = self.spec
+        if spec.batch_shard_dim != 0:
+            # Per-token tables only (ids [B, S]: the rows shard with the
+            # sequence); a [B, F] table would silently feature-slice.
+            not_per_token = [k for k, io in spec.host_io.items() if not io.per_token]
+            if not_per_token:
+                raise NotImplementedError(
+                    "host-tier tables under sequence parallelism must declare "
+                    f"per_token=True (ids [B, S]); table(s) {not_per_token} do not"
+                )
+            if self.mesh.size > 1:
+                raise NotImplementedError(
+                    "host-tier tables with sequence parallelism are single-process "
+                    "only; multi-process meshes need per-token process slicing"
+                )
+        addrs = [a.strip() for a in getattr(self.config, "ps_addresses", "").split(",")
+                 if a.strip()]
+        if addrs:
+            from elasticdl_tpu_torch.ps.service import RemoteEmbeddingStore
+
+            self._remote_ps = True
+            return {key: RemoteEmbeddingStore(key, io.dim, addrs)
+                    for key, io in spec.host_io.items()}
+        if self.mesh.size > 1:
+            raise NotImplementedError(
+                "host-tier embedding tables on a multi-process mesh need the PS "
+                "service tier: run with --num_ps_pods > 0 (or set --ps_addresses "
+                "to an external PS fleet)"
+            )
+        return self._local_host_stores()
+
+    def _local_host_stores(self) -> Dict[str, Any]:
+        from elasticdl_tpu_torch.ps.host_store import HostEmbeddingStore
+
+        return {
+            key: HostEmbeddingStore(dim=io.dim, optimizer=io.optimizer,
+                                    learning_rate=io.learning_rate,
+                                    init_scale=io.init_scale)
+            for key, io in self.spec.host_io.items()
+        }
 
     # ---- the mesh ----
 
@@ -538,36 +640,41 @@ class Trainer:
         (dim 0) at its contributor index, every rank feeding the same
         global batch (the reference's ``_place_global``).  One rank:
         placing is all it comes to."""
-        n = self.num_contributors()
-        if n > 1:
-            i = coll.contributor_index(self.mesh, self.contributor_axes)
-            parts = {}
-            for k, v in batch.items():
-                if np.ndim(v) == 0:
-                    parts[k] = v
-                    continue
-                if v.shape[0] % n:
-                    raise ValueError(
-                        f"batch dimension 0 of {k!r} (size {v.shape[0]}) not divisible "
-                        f"by its mesh axes {self.contributor_axes} (size {n})"
-                    )
-                size = v.shape[0] // n
-                parts[k] = v[i * size:(i + 1) * size]
-            batch = parts
+        if self.num_contributors() > 1:
+            batch = {k: v if np.ndim(v) == 0 else v[self._contributor_slice(k, v.shape[0])]
+                     for k, v in batch.items()}
         return {k: self._to_device(v) for k, v in batch.items()}
+
+    def _contributor_slice(self, key: str, n_examples: int) -> slice:
+        """This rank's contiguous slice of ``n_examples`` examples at its
+        contributor index: what it feeds of a global batch."""
+        n = self.num_contributors()
+        if n_examples % n:
+            raise ValueError(
+                f"batch dimension 0 of {key!r} (size {n_examples}) not divisible "
+                f"by its mesh axes {self.contributor_axes} (size {n})"
+            )
+        size = n_examples // n
+        i = coll.contributor_index(self.mesh, self.contributor_axes) if n > 1 else 0
+        return slice(i * size, (i + 1) * size)
 
     # ---- training ----
 
     def train_step(
         self, state: TrainState, batch: Dict[str, torch.Tensor]
-    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    ) -> Tuple[TrainState, Dict[str, torch.Tensor], Dict[str, HostGrad]]:
         """One step on a device batch: the loss (weighted by ``__mask__``
         when the loss takes one), its gradients, the optimizer update.
         Metrics stay on the device: ``loss`` is the weighted loss the step
         minimised; the others come from ``spec.metrics``, over real rows
         when both it and the loss take the mask, as in the reference.
         Histogram metrics (``HIST_PREFIX``, the AUC's) are evaluation
-        machinery and dropped here, as the reference's train step does."""
+        machinery and dropped here, as the reference's train step does.
+
+        Returns (state, metrics, ``{key: HostGrad}``).  With host-tier
+        tables the batch carries their rows under their keys; the step
+        differentiates them too, and the third value holds the rows'
+        gradients on their way to the host (empty without such tables)."""
         spec = self.spec
         if spec.loss is None or state.optimizer is None:
             raise ValueError(f"model {spec.name!r} declares no loss or optimizer: it cannot train")
@@ -575,9 +682,10 @@ class Trainer:
             return self._group_train_step(state, batch)
         batch = dict(batch)
         mask = batch.pop(MASK_KEY, None)
+        host_in = self._host_leaves(batch)
         model, optimizer = state.model, state.optimizer
         optimizer.zero_grad(set_to_none=True)
-        out = self._apply(model, batch, train=True)
+        out = self._apply(model, dict(batch, **host_in), train=True)
         masked = mask is not None and self._loss_takes_mask
         if masked:
             # The reference weighs a shard's loss by count/total over the
@@ -589,6 +697,7 @@ class Trainer:
         else:
             loss = spec.loss(out, batch)
         loss.backward()
+        host_grads = self._host_grads(host_in)
         optimizer.step()
         metrics = {}
         if spec.metrics is not None:
@@ -600,11 +709,23 @@ class Trainer:
                     raw = spec.metrics(out, batch)
             metrics = {k: v for k, v in raw.items() if not k.startswith(HIST_PREFIX)}
         metrics["loss"] = loss.detach()
-        return TrainState(state.step + 1, model, optimizer), metrics
+        return TrainState(state.step + 1, model, optimizer), metrics, host_grads
+
+    def _host_leaves(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Pop the host-tier rows out of ``batch`` as leaves the step
+        differentiates."""
+        return {k: batch.pop(k).detach().requires_grad_()
+                for k in self.spec.host_io if k in batch}
+
+    def _host_grads(self, leaves: Dict[str, torch.Tensor]) -> Dict[str, HostGrad]:
+        """Start each host-tier leaf's gradient on its way to the host, right
+        after the backward (before the optimizer's update)."""
+        return {k: HostGrad(leaf.grad if leaf.grad is not None else torch.zeros_like(leaf))
+                for k, leaf in leaves.items()}
 
     def _group_train_step(
         self, state: TrainState, batch: Dict[str, torch.Tensor]
-    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    ) -> Tuple[TrainState, Dict[str, torch.Tensor], Dict[str, HostGrad]]:
         """The data-parallel step over the process group (the reference's
         ``local_step``): this rank's loss weighed by ``count / total``
         (``total = psum(count)``, each count times this rank's contributor
@@ -618,6 +739,10 @@ class Trainer:
         spec = self.spec
         batch = dict(batch)
         mask = batch.pop(MASK_KEY, None)
+        # Host-tier rows: this rank's slice; their gradients are this rank's
+        # examples' cotangents of the contributor-weighted loss, pushed by
+        # this rank alone (never summed over the group).
+        host_in = self._host_leaves(batch)
         model, optimizer = state.model, state.optimizer
         zero = _zero_of(optimizer)
         w, n_active = self._weight()
@@ -626,7 +751,7 @@ class Trainer:
             model.zero_grad(set_to_none=True)
         masked = mask is not None and self._loss_takes_mask
         try:
-            out = self._apply(model, batch, train=True)
+            out = self._apply(model, dict(batch, **host_in), train=True)
             if masked:
                 # The real examples of the active ranks: one scalar reduction
                 # before the backward, which weighs by it.
@@ -638,6 +763,7 @@ class Trainer:
             loss.backward()
         except coll.CollectiveFailed as e:
             raise CollectiveError(f"a collective of the forward or backward failed: {e}") from e
+        host_grads = self._host_grads(host_in)
         tree: Dict[str, torch.Tensor] = {}
         params = [(path, p) for path, p in self._param_paths(model) if p.grad is not None]
         if zero is not None:
@@ -680,7 +806,7 @@ class Trainer:
             for key, v in summed.items() if key.startswith("metric/")
         }
         metrics["loss"] = summed["loss"]
-        return TrainState(state.step + 1, model, optimizer), metrics
+        return TrainState(state.step + 1, model, optimizer), metrics, host_grads
 
     def _zero_scatter(self, zero: _ZeroShards) -> torch.Tensor:
         """The dense gradients summed over every axis, this rank's shards
@@ -696,20 +822,39 @@ class Trainer:
             raise CollectiveError(f"the sharded optimizer's reduce-scatter failed: {e}") from e
 
     def run_train_step(self, state: TrainState, batch: Dict[str, Any]):
-        """A training step from a HOST batch: place, then step."""
-        return self.train_step(state, self.shard_batch(batch))
+        """A training step from a HOST batch: (host-tier pull ->) place ->
+        step (-> push of the rows' gradients)."""
+        if not self.spec.host_io:
+            return self.train_step(state, self.shard_batch(batch))[:2]
+        placed, ids = self._place_host_batch(batch)
+        state, metrics, host_grads = self.train_step(state, placed)
+        self._push_host_grads(ids, host_grads)
+        return state, metrics
 
     def run_train_steps(
         self,
         state: TrainState,
         batches: Iterable[Dict[str, Any]],
+        use_async: bool = False,
         pre_sharded: bool = False,
     ) -> Tuple[TrainState, List[Dict[str, torch.Tensor]]]:
         """Train over an iterable of host batches (``pre_sharded``: already
-        on the device), synchronously: the reference's loop without
-        host-tier tables, whose async pull pipeline is not ported yet.
-        Returns (state, [metrics per batch]); a failure raises
-        ``TrainLoopError``."""
+        on the device; not with host-tier tables, whose pull needs the host
+        batch).  Returns (state, [metrics per batch]); a failure raises
+        ``TrainLoopError``.
+
+        With host-tier tables, ``use_async=False`` is the synchronous loop
+        (each pull sees every earlier push); ``use_async=True`` the
+        reference's async-PS pipeline: up to ``config.async_staleness``
+        steps' pushes stay outstanding while the next batches pull and
+        their steps are enqueued, so the host's pull overlaps the device's
+        step and a pull reads rows one (or D) pushes stale; dense state is
+        exact either way.  With one batch both orders are the same."""
+        if self.spec.host_io:
+            if pre_sharded:
+                raise ValueError("pre_sharded batches are incompatible with host-tier "
+                                 "tables (the host pull needs the host batch)")
+            return self._run_host_steps(state, batches, use_async)
         metrics_out = []
         last_good: Optional[TrainState] = None  # after the last completed step
         batches = iter(batches)
@@ -725,7 +870,7 @@ class Trainer:
                 # is intact.
                 raise TrainLoopError(last_good, e) from e
             try:
-                state, metrics = self.train_step(state, batch)
+                state, metrics, _ = self.train_step(state, batch)
             except CollectiveError as e:
                 # Before the update the state before the step is intact;
                 # the sharded optimizer's all-gather after it tears it.
@@ -734,6 +879,187 @@ class Trainer:
                 raise TrainLoopError(None, e) from e
             metrics_out.append(metrics)
             last_good = state
+
+    # ---- the host tier (spec.host_io) ----
+
+    def _run_host_steps(self, state: TrainState, batches: Iterable[Dict[str, Any]],
+                        use_async: bool) -> Tuple[TrainState, List[Dict[str, torch.Tensor]]]:
+        """``run_train_steps`` with host-tier tables.  Each batch: its pull
+        and upload, its step enqueued, then the oldest outstanding pushes
+        until at most ``depth`` remain (0 in sync mode: this step's own).
+        Every pull thus sees the same pushes as in the reference's order
+        (pull n, push n-D, step n); the step goes to the device before the
+        host waits.  A failure before a step touched the state leaves the
+        last completed step's state once the outstanding pushes land
+        (``TrainLoopError.state``); a failed step or push leaves none."""
+        depth = max(1, int(getattr(self.config, "async_staleness", 1))) if use_async else 0
+        pending: deque = deque()  # (ids, host grads) of steps not yet pushed
+        metrics_out: List[Dict[str, torch.Tensor]] = []
+        last_good: Optional[TrainState] = None
+
+        def settle(keep: int) -> None:
+            while len(pending) > keep:
+                self._push_host_grads(*pending.popleft())
+
+        def before_step(intact: Optional[TrainState], cause: BaseException) -> TrainLoopError:
+            try:
+                settle(0)
+            except Exception:
+                return TrainLoopError(None, cause)
+            return TrainLoopError(intact, cause)
+
+        batches = iter(batches)
+        while True:
+            try:
+                batch = next(batches, None)
+                if batch is None:
+                    break
+                placed, ids = self._place_host_batch(batch)
+            except Exception as e:
+                raise before_step(last_good, e) from e
+            try:
+                state, metrics, host_grads = self.train_step(state, placed)
+            except CollectiveError as e:
+                raise before_step(state if e.state_intact else None, e) from e
+            except Exception as e:
+                raise TrainLoopError(None, e) from e
+            pending.append((ids, host_grads))
+            metrics_out.append(metrics)
+            try:
+                settle(depth)
+            except Exception as e:
+                raise TrainLoopError(None, e) from e
+            last_good = state
+        try:
+            settle(0)
+        except Exception as e:
+            raise TrainLoopError(None, e) from e
+        return state, metrics_out
+
+    def _pull_host_rows(self, batch: Dict[str, Any], local: bool = True):
+        """({key: each host-tier table's pulled rows}, {key: the ids whose
+        gradients this process pushes}) for a HOST batch.  ``local``: only
+        this rank's contributor slice of the examples, the one
+        ``shard_batch`` places."""
+        rows, ids = {}, {}
+        for key, io in self.spec.host_io.items():
+            table_ids = np.asarray(io.ids_fn(batch))
+            if local:
+                table_ids = table_ids[self._contributor_slice(key, table_ids.shape[0])]
+            ids[key] = table_ids
+            rows[key] = self._host_stores[key].pull(table_ids)
+        return rows, ids
+
+    def _place_host_batch(self, batch: Dict[str, Any]):
+        """(this rank's device batch with each host-tier table's rows under
+        its key, {key: the ids this process pushes}): the pull, then the
+        upload of the batch's slice and of the rows."""
+        rows, ids = self._pull_host_rows(batch)
+        placed = self.shard_batch(batch)
+        placed.update((k, self._to_device(v)) for k, v in rows.items())
+        return placed, ids
+
+    def _push_host_grads(self, ids: Dict[str, np.ndarray], host_grads: Dict[str, HostGrad]) -> None:
+        """Push a step's row gradients into the host-tier stores.  Reading a
+        gradient waits for the step that made it: the sync point the async
+        pipeline moves past the next pulls.  The store applies its optimizer
+        per distinct id with duplicates summed; in a world of several ranks
+        each pushes its own examples, so an id on two ranks gets two
+        applies, as the reference's per-worker async push does."""
+        for key, grad in host_grads.items():
+            self._host_stores[key].push_grad(ids[key], grad.numpy())
+
+    def save_host_stores(self, directory: str, step: int, keep_max: int = 3) -> None:
+        """Snapshot the host-tier stores beside the checkpoint, keeping the
+        newest ``keep_max`` steps.  In process: ``host_stores/<step>/<key>.bin``
+        in the native format, each file committed atomically.  On a PS
+        fleet: ONE Save fan-out (each shard dumps and prunes its own slice of
+        every table it serves), which callers rank-gate in a gang."""
+        if not self._host_stores:
+            return
+        if self._remote_ps:
+            next(iter(self._host_stores.values())).save_snapshot(
+                directory, step, keep_max=keep_max)
+            return
+        root = os.path.join(directory, "host_stores")
+        d = os.path.join(root, str(step))
+        os.makedirs(d, exist_ok=True)
+        for key, store in self._host_stores.items():
+            # A crash mid-write leaves no snapshot or a whole one, never a
+            # truncated file that poisons every relaunch.
+            final = os.path.join(d, f"{key}.bin")
+            tmp = durable.tmp_path(final)
+            store.save(tmp)
+            durable.atomic_replace(tmp, final)
+        steps = sorted((int(x) for x in os.listdir(root) if x.isdigit()), reverse=True)
+        for old in steps[max(keep_max, 1):]:
+            shutil.rmtree(os.path.join(root, str(old)), ignore_errors=True)
+
+    def restore_host_stores(self, directory: str, step: int) -> bool:
+        """Load the host-tier snapshot of ``step``.  A table's missing file
+        raises ``FileNotFoundError``: restored dense state with fresh rows is
+        a torn checkpoint.  A file that fails to load re-initialises every
+        store and raises the same, so a fallback to an older step never
+        mixes rows of two steps.
+
+        On a PS fleet the shards restored themselves at their (re)start
+        (``ps/main.py``) and live on across worker restarts (async-PS: pushes
+        are never un-applied); this checks the fleet instead.  A fleet that
+        restored nothing, or divergent steps, fails an evaluation or
+        prediction job; a training job logs divergence and goes on."""
+        if not self._host_stores:
+            return False
+        if self._remote_ps:
+            steps = next(iter(self._host_stores.values())).restored_steps()
+            distinct = set(steps)
+            job_type = getattr(self.config, "job_type", "training")
+            scoring = job_type in ("evaluation", "prediction")
+            if distinct == {None}:
+                if scoring:
+                    raise RuntimeError(
+                        f"{job_type} job: no PS shard restored any snapshot — "
+                        "refusing to score freshly initialized embedding rows")
+                return True
+            if len(distinct) > 1:
+                msg = f"PS shards restored divergent steps {steps} — the fleet mixes model versions"
+                if scoring:
+                    raise RuntimeError(msg)
+                logger.error("%s; continuing (async-PS training tolerance)", msg)
+            return True
+        paths = {key: os.path.join(directory, "host_stores", str(step), f"{key}.bin")
+                 for key in self._host_stores}
+        missing = [p for p in paths.values() if not os.path.exists(p)]
+        if missing:
+            # Checked before any store changes.
+            raise FileNotFoundError(
+                f"host store snapshot missing for step {step}: {missing[0]} "
+                "(torn checkpoint — dense state and host rows must restore together)")
+        try:
+            for key, path in paths.items():
+                self._host_stores[key].load(path)
+        except (IOError, ValueError) as e:
+            self._host_stores = self._local_host_stores()
+            raise FileNotFoundError(
+                f"host store snapshot for step {step} is unreadable ({e}); "
+                "stores re-initialized") from e
+        return True
+
+    def has_local_host_stores(self) -> bool:
+        """Whether host-tier rows live in this process (not on a PS fleet)."""
+        return bool(self._host_stores) and not self._remote_ps
+
+    def reset_host_stores(self) -> None:
+        """Fresh in-process host stores (a restore that found no intact
+        step must not keep a torn step's rows); a PS fleet keeps its own."""
+        if self.has_local_host_stores():
+            self._host_stores = self._local_host_stores()
+
+    def wrap_host_stores(self, wrap) -> None:
+        """Layer ``wrap(key, store)`` over every host-tier store: the serving
+        tier puts its hot-id cache there (``serving/embedding_cache.py``).
+        The wrapper needs the store's ``pull`` and ``dim``; training through
+        it needs ``push_grad``, ``save`` and ``load`` too."""
+        self._host_stores = {key: wrap(key, store) for key, store in self._host_stores.items()}
 
     # ---- evaluation ----
 
@@ -784,7 +1110,10 @@ class Trainer:
             model.train(was_training)
 
     def run_eval_step(self, state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """An eval step from a HOST batch: place, then evaluate."""
+        """An eval step from a HOST batch: (host-tier pull ->) place ->
+        evaluate."""
+        if self.spec.host_io:
+            return self.eval_step(state, self._place_host_batch(batch)[0])
         return self.eval_step(state, self.shard_batch(batch))
 
     # ---- the canonical state ----
@@ -1042,6 +1371,8 @@ class Trainer:
         device."""
         batch = dict(batch)
         batch.pop(MASK_KEY, None)
+        if self.spec.host_io:
+            batch.update(self._pull_host_rows(batch, local=False)[0])
         # The whole batch on every rank: prediction is per example and
         # needs no collective.
         tensors = {k: self._to_device(v) for k, v in batch.items()}

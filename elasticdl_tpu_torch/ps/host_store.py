@@ -1,7 +1,8 @@
-"""ctypes bindings for the port's native host library, the ingest half.
+"""ctypes bindings for the port's native host library: the embedding
+store of the PS host tier and the ingest functions.
 
-Port of the loader and the ingest bindings of ``elasticdl_tpu/ps/host_store.py``
-(``_load``, ``native_lib_available``, ``recordio_index_native``,
+Port of ``elasticdl_tpu/ps/host_store.py`` (``_load``, ``_OPTIMIZERS``,
+``HostEmbeddingStore``, ``native_lib_available``, ``recordio_index_native``,
 ``recordio_verify_native``, ``recordio_read_native``,
 ``criteo_decode_native``, ``criteo_decode_pre_native``).  The library is the
 port's own copy of the C++ source, ``elasticdl_tpu_torch/csrc/edl_native.cc``,
@@ -13,8 +14,10 @@ the build directory's lock file while ``g++`` writes to a temporary name,
 which is then renamed into place.
 
 A failed build raises ``RuntimeError``; nothing falls back to a Python
-decode.  The embedding store (``HostEmbeddingStore``) comes with the PS
-host tier's slice of the port.  All APIs take and return numpy arrays.
+decode or a Python store.  All APIs take and return numpy arrays (ids
+int64, rows float32).  A store file written by ``HostEmbeddingStore.save``
+is the native format of either package (the C++ source is the same), so
+host-tier weights carry across between them.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ BUILD_DIR = os.path.join(CSRC_DIR, "build")
 SOURCE = "edl_native.cc"
 #: The reference Makefile's ``CXXFLAGS`` plus ``-shared``.
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared")
+#: The native store's optimizer codes.
+_OPTIMIZERS = {"sgd": 0, "momentum": 1, "adagrad": 2, "adam": 3}
 
 _lib_lock = threading.Lock()  # lock-order: leaf
 _lib: Optional[ctypes.CDLL] = None  # guarded-by: _lib_lock
@@ -97,6 +102,23 @@ def _load() -> ctypes.CDLL:
             logger.error("%s", _lib_error)
             raise RuntimeError(_lib_error) from e
 
+        lib.edl_store_create.restype = ctypes.c_void_p
+        lib.edl_store_create.argtypes = [
+            _i64, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+            ctypes.c_float, ctypes.c_float,
+        ]
+        lib.edl_store_destroy.argtypes = [ctypes.c_void_p]
+        lib.edl_store_size.restype = _i64
+        lib.edl_store_size.argtypes = [ctypes.c_void_p]
+        lib.edl_store_pull.argtypes = [ctypes.c_void_p, _i64p, _i64, _f32p]
+        lib.edl_store_try_pull.restype = _i64
+        lib.edl_store_try_pull.argtypes = [ctypes.c_void_p, _i64p, _i64, _f32p]
+        lib.edl_store_push_grad.argtypes = [ctypes.c_void_p, _i64p, _i64, _f32p]
+        lib.edl_store_save.restype = _i64
+        lib.edl_store_save.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+        lib.edl_store_load.restype = _i64
+        lib.edl_store_load.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
         lib.edl_recordio_index.restype = _i64
         lib.edl_recordio_index.argtypes = [ctypes.c_char_p, _i64p, _i64]
         lib.edl_recordio_verify.restype = _i64
@@ -121,6 +143,112 @@ def native_lib_available() -> bool:
         return True
     except RuntimeError:
         return False
+
+
+class HostEmbeddingStore:
+    """Growable id -> row store with server-side sparse optimizers: the
+    host tier of the ParameterServer strategy.
+
+    Rows materialise on first pull (a deterministic per-id init, so a row
+    is the same whichever store or shard first serves it); ``push_grad``
+    applies one optimizer step per distinct id with duplicate contributions
+    summed first (IndexedSlices semantics).
+
+    The native store is not safe for concurrent use, so every call but
+    ``try_pull`` holds this store's lock (ctypes releases the GIL during
+    the call): two threads' pulls, pushes, saves and loads never
+    interleave.  ``try_pull`` runs without it, so concurrent readers scale;
+    a caller that mixes it with writers keeps its own reader-writer lock,
+    as the PS service does.
+    """
+
+    def __init__(
+        self,
+        dim: int,
+        optimizer: str = "adagrad",
+        learning_rate: float = 0.01,
+        momentum: float = 0.9,
+        beta1: float = 0.9,
+        beta2: float = 0.999,
+        eps: float = 1e-8,
+        init_scale: float = 0.05,
+    ):
+        if optimizer not in _OPTIMIZERS:
+            raise ValueError(
+                f"unknown optimizer {optimizer!r}, pick from {sorted(_OPTIMIZERS)}"
+            )
+        self._lib = _load()
+        self.dim = dim
+        self.optimizer = optimizer
+        self._lock = threading.Lock()  # lock-order: leaf
+        self._ptr = self._lib.edl_store_create(  # guarded-by: _lock
+            dim, _OPTIMIZERS[optimizer],
+            learning_rate, momentum, beta1, beta2, eps, init_scale,
+        )
+
+    def _live(self):
+        if not self._ptr:
+            raise RuntimeError("the host embedding store is closed")
+        return self._ptr
+
+    def __len__(self) -> int:
+        with self._lock:
+            return int(self._lib.edl_store_size(self._live()))
+
+    def pull(self, ids: np.ndarray) -> np.ndarray:
+        """Rows for ``ids`` (any shape), shaped ``ids.shape + (dim,)``;
+        unseen ids materialise."""
+        ids = np.ascontiguousarray(ids, np.int64)
+        out = np.empty((ids.size, self.dim), np.float32)
+        with self._lock:
+            self._lib.edl_store_pull(self._live(), ids.ravel(), ids.size, out)
+        return out.reshape(ids.shape + (self.dim,))
+
+    def try_pull(self, ids: np.ndarray):
+        """Read-only gather: (rows, number of missing ids), the missing
+        ids' rows left as allocated.  It never mutates the store and takes
+        no lock: any number of threads may call it while no writer (pull,
+        push_grad, load) runs, the PS service's shared-lock fast path."""
+        ids = np.ascontiguousarray(ids, np.int64)
+        out = np.empty((ids.size, self.dim), np.float32)
+        missing = int(
+            self._lib.edl_store_try_pull(self._live(), ids.ravel(), ids.size, out)
+        )
+        return out.reshape(ids.shape + (self.dim,)), missing
+
+    def push_grad(self, ids: np.ndarray, grads: np.ndarray) -> None:
+        ids = np.ascontiguousarray(ids, np.int64).ravel()
+        grads = np.ascontiguousarray(grads, np.float32).reshape(ids.size, self.dim)
+        with self._lock:
+            self._lib.edl_store_push_grad(self._live(), ids, ids.size, grads)
+
+    def save(self, path: str) -> int:
+        with self._lock:
+            n = int(self._lib.edl_store_save(self._live(), path.encode()))
+        if n < 0:
+            raise IOError(f"save to {path} failed")
+        return n
+
+    def load(self, path: str) -> int:
+        with self._lock:
+            n = int(self._lib.edl_store_load(self._live(), path.encode()))
+        if n == -2:
+            raise ValueError("checkpoint optimizer/dim mismatch")
+        if n < 0:
+            raise IOError(f"load from {path} failed")
+        return n
+
+    def close(self) -> None:
+        with self._lock:
+            if self._ptr:
+                self._lib.edl_store_destroy(self._ptr)
+                self._ptr = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
 
 def recordio_index_native(path: str) -> np.ndarray:

@@ -1,0 +1,877 @@
+"""The parameter-server service tier of the PyTorch port: the native host
+store behind gRPC.
+
+Port of ``elasticdl_tpu/ps/service.py``, byte for byte on the wire: the
+frames (``encode_frame``/``decode_frame``), the service and method names
+and the meta schemas are the reference's, so a port client talks to a
+reference shard and a reference client to a port shard.  It imports grpc
+and numpy, and no torch: a PS shard is a host process that never touches
+a device.
+
+``PSServer`` is one shard: a gRPC service over per-table native
+``HostEmbeddingStore``s (``ps/host_store.py``), serving ``Pull`` /
+``PushGrad`` / ``Save`` / ``Load`` / ``Stats``; the master launches
+``--num_ps_pods`` of them (``ps/main.py``).  ``RemoteEmbeddingStore`` is
+the worker's view of one table across the shards, with the local store's
+``pull``/``push_grad`` surface.  The tier serves tables too large for the
+card (``models/spec.HostTableIO``); putting it behind gRPC is what makes
+host-tier tables work in multi-process worlds, whose processes must share
+one store or each would train its own copy of the rows.
+
+Sharding: ``--num_ps_pods = n`` partitions every table by ``id mod n``.
+Row init is deterministic per id (splitmix64 in the native store), so a
+fresh id's row is the same whichever shard serves it and however many
+shards exist.
+
+Wire format: tensors ride as raw little-endian buffers after a JSON header
+(``encode_frame``/``decode_frame``), not as JSON floats: a Pull of 8192x26
+rows of 9 f32 values is 7.67 MB, which JSON would inflate about fourfold.
+The frame schema is validated at both ends.
+
+Failure and durability (async-PS semantics, as the reference's):
+
+- PS pods outlive worker restarts: a worker that rejoins from checkpoint
+  step S does not roll the host tier back to S; pushed gradients are never
+  un-applied.
+- ``Save`` makes each shard dump its own slice atomically
+  (``{key}.shard{i}of{n}.bin``); the worker at a checkpoint step fans the
+  Save out to every shard.
+- A relaunched PS pod restores its slice from the newest complete snapshot
+  at startup (``ps/main.py``); rows pushed after that snapshot are lost.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import struct
+import threading
+import time
+from concurrent import futures
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import grpc
+import numpy as np
+
+from elasticdl_tpu_torch import chaos
+from elasticdl_tpu_torch.common import durable
+from elasticdl_tpu_torch.common import gauge as gaugelib
+from elasticdl_tpu_torch.common import locksan, trace
+from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.common.rpc import (
+    BackoffPolicy,
+    call_with_backoff,
+    wait_channel_ready,
+)
+
+logger = get_logger("ps.service")
+
+PS_SERVICE_NAME = "elasticdl.PS"
+
+#: Methods -> (required meta fields -> types).  Arrays are declared
+#: separately per method; unknown meta fields pass through (forward compat).
+PS_METHODS: Dict[str, Dict[str, tuple]] = {
+    "Pull": {"table": (str,)},
+    "PushGrad": {"table": (str,)},
+    "Save": {"directory": (str,), "step": (int,)},
+    "Load": {"directory": (str,), "step": (int,), "strict": (bool,)},
+    "Stats": {},
+}
+
+_HEADER = struct.Struct("<I")  # u32 header length prefix
+
+#: gRPC message cap for BOTH PSServer and PSClient — one constant so the two
+#: sides cannot drift into the asymmetric-cap RESOURCE_EXHAUSTED failure
+#: (a production push is ~8.5 MB of frame, over gRPC's 4 MB default).
+GRPC_MAX_MESSAGE_BYTES = 256 << 20
+
+
+class PSFrameError(ValueError):
+    """A frame violated the PS wire contract (boundary error, never a
+    KeyError deep in a handler — same principle as common/rpc.MessageSchema)."""
+
+
+def encode_frame(meta: Dict[str, Any], arrays: Dict[str, np.ndarray]) -> bytes:
+    """``u32 header_len | header JSON | concatenated raw buffers``.
+
+    The header carries ``meta`` plus each array's name/dtype/shape in payload
+    order; buffers are C-contiguous little-endian.
+    """
+    descs = []
+    bufs = []
+    for name, arr in arrays.items():
+        arr = np.ascontiguousarray(arr)
+        if arr.dtype.byteorder == ">":  # big-endian never happens on our
+            arr = arr.astype(arr.dtype.newbyteorder("<"))  # targets, but be exact
+        descs.append(
+            {"name": name, "dtype": arr.dtype.str, "shape": list(arr.shape)}
+        )
+        bufs.append(arr.tobytes())
+    header = json.dumps({"meta": meta, "arrays": descs}).encode()
+    return _HEADER.pack(len(header)) + header + b"".join(bufs)
+
+
+def decode_frame(payload: bytes) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
+    if len(payload) < _HEADER.size:
+        raise PSFrameError(f"frame too short ({len(payload)} bytes)")
+    (hlen,) = _HEADER.unpack_from(payload)
+    if _HEADER.size + hlen > len(payload):
+        raise PSFrameError("frame header runs past the payload")
+    try:
+        header = json.loads(payload[_HEADER.size : _HEADER.size + hlen].decode())
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        raise PSFrameError(f"malformed frame header: {e}") from e
+    if not isinstance(header, dict) or "meta" not in header or "arrays" not in header:
+        raise PSFrameError("frame header must carry 'meta' and 'arrays'")
+    arrays: Dict[str, np.ndarray] = {}
+    off = _HEADER.size + hlen
+    for desc in header["arrays"]:
+        try:
+            dtype = np.dtype(desc["dtype"])
+            shape = tuple(int(d) for d in desc["shape"])
+            name = desc["name"]
+        except (KeyError, TypeError, ValueError) as e:
+            raise PSFrameError(f"malformed array descriptor {desc!r}") from e
+        nbytes = dtype.itemsize * int(np.prod(shape, dtype=np.int64))
+        if off + nbytes > len(payload):
+            raise PSFrameError(
+                f"array {name!r} ({nbytes} bytes) runs past the frame"
+            )
+        arrays[name] = np.frombuffer(
+            payload[off : off + nbytes], dtype=dtype
+        ).reshape(shape)
+        off += nbytes
+    return header["meta"], arrays
+
+
+def validate_meta(method: str, meta: Dict[str, Any]) -> None:
+    spec = PS_METHODS.get(method)
+    if spec is None:
+        raise PSFrameError(f"unknown PS method {method!r}")
+    problems = []
+    for field, types in spec.items():
+        if field not in meta:
+            problems.append(f"missing required field {field!r}")
+        elif not isinstance(meta[field], types) or (
+            isinstance(meta[field], bool) and bool not in types
+        ):
+            problems.append(
+                f"field {field!r} must be "
+                f"{'/'.join(t.__name__ for t in types)}, "
+                f"got {type(meta[field]).__name__}"
+            )
+    if problems:
+        raise PSFrameError(f"{method}: " + "; ".join(problems))
+
+
+def shard_of(ids: np.ndarray, num_shards: int) -> np.ndarray:
+    """Owning shard per id: ``id mod n``, non-negative for any int64 id."""
+    return (ids % num_shards + num_shards) % num_shards
+
+
+def snapshot_filename(key: str, shard: int, num_shards: int) -> str:
+    return f"{key}.shard{shard}of{num_shards}.bin"
+
+
+class _RWLock:
+    """Writer-preferring readers-writer lock.
+
+    PS traffic is read-mostly in steady state (pulls of existing rows), and
+    one mutex would serialise the whole handler pool.  Readers share;
+    writers (row materialisation, optimizer pushes, save/load) exclude
+    everyone.  Writer preference keeps a pull storm from starving pushes."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._readers = 0
+        self._writer = False
+        self._writers_waiting = 0
+
+    def acquire_read(self) -> None:
+        with self._cond:
+            while self._writer or self._writers_waiting:
+                self._cond.wait()
+            self._readers += 1
+
+    def release_read(self) -> None:
+        with self._cond:
+            self._readers -= 1
+            if self._readers == 0:
+                self._cond.notify_all()
+
+    def acquire_write(self) -> None:
+        with self._cond:
+            self._writers_waiting += 1
+            try:
+                while self._writer or self._readers:
+                    self._cond.wait()
+            finally:
+                self._writers_waiting -= 1
+            self._writer = True
+
+    def release_write(self) -> None:
+        with self._cond:
+            self._writer = False
+            self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def read(self):
+        self.acquire_read()
+        try:
+            yield
+        finally:
+            self.release_read()
+
+    @contextlib.contextmanager
+    def write(self):
+        self.acquire_write()
+        try:
+            yield
+        finally:
+            self.release_write()
+
+
+class PSServer:
+    """One PS shard: gRPC service over per-table native stores.
+
+    ``table_specs`` maps table key -> HostTableIO-like objects carrying
+    ``dim`` / ``optimizer`` / ``learning_rate`` / ``init_scale`` (usually a
+    ModelSpec's ``host_io``).  Tables materialize rows lazily on first pull,
+    so a shard's memory is proportional to the ids it has actually served.
+    """
+
+    def __init__(
+        self,
+        table_specs: Dict[str, Any],
+        shard: int = 0,
+        num_shards: int = 1,
+        port: int = 0,
+        max_workers: int = 16,
+        gauges: Optional[gaugelib.Registry] = None,
+    ):
+        from elasticdl_tpu_torch.ps.host_store import HostEmbeddingStore
+
+        if not 0 <= shard < num_shards:
+            raise ValueError(f"shard {shard} out of range for {num_shards}")
+        self.shard = shard
+        self.num_shards = num_shards
+        self._stores = {
+            key: HostEmbeddingStore(
+                dim=io.dim,
+                optimizer=io.optimizer,
+                learning_rate=io.learning_rate,
+                init_scale=io.init_scale,
+            )
+            for key, io in table_specs.items()
+        }
+        # Per-table reader-writer locks: tables are independent stores, and
+        # within a table read-only pulls (the steady-state hot path) run
+        # concurrently via the native try_pull; only row materialization,
+        # optimizer pushes, and save/load take the write side.  Save/Load
+        # span every table — they acquire all write locks in sorted key
+        # order (deadlock-free).
+        self._locks = {key: _RWLock() for key in self._stores}
+        # Step this shard restored at (re)start, or None: surfaced in Stats
+        # so workers can verify the whole fleet restored the SAME step (a
+        # shard-divergent restore silently mixes model versions).  Written
+        # by a Load handler thread, read by concurrent Stats handlers.
+        self._meta_lock = locksan.lock("PSServer._meta_lock", leaf=True)  # lock-order: leaf
+        self.restored_step: Optional[int] = None  # guarded-by: _meta_lock
+        # Pull/push rates and latency tails, live.  The shard's registry
+        # defaults to the process-default one, so the PS pod's /metrics
+        # endpoint (ps/main.py) serves everything the process records;
+        # in-process fleets pass their own to keep shards' families apart.
+        # Updates are O(1) counter/histogram ops; table row counts are a
+        # scrape-time collector.
+        self.gauges = gauges if gauges is not None else gaugelib.default()
+        shard_label = {"shard": str(shard)}
+        self._g_pulls = self.gauges.counter(
+            "edl_ps_pull_total", "Pull RPCs served by this shard",
+            labels=shard_label,
+        )
+        self._g_pull_ms = self.gauges.histogram(
+            "edl_ps_pull_ms", "server-side Pull wall per RPC",
+            labels=shard_label,
+        )
+        self._g_pushes = self.gauges.counter(
+            "edl_ps_push_total", "PushGrad RPCs served by this shard",
+            labels=shard_label,
+        )
+        self._g_push_ms = self.gauges.histogram(
+            "edl_ps_push_ms", "server-side PushGrad wall per RPC",
+            labels=shard_label,
+        )
+        self.gauges.add_collector(self._collect_gauges)
+        # Message-size limits must cover production batches: a full 8192x26
+        # dim-8 push is ~8.5 MB of frame, over gRPC's 4 MB default — the
+        # server AND the client (PSClient) both raise the cap, or a
+        # realistic batch dies with RESOURCE_EXHAUSTED.
+        self._server = grpc.server(
+            futures.ThreadPoolExecutor(max_workers),
+            options=[
+                ("grpc.max_send_message_length", GRPC_MAX_MESSAGE_BYTES),
+                ("grpc.max_receive_message_length", GRPC_MAX_MESSAGE_BYTES),
+            ],
+        )
+        self._server.add_generic_rpc_handlers((self._make_handler(),))
+        self.port = self._server.add_insecure_port(f"[::]:{port}")
+        # grpc reports a lost bind as port 0.  Fail LOUDLY when a specific
+        # port was requested: the master advertised that port to workers, so
+        # a silently re-bound (or unbound) shard would serve nothing while
+        # looking healthy — crashing instead lets the pod relaunch policy
+        # retry the bind (the race window is a just-released probe port,
+        # master/main._pick_free_ports).
+        if self.port == 0 or (port and self.port != port):
+            raise RuntimeError(
+                f"PS shard {shard} failed to bind port {port} "
+                f"(got {self.port})"
+            )
+
+    # -- handlers --
+
+    def _store_for(self, meta: Dict[str, Any]):
+        store = self._stores.get(meta["table"])
+        if store is None:
+            raise PSFrameError(
+                f"unknown table {meta['table']!r}; this shard serves "
+                f"{sorted(self._stores)}"
+            )
+        return store
+
+    def _require(self, arrays: Dict[str, np.ndarray], name: str, dtype) -> np.ndarray:
+        if name not in arrays:
+            raise PSFrameError(f"missing array {name!r}")
+        arr = arrays[name]
+        if arr.dtype != np.dtype(dtype):
+            raise PSFrameError(
+                f"array {name!r} must be {np.dtype(dtype).str}, got {arr.dtype.str}"
+            )
+        return arr
+
+    # hot-path: the steady-state embedding read, once per step per worker
+    def _pull(self, meta, arrays):
+        store = self._store_for(meta)
+        ids = self._require(arrays, "ids", np.int64)
+        # Chaos delay_ps faults land here, the server side of the pull, so
+        # the injected latency looks like a slow shard to every consumer
+        # (worker host-tier pulls, serving cache misses).  No-op when
+        # disabled.
+        chaos.hook("ps:pull", table=meta["table"])
+        lock = self._locks[meta["table"]]
+        # The PS read is the serving and training tiers' shared tail-latency
+        # suspect, so its server-side wall is a trace span.
+        t0 = time.perf_counter()
+        with trace.span(
+            "ps:pull", cat="ps.server", table=meta["table"], n_ids=int(ids.size)
+        ):
+            with lock.read():
+                # Fast path: all rows exist — concurrent with other pulls.
+                rows, missing = store.try_pull(ids)
+            if missing:
+                # New ids materialize rows (mutation): exclusive per-table.
+                with lock.write():
+                    rows = store.pull(ids)
+        self._g_pulls.inc()
+        self._g_pull_ms.observe((time.perf_counter() - t0) * 1e3)
+        return {}, {"rows": rows}
+
+    # hot-path: the per-step gradient apply
+    def _push_grad(self, meta, arrays):
+        store = self._store_for(meta)
+        ids = self._require(arrays, "ids", np.int64)
+        grads = self._require(arrays, "grads", np.float32)
+        if grads.shape != ids.shape + (store.dim,):
+            raise PSFrameError(
+                f"grads shape {grads.shape} != ids {ids.shape} + (dim "
+                f"{store.dim},)"
+            )
+        t0 = time.perf_counter()
+        with trace.span(
+            "ps:push_grad", cat="ps.server", table=meta["table"],
+            n_ids=int(ids.size),
+        ):
+            with self._locks[meta["table"]].write():
+                store.push_grad(ids, grads)
+        self._g_pushes.inc()
+        self._g_push_ms.observe((time.perf_counter() - t0) * 1e3)
+        return {"applied": int(ids.size)}, {}
+
+    @contextlib.contextmanager
+    def _all_write_locks(self):
+        """Every table's write lock, sorted order (save/load span tables)."""
+        ordered = [self._locks[k] for k in sorted(self._locks)]
+        for lock in ordered:
+            lock.acquire_write()
+        try:
+            yield
+        finally:
+            for lock in reversed(ordered):
+                lock.release_write()
+
+    def _save(self, meta, arrays):
+        d = os.path.join(meta["directory"], "host_stores", str(meta["step"]))
+        os.makedirs(d, exist_ok=True)
+        rows = {}
+        with self._all_write_locks():
+            for key, store in self._stores.items():
+                final = os.path.join(
+                    d, snapshot_filename(key, self.shard, self.num_shards)
+                )
+                tmp = durable.tmp_path(final)
+                rows[key] = store.save(tmp)
+                # Full commit (fsync + rename + dir fsync): a shard
+                # rebuild that reads a snapshot the power loss ate would
+                # silently lose embedding rows.
+                durable.atomic_replace(tmp, final)
+        keep = int(meta.get("keep_max", 3))
+        self._prune(os.path.join(meta["directory"], "host_stores"), keep)
+        return {"rows": {k: int(v) for k, v in rows.items()}}, {}
+
+    def _prune(self, root: str, keep_max: int) -> None:
+        """Drop this shard's files from old step dirs; remove emptied dirs.
+        Each shard prunes only its own files so concurrent shards never race
+        on each other's snapshots."""
+        try:
+            steps = sorted((int(s) for s in os.listdir(root) if s.isdigit()),
+                           reverse=True)
+        except FileNotFoundError:
+            return
+        for old in steps[max(keep_max, 1):]:
+            d = os.path.join(root, str(old))
+            for key in self._stores:
+                try:
+                    os.remove(os.path.join(
+                        d, snapshot_filename(key, self.shard, self.num_shards)
+                    ))
+                except FileNotFoundError:
+                    pass
+            try:
+                os.rmdir(d)  # only succeeds once every shard has pruned
+            except OSError:
+                pass
+
+    def _load(self, meta, arrays):
+        d = os.path.join(meta["directory"], "host_stores", str(meta["step"]))
+        paths = {
+            key: os.path.join(
+                d, snapshot_filename(key, self.shard, self.num_shards)
+            )
+            for key in self._stores
+        }
+        missing = [p for p in paths.values() if not os.path.exists(p)]
+        if missing:
+            if meta["strict"]:
+                raise PSFrameError(
+                    f"snapshot missing for step {meta['step']}: {missing[0]}"
+                )
+            return {"loaded": False}, {}
+        with self._all_write_locks():
+            for key, path in paths.items():
+                self._stores[key].load(path)
+        with self._meta_lock:
+            self.restored_step = int(meta["step"])
+        return {"loaded": True}, {}
+
+    def _collect_gauges(self) -> None:
+        """Scrape-time collector (never the hot handlers): per-table row
+        counts and the restored-step marker, refreshed per scrape."""
+        for key, s in self._stores.items():
+            self.gauges.gauge(
+                "edl_ps_rows", "materialized rows per table on this shard",
+                labels={"shard": str(self.shard), "table": key},
+            ).set(float(len(s)))
+        with self._meta_lock:
+            restored = self.restored_step
+        if restored is not None:
+            self.gauges.gauge(
+                "edl_ps_restored_step",
+                "step this shard restored at (re)start",
+                labels={"shard": str(self.shard)},
+            ).set(float(restored))
+
+    def _stats(self, meta, arrays):
+        with self._meta_lock:
+            restored = self.restored_step
+        return {
+            "shard": self.shard,
+            "num_shards": self.num_shards,
+            "tables": {k: len(s) for k, s in self._stores.items()},
+            # None = fresh stores (nothing restored since (re)start).
+            "restored_step": restored,
+        }, {}
+
+    # -- plumbing --
+
+    def _make_handler(self) -> grpc.GenericRpcHandler:
+        methods = {
+            "Pull": self._pull,
+            "PushGrad": self._push_grad,
+            "Save": self._save,
+            "Load": self._load,
+            "Stats": self._stats,
+        }
+
+        def wrap(name, fn):
+            def handler(req: bytes, ctx):
+                try:
+                    meta, arrays = decode_frame(req)
+                    validate_meta(name, meta)
+                    out_meta, out_arrays = fn(meta, arrays)
+                except PSFrameError as e:
+                    ctx.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+                except (IOError, ValueError) as e:
+                    ctx.abort(grpc.StatusCode.FAILED_PRECONDITION, str(e))
+                return encode_frame(out_meta, out_arrays)
+
+            return handler
+
+        handlers = {
+            name: grpc.unary_unary_rpc_method_handler(
+                wrap(name, fn),
+                request_deserializer=lambda b: b,
+                response_serializer=lambda b: b,
+            )
+            for name, fn in methods.items()
+        }
+        return grpc.method_handlers_generic_handler(PS_SERVICE_NAME, handlers)
+
+    @property
+    def address(self) -> str:
+        return f"localhost:{self.port}"
+
+    def start(self) -> "PSServer":
+        self._server.start()
+        logger.info(
+            "PS shard %d/%d serving %s on port %d (pid %d)",
+            self.shard, self.num_shards, sorted(self._stores), self.port, os.getpid(),
+        )
+        return self
+
+    def wait(self) -> None:
+        self._server.wait_for_termination()
+
+    def stop(self, grace: float = 1.0) -> None:
+        self._server.stop(grace)
+        # Unhook from the (possibly process-shared) registry — a stopped
+        # shard's collector must not keep re-publishing its frozen row
+        # counts or pin the shard's stores in memory.
+        self.gauges.remove_collector(self._collect_gauges)
+
+    def restore_latest(self, checkpoint_dir: str) -> Optional[int]:
+        """Startup restore for a (re)launched PS pod: load this shard's slice
+        from the NEWEST step dir that has all of this shard's files; return
+        the step, or None when no complete snapshot exists (fresh stores).
+        Steps with missing/corrupt files for this shard are skipped — an
+        older complete snapshot beats a torn newer one."""
+        root = os.path.join(checkpoint_dir, "host_stores")
+        try:
+            steps = sorted((int(s) for s in os.listdir(root) if s.isdigit()),
+                           reverse=True)
+        except FileNotFoundError:
+            return None
+        for step in steps:
+            try:
+                meta, _ = self._load(
+                    {"directory": checkpoint_dir, "step": step, "strict": True},
+                    {},
+                )
+                logger.info("restored PS shard %d from step %d", self.shard, step)
+                return step
+            except (PSFrameError, IOError, ValueError) as e:
+                logger.warning("snapshot step %d unusable: %s", step, e)
+        return None
+
+
+class PSClient:
+    """Channel + typed calls to ONE PS shard."""
+
+    def __init__(self, address: str):
+        self.address = address
+        self._channel = grpc.insecure_channel(
+            address,
+            options=[
+                ("grpc.max_send_message_length", GRPC_MAX_MESSAGE_BYTES),
+                ("grpc.max_receive_message_length", GRPC_MAX_MESSAGE_BYTES),
+            ],
+        )
+        self._stubs: Dict[str, Any] = {}
+
+    def wait_ready(self, timeout_s: float = 20.0) -> None:
+        wait_channel_ready(self._channel, service="ps", budget_s=timeout_s)
+
+    def call(
+        self,
+        method: str,
+        meta: Dict[str, Any],
+        arrays: Optional[Dict[str, np.ndarray]] = None,
+        timeout_s: float = 60.0,
+    ) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
+        validate_meta(method, meta)
+        if method not in self._stubs:
+            self._stubs[method] = self._channel.unary_unary(
+                f"/{PS_SERVICE_NAME}/{method}",
+                request_serializer=lambda b: b,
+                response_deserializer=lambda b: b,
+            )
+        payload = self._stubs[method](
+            encode_frame(meta, arrays or {}), timeout=timeout_s
+        )
+        return decode_frame(payload)
+
+    def call_async(self, method, meta, arrays=None, timeout_s: float = 60.0):
+        """Future-returning variant (parallel fan-out across shards)."""
+        validate_meta(method, meta)
+        if method not in self._stubs:
+            self._stubs[method] = self._channel.unary_unary(
+                f"/{PS_SERVICE_NAME}/{method}",
+                request_serializer=lambda b: b,
+                response_deserializer=lambda b: b,
+            )
+        return self._stubs[method].future(
+            encode_frame(meta, arrays or {}), timeout=timeout_s
+        )
+
+    def close(self) -> None:
+        self._channel.close()
+
+
+class RemoteEmbeddingStore:
+    """HostEmbeddingStore-compatible view of one table across PS shards.
+
+    ``pull``/``push_grad`` take/return the same numpy shapes as the local
+    store; ids route to shard ``id mod n`` and per-shard RPCs run in
+    parallel (gRPC futures).  The trainer swaps this in for the local store
+    when the job runs with PS pods (config.ps_addresses), which is what
+    legalizes host-tier tables on multi-process meshes.
+    """
+
+    #: Pull/PushGrad retry schedule across a PS shard relaunch: the master
+    #: relaunches a crashed shard in seconds (and the relaunched pod restores
+    #: its slice from the newest snapshot), so briefly retrying bridges the
+    #: gap instead of failing the worker's task — the reference worker's PS
+    #: RPC retry plays the same role.
+    RETRY_BACKOFFS_S = (1.0, 2.0, 4.0, 8.0)
+
+    #: Status codes worth retrying: the shard is relaunching (UNAVAILABLE)
+    #: or the call timed out in flight.  Anything else (INVALID_ARGUMENT,
+    #: FAILED_PRECONDITION) is a real error and surfaces immediately.
+    TRANSIENT_CODES = (
+        grpc.StatusCode.UNAVAILABLE,
+        grpc.StatusCode.DEADLINE_EXCEEDED,
+    )
+
+    def __init__(self, table: str, dim: int, addresses: Sequence[str]):
+        if not addresses:
+            raise ValueError("RemoteEmbeddingStore needs >= 1 PS address")
+        self.table = table
+        self.dim = dim
+        self._clients = [PSClient(a) for a in addresses]
+        self.num_shards = len(self._clients)
+        # Client-side retry visibility: the counter records into the
+        # PROCESS-default registry — the store is constructed deep inside
+        # the trainer, and the worker/serving process wires its registry as
+        # the default at startup, so the one scrape endpoint shows retries
+        # beside everything else the process measures.
+        self._g_retries = gaugelib.default().counter(
+            "edl_ps_retry_total",
+            "client-side transient-outage retries against the PS fleet",
+            labels={"table": table},
+        )
+
+    def _retry(self, fn):
+        """Run ``fn()``, retrying transient shard outages (UNAVAILABLE — the
+        pod is relaunching — or a timed-out call).  Non-transient codes
+        (INVALID_ARGUMENT etc.) surface immediately.  The schedule rides
+        the shared backoff helper (common/rpc.call_with_backoff) at the
+        jitter-free 1-2-4-8 s cadence of RETRY_BACKOFFS_S, with the
+        per-table ``edl_ps_retry_total`` counter and ``ps:retry`` instant
+        beside the helper's shared ``edl_rpc_retry_total``."""
+
+        def _transient(e: BaseException) -> bool:
+            return isinstance(e, grpc.RpcError) and (
+                e.code() in self.TRANSIENT_CODES
+            )
+
+        def _on_retry(e: BaseException, attempt: int, delay: float) -> None:
+            # The retry count is trace data: a pull span whose wall
+            # includes shard-relaunch backoffs is only explicable with
+            # the retries visible beside it.
+            trace.instant(
+                "ps:retry", cat="ps.client", table=self.table,
+                attempt=attempt, code=str(e.code()),
+            )
+            self._g_retries.inc()
+            logger.warning(
+                "PS call failed (%s), retry %d/%d in %.0fs",
+                e.code(), attempt, len(self.RETRY_BACKOFFS_S), delay,
+            )
+
+        return call_with_backoff(
+            fn,
+            service="ps",
+            is_transient=_transient,
+            policy=BackoffPolicy(
+                base_s=self.RETRY_BACKOFFS_S[0],
+                multiplier=2.0,
+                max_s=self.RETRY_BACKOFFS_S[-1],
+                jitter=0.0,
+                max_attempts=len(self.RETRY_BACKOFFS_S) + 1,
+            ),
+            on_retry=_on_retry,
+        )
+
+    def wait_ready(self, timeout_s: float = 20.0) -> None:
+        for c in self._clients:
+            c.wait_ready(timeout_s)
+
+    def __len__(self) -> int:
+        total = 0
+        for c in self._clients:
+            # Through the transient-outage retry like every other shard
+            # call: a len() probe landing inside a shard's relaunch window
+            # must wait the seconds out, not fail the caller.
+            meta, _ = self._retry(lambda c=c: c.call("Stats", {}))
+            total += int(meta["tables"].get(self.table, 0))
+        return total
+
+    def restored_steps(self) -> List[Optional[int]]:
+        """Each shard's restored-at-(re)start step (None = fresh stores).
+        Lets the worker verify the fleet is CONSISTENT before trusting it —
+        shards restore independently (newest complete snapshot each), so a
+        crash can leave them on different steps (trainer.restore_host_stores
+        fails evaluation/prediction loud on divergence)."""
+        out: List[Optional[int]] = []
+        for c in self._clients:
+            meta, _ = self._retry(lambda c=c: c.call("Stats", {}))
+            step = meta.get("restored_step")
+            out.append(None if step is None else int(step))
+        return out
+
+    def _partition(self, flat_ids: np.ndarray):
+        owner = shard_of(flat_ids, self.num_shards)
+        parts = [np.nonzero(owner == s)[0] for s in range(self.num_shards)]
+        return parts
+
+    def _call_shard(self, s: int, method: str, arrays: Dict[str, np.ndarray]):
+        """Synchronous shard call with the transient-outage retry."""
+        return self._retry(
+            lambda: self._clients[s].call(method, {"table": self.table}, arrays)
+        )
+
+    def _fan_out(self, method: str, shard_arrays: List[Tuple[int, Dict[str, np.ndarray]]]):
+        """Issue one call per shard in parallel; a shard whose FUTURE fails
+        transiently is retried synchronously (the other shards' results are
+        kept — for PushGrad a failed future means the shard never applied,
+        so the retry cannot double-apply; a response lost AFTER the apply
+        can double-apply, which async-PS semantics tolerate, as the
+        reference's at-least-once push does).  Returns [(shard, meta,
+        arrays)] in input order."""
+        futs = [
+            (s, arrs, self._clients[s].call_async(method, {"table": self.table}, arrs))
+            for s, arrs in shard_arrays
+        ]
+        results = []
+        for s, arrs, fut in futs:
+            try:
+                meta, arrays = decode_frame(fut.result())
+            except grpc.RpcError as e:
+                if e.code() not in self.TRANSIENT_CODES:
+                    raise
+                meta, arrays = self._call_shard(s, method, arrs)
+            results.append((s, meta, arrays))
+        return results
+
+    def pull(self, ids: np.ndarray) -> np.ndarray:
+        ids = np.ascontiguousarray(ids, np.int64)
+        flat = ids.ravel()
+        out = np.empty((flat.size, self.dim), np.float32)
+        with trace.span(
+            "ps:pull", cat="ps.client", table=self.table,
+            n_ids=int(flat.size), shards=self.num_shards,
+        ):
+            if self.num_shards == 1:
+                _, arrays = self._call_shard(0, "Pull", {"ids": flat})
+                out[:] = arrays["rows"]
+                return out.reshape(ids.shape + (self.dim,))
+            parts = self._partition(flat)
+            work = [
+                (s, {"ids": flat[idx]})
+                for s, idx in enumerate(parts)
+                if idx.size
+            ]
+            for s, _, arrays in self._fan_out("Pull", work):
+                out[parts[s]] = arrays["rows"]
+        return out.reshape(ids.shape + (self.dim,))
+
+    def push_grad(self, ids: np.ndarray, grads: np.ndarray) -> None:
+        ids = np.ascontiguousarray(ids, np.int64).ravel()
+        grads = np.ascontiguousarray(grads, np.float32).reshape(
+            ids.size, self.dim
+        )
+        with trace.span(
+            "ps:push_grad", cat="ps.client", table=self.table,
+            n_ids=int(ids.size), shards=self.num_shards,
+        ):
+            if self.num_shards == 1:
+                self._call_shard(0, "PushGrad", {"ids": ids, "grads": grads})
+                return
+            parts = self._partition(ids)
+            work = [
+                (s, {"ids": ids[idx], "grads": grads[idx]})
+                for s, idx in enumerate(parts)
+                if idx.size
+            ]
+            self._fan_out("PushGrad", work)
+
+    # -- checkpoint fan-out (each shard dumps/loads its own slice) --
+
+    def save_snapshot(self, directory: str, step: int, keep_max: int = 3) -> None:
+        # Same transient-outage retry as Pull/PushGrad: a checkpoint boundary
+        # landing inside a shard's relaunch window must wait the seconds out,
+        # not fail the worker's task.  Save is idempotent (atomic per-file
+        # replace), so a retry after a lost response just rewrites the file.
+        meta = {"directory": directory, "step": int(step), "keep_max": keep_max}
+        # Explicit deadline (the parallel fan-out has no retry wrapper
+        # around the futures themselves): a Save is a full-slice disk dump,
+        # so it gets headroom over the default RPC timeout — a shard that
+        # cannot finish inside it falls to the per-shard retry below.
+        futs = [
+            c.call_async("Save", meta, timeout_s=120.0) for c in self._clients
+        ]
+        for s, fut in enumerate(futs):
+            try:
+                fut.result()
+            except grpc.RpcError as e:
+                if e.code() not in self.TRANSIENT_CODES:
+                    raise
+                self._retry(lambda: self._clients[s].call("Save", meta))
+
+    def load_snapshot(self, directory: str, step: int, strict: bool = True) -> bool:
+        loaded = []
+        for c in self._clients:
+            try:
+                meta, _ = self._retry(
+                    lambda: c.call(
+                        "Load",
+                        {"directory": directory, "step": int(step),
+                         "strict": strict},
+                    )
+                )
+                loaded.append(bool(meta.get("loaded", True)))
+            except grpc.RpcError as e:
+                if strict:
+                    raise FileNotFoundError(
+                        f"PS shard at {c.address} failed to load step {step}: "
+                        f"{e.details() if hasattr(e, 'details') else e}"
+                    ) from e
+                loaded.append(False)
+        return all(loaded) and bool(loaded)
+
+    def close(self) -> None:
+        for c in self._clients:
+            c.close()
+
+
+def parse_ps_addresses(spec: str) -> List[str]:
+    return [a.strip() for a in spec.split(",") if a.strip()]

@@ -1,0 +1,125 @@
+"""Hot-id embedding LRU cache: the serving tier's layer over the PS store.
+
+Port of ``elasticdl_tpu/serving/embedding_cache.py``.  Online traffic is
+skewed: a small set of hot ids carries most of the pulls, and every pull
+from the PS store pays an RPC round trip.  Caching the hot rows in the
+replica turns the steady-state embedding read into a dict hit and leaves
+the RPC to the cold tail.
+
+Consistency contract:
+
+- Rows are READ-ONLY between weight swaps: serving never pushes gradients,
+  so a cached row is exact as of its pull.  Training keeps pushing to the
+  PS underneath, so cached rows go stale the bounded way an async-PS
+  worker's pulled rows do.
+- A hot reload (checkpoint swap) calls ``invalidate()``: the cache empties
+  and its GENERATION moves on, so a pull already in flight against the old
+  weights may still RETURN its rows to its caller (that request started
+  before the swap) but can no longer INSERT them.
+
+The miss fetch runs OUTSIDE the lock: a PS RPC must not block concurrent
+cache hits; only the index walk and the insert hold the (leaf) lock.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Any, Dict
+
+import numpy as np
+
+from elasticdl_tpu_torch.common import locksan
+
+
+class HotIdEmbeddingCache:
+    """LRU row cache in front of a pull-compatible embedding store
+    (``ps/host_store.HostEmbeddingStore`` or ``ps/service.
+    RemoteEmbeddingStore`` — anything with ``pull(ids) -> rows`` and
+    ``dim``).  Same ``pull`` surface, so the trainer's host-tier injection
+    path works through it unchanged (parallel/trainer.wrap_host_stores)."""
+
+    def __init__(self, store: Any, capacity: int = 1 << 20, name: str = "table"):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self._store = store
+        self.dim = store.dim
+        self.name = name
+        self.capacity = capacity
+        self._lock = locksan.lock("HotIdEmbeddingCache._lock", leaf=True)  # lock-order: leaf
+        self._rows: "OrderedDict[int, np.ndarray]" = OrderedDict()  # guarded-by: _lock
+        self._gen = 0  # guarded-by: _lock
+        self._hits = 0  # guarded-by: _lock
+        self._misses = 0  # guarded-by: _lock
+        self._evictions = 0  # guarded-by: _lock
+        self._invalidations = 0  # guarded-by: _lock
+        self._stale_drops = 0  # guarded-by: _lock
+
+    # hot-path: the per-flush embedding read on the serving critical path —
+    # hits are a dict walk under a leaf lock; only misses pay the store RPC
+    def pull(self, ids: np.ndarray) -> np.ndarray:
+        """Rows for ``ids`` (any shape), shaped ``ids.shape + (dim,)`` —
+        the HostEmbeddingStore.pull contract."""
+        ids = np.ascontiguousarray(ids, np.int64)
+        flat = ids.ravel()
+        out = np.empty((flat.size, self.dim), np.float32)
+        miss_pos = []
+        with self._lock:
+            gen = self._gen
+            rows = self._rows
+            for i, id_ in enumerate(flat.tolist()):
+                row = rows.get(id_)
+                if row is None:
+                    miss_pos.append(i)
+                else:
+                    rows.move_to_end(id_)
+                    out[i] = row
+            self._hits += flat.size - len(miss_pos)
+            self._misses += len(miss_pos)
+        if miss_pos:
+            pos = np.asarray(miss_pos, np.int64)
+            # One store pull for the UNIQUE missing ids (duplicates within a
+            # batch fan out from the same fetched row).
+            uniq, inverse = np.unique(flat[pos], return_inverse=True)
+            fetched = self._store.pull(uniq)
+            out[pos] = fetched[inverse]
+            with self._lock:
+                if self._gen == gen:
+                    for id_, row in zip(uniq.tolist(), fetched):
+                        # copy(): a row view would pin the whole fetched
+                        # buffer per id; the copy bounds memory at dim f32s.
+                        rows[id_] = np.array(row, np.float32)
+                    while len(rows) > self.capacity:
+                        rows.popitem(last=False)
+                        self._evictions += 1
+                else:
+                    # Generation moved (hot reload landed mid-fetch): the
+                    # caller still gets its rows — its request started
+                    # against the old weights — but the cache must not keep
+                    # them past the swap.
+                    self._stale_drops += len(uniq)
+        return out.reshape(ids.shape + (self.dim,))
+
+    def invalidate(self) -> None:
+        """Drop every cached row and bump the generation (hot-reload hook:
+        in-flight fetches from the old generation cannot re-insert)."""
+        with self._lock:
+            self._rows.clear()
+            self._gen += 1
+            self._invalidations += 1
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {
+                "size": len(self._rows),
+                "capacity": self.capacity,
+                "hits": self._hits,
+                "misses": self._misses,
+                "evictions": self._evictions,
+                "invalidations": self._invalidations,
+                "stale_drops": self._stale_drops,
+                "generation": self._gen,
+            }
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._rows)

@@ -108,6 +108,7 @@ def main() -> int:
         ps_addresses=cfg.get("ps_addresses", ""),
         max_batch=int(cfg.get("max_batch", 64)),
         max_delay_ms=float(cfg.get("max_delay_ms", 5.0)),
+        cache_rows=int(cfg.get("cache_rows", 1 << 20)),
         poll_interval_s=float(cfg.get("poll_interval_s", 0.5)),
         port=port,
         gauge_port=gauge_port,

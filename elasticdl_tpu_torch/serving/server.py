@@ -18,8 +18,13 @@ ModelInfo wire contract (``common/rpc.py`` SERVING_SCHEMAS):
   builds a private module on the watcher thread (restore, device
   placement, one forward at the smallest bucket so the first request after
   the cut-over pays no weight casts) while serving continues; the cut-over
-  is one reference swap under a leaf lock.  The PS host tier with its
-  hot-id cache is a later slice of the port; asking for it raises.
+  is one reference swap under a leaf lock, then the hot-id caches are
+  invalidated.
+- **Host-tier tables** (``spec.host_io``): rows pulled per flush from the
+  PS fleet (``ps_addresses``: the live online store) or from an in-process
+  store, through ``serving/embedding_cache.HotIdEmbeddingCache`` (LRU of
+  ``cache_rows`` rows a table) layered in by ``Trainer.wrap_host_stores``:
+  hits are a dict walk, only misses pay the RPC.
 
 Live metrics as in the reference, plus ``edl_kernel_launches_total{kernel=}``
 — the hand-written kernels' launch counts (``ops/kernels.py``), read at
@@ -39,6 +44,7 @@ import torch
 from elasticdl_tpu_torch.common import gauge as gaugelib
 from elasticdl_tpu_torch.common import locksan
 from elasticdl_tpu_torch.common.checkpoint import CheckpointManager, read_manifest
+from elasticdl_tpu_torch.common.config import JobConfig
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.rpc import (
     SERVING_SCHEMAS,
@@ -55,6 +61,7 @@ from elasticdl_tpu_torch.parallel.trainer import (
     outputs_to_numpy,
 )
 from elasticdl_tpu_torch.serving.checkpoint_watcher import CheckpointWatcher
+from elasticdl_tpu_torch.serving.embedding_cache import HotIdEmbeddingCache
 from elasticdl_tpu_torch.serving.micro_batcher import (
     DEFAULT_LANE,
     LANES,
@@ -101,7 +108,9 @@ class ServingServer:
     (fresh weights otherwise, logged loudly) and the watcher, polling every
     ``poll_interval_s``, hot-reloads each later publish.  ``state``:
     weights to serve instead of fresh ones from ``seed``, already on that
-    device.
+    device.  ``ps_addresses``: host-tier tables pull from that PS fleet
+    (empty: an in-process store), behind a hot-id cache of ``cache_rows``
+    rows a table.
     """
 
     def __init__(
@@ -111,6 +120,7 @@ class ServingServer:
         ps_addresses: str = "",
         max_batch: int = 64,
         max_delay_ms: float = 5.0,
+        cache_rows: int = 1 << 20,
         poll_interval_s: float = 0.5,
         port: int = 0,
         max_workers: int = 16,
@@ -124,15 +134,22 @@ class ServingServer:
         state: Optional[torch.nn.Module] = None,
         device: Any = None,
     ):
-        if ps_addresses:
-            raise NotImplementedError(
-                "the PS host tier is not ported yet (ROADMAP, PyTorch port "
-                "queue: the PS host tier)"
-            )
         self.spec = spec
         self.max_batch = max_batch
         self.max_delay_ms = max_delay_ms
-        self.trainer = Trainer(spec, device=device)
+        config = JobConfig(job_type="prediction", ps_addresses=ps_addresses,
+                           checkpoint_dir=checkpoint_dir)
+        self.trainer = Trainer(spec, device=device, config=config)
+        # The hot-id cache in front of every host-tier store (none without
+        # host-tier tables).
+        self._caches: Dict[str, HotIdEmbeddingCache] = {}
+
+        def _wrap(key, store):
+            cache = HotIdEmbeddingCache(store, capacity=cache_rows, name=key)
+            self._caches[key] = cache
+            return cache
+
+        self.trainer.wrap_host_stores(_wrap)
         # The padded-shape buckets this replica serves: each flush pads to
         # the smallest bucket that holds its real rows.
         self._shape_buckets = tuple(
@@ -310,6 +327,12 @@ class ServingServer:
         t1 = time.perf_counter()
         with self._state_lock:
             self._live = _LiveModel(step, model)
+        # AFTER the swap: a pull between the swap and the invalidation
+        # caches rows of the new era, which are valid; rows cached before
+        # are dropped here, and fetches in flight from the old generation
+        # cannot insert theirs.
+        for cache in self._caches.values():
+            cache.invalidate()
         swap_ms = (time.perf_counter() - t1) * 1e3
         with self._state_lock:
             self._reloads += 1
@@ -451,6 +474,18 @@ class ServingServer:
             "real rows / flushed rows (padding waste is 1 - this)",
         ).set(served / (served + stats["rows_padded"])
               if served + stats["rows_padded"] else 0.0)
+        for key, cache in self._caches.items():
+            cs = cache.stats()
+            hits, misses = cs["hits"], cs["misses"]
+            g.gauge(
+                "edl_serving_cache_hit_ratio",
+                "hot-id embedding cache hit rate",
+                labels={"table": key},
+            ).set(hits / (hits + misses) if hits + misses else 0.0)
+            g.gauge(
+                "edl_serving_cache_rows", "cached rows",
+                labels={"table": key},
+            ).set(float(cs["size"]))
         for name, n in kernels.counts().items():
             g.counter(
                 "edl_kernel_launches_total",
@@ -485,8 +520,6 @@ class ServingServer:
             reloads = self._reloads
             last_swap_ms = self._last_swap_ms
             last_load_s = self._last_load_s
-        # cache: the reference's host-tier field, empty until that slice
-        # is ported.
         return {
             "model": self.spec.name,
             "step": step,
@@ -502,7 +535,7 @@ class ServingServer:
             "last_swap_ms": round(last_swap_ms, 3),
             "last_load_s": round(last_load_s, 3),
             "batcher": self._batcher.stats(),
-            "cache": {},
+            "cache": {k: c.stats() for k, c in self._caches.items()},
         }
 
     # ---- lifecycle ----

@@ -54,8 +54,13 @@ collective gate (``collective_deadline_ms``) is the reference's with its
 guard: it acts on single-process meshes of more than one device, and a
 port worker's single-process mesh is one device, so it is inert.
 
-What is left out, raising ``NotImplementedError`` that names its ROADMAP
-item: host-tier I/O (``use_async``, PS addresses).  A task's host half fans
+Host-tier tables (``spec.host_io``): the trainer pulls and pushes their
+rows around each step (``use_async`` pipelines the pulls against the
+device steps), from an in-process store or the PS fleet named by
+``ps_addresses`` (the master's PS pods).  Every checkpoint saves them with
+the dense state (in process: on the task loop, at the step the snapshot
+holds; on a fleet: one Save fan-out from rank 0) and every restore takes
+both halves of one step or neither.  A task's host half fans
 out over the parallel ingest pool (``ingest_threads``,
 ``data/ingest_pool.py``): minibatch-aligned chunks read and decoded on
 pool threads, reassembled in order.  Prep and ingest threads build host
@@ -132,12 +137,6 @@ class WorkerRestartRequired(RuntimeError):
     group is fixed per process).  The worker main exits with
     RESTART_EXIT_CODE; the pod manager relaunches without charging the
     failure budget."""
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP, PyTorch port queue: {item})"
-    )
 
 
 class DirectMasterProxy:
@@ -353,8 +352,6 @@ class Worker:
         incarnation: Optional[str] = None,
         mesh: Optional[Mesh] = None,
     ):
-        if config.use_async or config.ps_addresses or config.num_ps_pods:
-            raise _not_ported("host-tier I/O (use_async, PS pods)", "the PS host tier")
         self.config = config
         self.master = master
         self.reader = reader
@@ -802,11 +799,14 @@ class Worker:
                 self._save_snapshot_background(step)
 
     def _save_snapshot(self, step: int, wait: bool = False, state=None,
-                       record: Optional[Dict[str, float]] = None) -> None:
-        """Write + publish + report one checkpoint.  ``state``: a canonical
-        snapshot (``Trainer.snapshot_state``, device or host arrays) to save
-        instead of the live state.  ``record`` collects the host-copy and
-        write seconds and the bytes."""
+                       record: Optional[Dict[str, float]] = None,
+                       host_tier_saved: bool = False) -> None:
+        """Write + publish + report one checkpoint: the dense state, then the
+        host-tier stores (``host_tier_saved``: already saved on the task
+        loop), then the publish.  ``state``: a canonical snapshot
+        (``Trainer.snapshot_state``, device or host arrays) to save instead
+        of the live state.  ``record`` collects the host-copy and write
+        seconds and the bytes."""
         record = {} if record is None else record
         t0 = time.perf_counter()
         if state is None:
@@ -818,6 +818,8 @@ class Worker:
         t1 = time.perf_counter()
         self._ckpt.save(step, host, wait=wait)
         record["write_s"] = time.perf_counter() - t1
+        if not host_tier_saved:
+            self._save_host_stores(step)
         if wait:
             # Publish LAST: the manifest is the serving watcher's only
             # trigger, so it must name a step that is completely on disk.
@@ -834,6 +836,13 @@ class Worker:
         self.master.call(
             "ReportCheckpoint", self._checkpoint_report(step)
         )
+
+    def _save_host_stores(self, step: int) -> None:
+        """The host-tier half of checkpoint ``step`` (nothing without
+        host-tier tables): in-process stores write their files, a PS fleet
+        gets one Save fan-out (every caller is rank 0)."""
+        self.trainer.save_host_stores(
+            self._ckpt.directory, step, keep_max=self.config.keep_checkpoint_max)
 
     def _checkpoint_report(self, step: int) -> dict:
         report = {
@@ -885,13 +894,22 @@ class Worker:
         t0 = time.perf_counter()
         snap = self._snapshot_state()
         record = {"snapshot_s": time.perf_counter() - t0}
+        # In-process host stores save here, on the task loop: the rows at
+        # exactly the step the snapshot holds (the next steps push into
+        # them).  A PS fleet's Save fans out from the background thread.
+        local = self.trainer.has_local_host_stores()
+        if local:
+            t0 = time.perf_counter()
+            self._save_host_stores(step)
+            record["host_tier_s"] = time.perf_counter() - t0
         with self._ckpt_lock:
             prev_watermark, self._last_ckpt_step = self._last_ckpt_step, step
 
         def _bg():
             try:
                 with self.phases.phase("checkpoint_bg"):
-                    self._save_snapshot(step, wait=True, state=snap, record=record)
+                    self._save_snapshot(step, wait=True, state=snap, record=record,
+                                        host_tier_saved=local)
             except Exception:
                 logger.exception(
                     "background checkpoint at step %d failed; next "
@@ -1207,8 +1225,10 @@ class Worker:
                     name=f"prefetch:{task.task_id}",
                 )
             with self.phases.phase("dispatch"):
+                # With host-tier tables the pulls and pushes run here too
+                # (--use_async pipelines the pulls against the device steps).
                 self.state, metrics_list = self.trainer.run_train_steps(
-                    self.state, batches
+                    self.state, batches, use_async=self.config.use_async
                 )
             self._task_start = None  # every step of the task is in the state
         except TrainLoopError as e:
@@ -1296,14 +1316,23 @@ class Worker:
         steps = self._ckpt.all_steps() if self._ckpt is not None else []
         for step in steps:
             try:
-                self.state = self._restore_checkpoint(self.state, step=step)
+                self.state = self._restore_step(step)
                 logger.info("recovered from checkpoint step %d", step)
                 return
             except FileNotFoundError:
                 continue
+        self.trainer.reset_host_stores()
         logger.error(
             "no restorable checkpoint; training state re-initialized fresh"
         )
+
+    def _restore_step(self, step: int):
+        """Both halves of checkpoint ``step``: the host-tier rows first (a
+        missing or unreadable file raises ``FileNotFoundError`` before the
+        module changes; a PS fleet is checked, not loaded), then the dense
+        state into ``self.state``."""
+        self.trainer.restore_host_stores(self._ckpt.directory, step)
+        return self._restore_checkpoint(self.state, step=step)
 
     def _finalize_training_metrics(self, fetch: tuple) -> Dict[str, float]:
         """Wait for a task's metrics copy (``_start_metrics_fetch``), then
@@ -1441,11 +1470,13 @@ class Worker:
     def _prep_ahead_eligible(self) -> bool:
         """Prep-ahead runs the next tasks' host half on prep threads while
         the current task's steps run: only with task pipelining and the
-        fused path, and never in a profiling session (a profiled task is
-        traced in isolation)."""
+        fused path, never with host-tier tables (their pulls run with the
+        steps, on the task loop) and never in a profiling session (a
+        profiled task is traced in isolation)."""
         return (
             self.config.task_pipelining
             and self.config.fused_task_scan
+            and not self.spec.host_io
             and not self.config.profile_dir
         )
 
@@ -1703,16 +1734,19 @@ class Worker:
         t0 = time.perf_counter()
         self.state = self.trainer.init_state(0)
         self.restore_times["init_s"] += time.perf_counter() - t0
+        # Newest first; a step counts only when both halves restore (dense
+        # state and host-tier rows): an older intact step beats a torn one.
         steps = self._ckpt.all_steps() if self._ckpt is not None else []
         for step in steps:
             try:
-                self.state = self._restore_checkpoint(self.state, step=step)
+                self.state = self._restore_step(step)
                 logger.info("joined from checkpoint step %d", step)
                 return
             except FileNotFoundError as e:
                 logger.warning(
                     "checkpoint step %d torn (%s); trying older", step, e
                 )
+        self.trainer.reset_host_stores()
         if self.config.job_type in ("evaluation", "prediction"):
             if self._ckpt is not None:
                 raise RuntimeError(

@@ -311,3 +311,30 @@ def opt_shard_steps(rank, world, model_kw, batches, canonical=None):
                      "plan": trainer._opt_plan is not None,
                      "by_op": dict(trainer.reducer.by_op)}
     return out
+
+
+def host_tier_steps(rank, world, model_kw, jax_params, ps_addresses, batches):
+    """Host-tier DeepFM over a ``{dp: world}`` mesh against the PS fleet at
+    ``ps_addresses``, from the carried JAX weights: each step's loss and
+    the ids this rank pushed, step by step."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.models import deepfm
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+
+    trainer = Trainer(deepfm.model_spec(**model_kw), device="cpu",
+                      mesh=create_mesh(dcn_parallelism=world),
+                      config=JobConfig(ps_addresses=ps_addresses))
+    store = trainer._host_stores[deepfm.HOST_FM_KEY]
+    pushed = []
+    push = store.push_grad
+    store.push_grad = lambda ids, grads: (pushed.append(np.array(ids)), push(ids, grads))[1]
+    state = trainer.init_state(0)
+    state.model.load_jax_params(jax_params)
+    losses = []
+    for batch in batches:
+        state, m = trainer.run_train_step(state, batch)
+        losses.append(float(m["loss"]))
+    return {"losses": losses, "pushed": pushed, "remote": trainer._remote_ps}

@@ -397,3 +397,46 @@ def test_cuda_gloo_rank_pair_on_card_tensors(card, monkeypatch):
         assert max(abs(a - b) for a, b in zip(losses, single)) <= 2e-3, (losses, single)
     (_, _, a), (_, _, b) = ranks
     assert sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+_PS_SHARD_PROBE = r"""
+import os, sys, json
+import numpy as np
+import torch
+from elasticdl_tpu_torch.common.config import JobConfig
+from elasticdl_tpu_torch.models.spec import load_model_spec_for_job
+from elasticdl_tpu_torch.ps.service import PSServer, RemoteEmbeddingStore
+
+config = JobConfig(model_def="deepfm.model_spec",
+                   model_params="buckets_per_feature=1048576;embedding_dim=8;hidden=400,400")
+spec = load_model_spec_for_job(config)  # the "auto" resolution: the host tier
+key = next(iter(spec.host_io))
+servers = [PSServer(spec.host_io, shard=s, num_shards=2).start() for s in range(2)]
+store = RemoteEmbeddingStore(key, spec.host_io[key].dim, [s.address for s in servers])
+ids = np.arange(-4096, 4096, dtype=np.int64)
+rows = store.pull(ids)
+store.push_grad(ids, np.ones_like(rows))
+moved = bool(np.abs(store.pull(ids) - rows).max() > 0)
+store.close()
+for s in servers:
+    s.stop(grace=0)
+print(json.dumps({"moved": moved, "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def test_cuda_ps_shard_never_initialises_the_card(card):
+    """A PS shard is a host process: building the full-width host-tier spec
+    and serving pulls and pushes leaves CUDA uninitialised in its process,
+    on a machine whose card the workers use."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _PS_SHARD_PROBE], cwd=repo, capture_output=True,
+                          text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=repo))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"moved": True, "cuda_initialized": False}

@@ -263,8 +263,14 @@ def test_model_spec_resolution_matches_the_reference():
     assert spec.feed.func is codecs.criteo_feed_pre and spec.feed.keywords == {"buckets": 65536}
     raw = deepfm.model_spec(buckets_per_feature=70000)
     assert raw.feed is codecs.criteo_feed
-    with pytest.raises(NotImplementedError, match="PS host tier"):
-        deepfm.model_spec(host_tier=True)
+    # The host tier: no device table, the FM rows in the host store, raw
+    # batches (its host hash takes the raw ids), as the reference resolves.
+    host, jhost = deepfm.model_spec(host_tier=True), jdeepfm.model_spec(host_tier=True)
+    assert not host.embedding_tables and sorted(host.host_io) == sorted(jhost.host_io)
+    assert host.feed is codecs.criteo_feed
+    assert "fm_table" not in dict(host.init(0, "cpu").named_parameters())
+    with pytest.raises(ValueError, match="pipeline_preprocess"):
+        deepfm.model_spec(host_tier=True, pipeline_preprocess=True)
     with pytest.raises(ValueError, match="pipeline_preprocess"):
         deepfm.model_spec(buckets_per_feature=70000, pipeline_preprocess=True)
     assert deepfm.model_spec(hidden="32,8").init(0, "cpu").mlp["layer1"].w.shape == (32, 8)

@@ -45,6 +45,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         "data.codecs", "data.ingest_pool",
         # Gang mode.
         "parallel.distributed", "parallel.mesh", "parallel.collectives",
+        # The PS host tier.
+        "ps.service", "ps.reshard", "ps.main", "serving.embedding_cache",
     ):
         assert f"elasticdl_tpu_torch.{name}" in mods, name
     code = (
@@ -68,11 +70,14 @@ def test_every_module_imports_without_jax_or_the_jax_package():
 @pytest.mark.parametrize("module", [
     "elasticdl_tpu_torch.master.main",
     "elasticdl_tpu_torch.client.main",
+    "elasticdl_tpu_torch.ps.service",
+    "elasticdl_tpu_torch.ps.reshard",
 ])
 def test_master_and_client_import_no_torch(module):
     """The master is a control-plane process (the JAX package's master
     stays jax-free the same way): it and the CLI that runs it in-process
-    import no torch."""
+    import no torch, nor do the PS service tier (a PS shard is a host
+    process) and the offline reshard tool."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"

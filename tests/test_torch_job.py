@@ -344,10 +344,10 @@ def test_failed_step_recovers_from_the_newest_checkpoint(tmp_path, monkeypatch):
 
     def flaky(self, state, batch):
         calls["n"] += 1
-        state, metrics = orig(self, state, batch)
+        result = orig(self, state, batch)
         if calls["n"] == 7:  # after the step-4 checkpoint, mid-task
             raise RuntimeError("injected step failure")
-        return state, metrics
+        return result
 
     monkeypatch.setattr(ttrainer.Trainer, "train_step", flaky)
     recovered = []
@@ -501,13 +501,24 @@ def test_prediction_job_matches_the_jax_prediction_job(tmp_path, carried_init):
 
 
 def test_worker_left_out_modes_raise(tmp_path):
-    """Host-tier I/O is still left out; gang mode (``multihost``) and the
-    collective gate (``collective_deadline_ms``) are ported: a worker
-    takes them (a worker without a process group is a world of one)."""
+    """Host-tier I/O (``use_async``, PS addresses), gang mode
+    (``multihost``) and the collective gate (``collective_deadline_ms``) are
+    ported: a worker takes them (a worker without a process group is a
+    world of one).  The one host-tier layout left out raises, as in the
+    reference: host-tier tables on a world of several ranks without a PS
+    fleet."""
+    from elasticdl_tpu_torch.models import deepfm
+    from elasticdl_tpu_torch.parallel.mesh import Mesh
+
     spec = tlm.model_spec(**_MODEL)
-    with pytest.raises(NotImplementedError, match="host-tier I/O"):
-        Worker(JobConfig(use_async=True), master=None, reader=None, spec=spec, device="cpu")
-    for kwargs in (dict(multihost=True), dict(collective_deadline_ms=100.0), {}):
+    host = deepfm.model_spec(**dict(_DFM, host_tier=True))
+    with pytest.raises(NotImplementedError, match="num_ps_pods"):
+        Worker(JobConfig(), master=None, reader=None, spec=host, device="cpu",
+               mesh=Mesh({"dp": 2}, rank=0))
+    worker = Worker(JobConfig(use_async=True), master=None, reader=None, spec=host, device="cpu")
+    assert worker.trainer.has_local_host_stores()
+    for kwargs in (dict(multihost=True), dict(collective_deadline_ms=100.0), {},
+                   dict(use_async=True, ps_addresses="localhost:1")):
         worker = Worker(JobConfig(**kwargs), master=None, reader=None, spec=spec, device="cpu")
         assert isinstance(worker.trainer.device, torch.device)
         assert worker.trainer.num_contributors() == 1 and not worker._group_mode

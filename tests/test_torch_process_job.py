@@ -197,12 +197,25 @@ def test_pod_manifests_match_the_jax_package_but_the_card():
 
 
 def test_master_refuses_ps_pods(tmp_path):
-    """PS pods (the host tier) are not ported: the master says so before
-    it binds a port or starts a pod."""
+    """PS pods (the host tier) are ported: the master refuses a negative
+    count before it binds a port or starts a pod, and for a positive one
+    builds the PS fleet (its pod manager and the shards' addresses on the
+    workers' config bus) before the workers."""
+    from elasticdl_tpu_torch.master.pod_manager import FakePodBackend
+
     train = str(tmp_path / "t.rio")
     generate("lm", train, 16, seed=0, seq_len=SEQ, vocab=VOCAB)
-    with pytest.raises(NotImplementedError, match="PS host tier"):
-        Master(JobConfig(training_data=train, num_ps_pods=1))
+    with pytest.raises(ValueError, match="num_ps_pods"):
+        Master(JobConfig(training_data=train, num_ps_pods=-1))
+    config = JobConfig(training_data=train, num_ps_pods=2, job_name="psj")
+    master = Master(config, pod_backend=FakePodBackend(auto_run=False),
+                    ps_backend=FakePodBackend(auto_run=False))
+    try:
+        assert master.ps_manager is not None
+        assert len(config.ps_addresses.split(",")) == 2
+        assert all(a.startswith("localhost:") for a in config.ps_addresses.split(","))
+    finally:
+        master.shutdown()
 
 
 #: The package name of the port's zoo test: no other test imports a zoo

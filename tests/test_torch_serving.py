@@ -152,15 +152,19 @@ def test_checkpoint_dir_is_not_ported_yet(tmp_path):
     """Checkpoint restore and hot reload are ported now (held by
     tests/test_torch_checkpoint.py): a checkpoint directory that holds no
     step yet serves fresh weights at step -1 under a watcher.  The PS host
-    tier is what stays unported, and asking for it raises."""
+    tier is ported too: ``ps_addresses`` builds a replica, which for a
+    model without host-tier tables holds no store and no cache."""
     server = ServingServer(tlm.model_spec(**_MODEL), checkpoint_dir=str(tmp_path), device="cpu")
     try:
         assert server.live_step == -1 and server._watcher is not None
         assert server._watcher.poke() is False  # nothing published
     finally:
         server.stop(grace=0)
-    with pytest.raises(NotImplementedError, match="PS host tier"):
-        ServingServer(tlm.model_spec(**_MODEL), ps_addresses="localhost:1", device="cpu")
+    server = ServingServer(tlm.model_spec(**_MODEL), ps_addresses="localhost:1", device="cpu")
+    try:
+        assert server._caches == {} and server._model_info({})["cache"] == {}
+    finally:
+        server.stop(grace=0)
 
 
 def _free_port():
@@ -205,3 +209,139 @@ def test_replica_main_serves_grpc_on_the_cpu():
             proc.kill()
             raise
     assert proc.returncode == 0, log
+
+
+# ---- the host tier: the hot-id cache and a replica over a PS fleet ----
+#
+# Tolerances: the cache's rows and stats equal the reference cache's exactly
+# (both front the same C++ store); the replica's outputs against the JAX
+# replica's on the same weights and the same fleet rtol 1e-5 / atol 1e-6
+# (f32 summation order).
+
+_DFM_HOST = dict(buckets_per_feature=128, embedding_dim=4, hidden=(8,), host_tier=True,
+                 compute_dtype="float32")
+
+
+@pytest.mark.parametrize("capacity", [1 << 20, 40], ids=["roomy", "evicting"])
+def test_hot_id_cache_matches_the_reference_cache(capacity):
+    """The same pulls through both packages' caches (over stores of each
+    package) give the same rows and the same LRU book-keeping: hits,
+    misses, evictions, invalidations, stale drops and the generation."""
+    from elasticdl_tpu.ps.host_store import HostEmbeddingStore as JaxStore
+    from elasticdl_tpu.serving.embedding_cache import HotIdEmbeddingCache as JaxCache
+    from elasticdl_tpu_torch.ps.host_store import HostEmbeddingStore
+    from elasticdl_tpu_torch.serving.embedding_cache import HotIdEmbeddingCache
+
+    ours = HotIdEmbeddingCache(HostEmbeddingStore(dim=3), capacity=capacity, name="t")
+    theirs = JaxCache(JaxStore(dim=3), capacity=capacity, name="t")
+    rng = np.random.default_rng(2)
+    for i in range(12):
+        ids = rng.zipf(1.3, (4, 9)).astype(np.int64) % 200
+        assert np.array_equal(ours.pull(ids), theirs.pull(ids))
+        if i == 6:
+            ours.invalidate()
+            theirs.invalidate()
+        assert ours.stats() == theirs.stats()
+    assert len(ours) == len(theirs) <= capacity
+    stats = ours.stats()
+    assert stats["hits"] > 0 and stats["invalidations"] == 1 and stats["generation"] == 1
+    assert (stats["evictions"] > 0) == (capacity == 40)
+    with pytest.raises(ValueError, match="capacity"):
+        HotIdEmbeddingCache(HostEmbeddingStore(dim=3), capacity=0)
+
+
+def test_cache_keeps_no_rows_fetched_across_an_invalidation():
+    """A miss fetch in flight when a reload invalidates returns its rows to
+    its caller but does not insert them (the generation guard)."""
+    from elasticdl_tpu_torch.ps.host_store import HostEmbeddingStore
+    from elasticdl_tpu_torch.serving.embedding_cache import HotIdEmbeddingCache
+
+    store = HostEmbeddingStore(dim=2)
+
+    class Racing:
+        dim = 2
+
+        def pull(self, ids):
+            cache.invalidate()  # the reload lands mid-fetch
+            return store.pull(ids)
+
+    cache = HotIdEmbeddingCache(Racing(), capacity=16)
+    ids = np.arange(5, dtype=np.int64)
+    np.testing.assert_array_equal(cache.pull(ids), store.pull(ids))
+    assert len(cache) == 0 and cache.stats()["stale_drops"] == 5
+
+
+def test_replica_over_a_ps_fleet_answers_as_the_jax_replica(tmp_path):
+    """A port replica and a JAX replica over the same 2-shard PS fleet and
+    the same dense weights give the same outputs; repeats are cache hits
+    (rows pushed underneath meanwhile stay unseen), and a published reload
+    invalidates the cache, after which the answers are a fresh pull's."""
+    from elasticdl_tpu.models import deepfm as jdeepfm
+    from elasticdl_tpu_torch.common.checkpoint import CheckpointManager
+    from elasticdl_tpu_torch.models import deepfm
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+    from elasticdl_tpu_torch.ps.service import PSServer, RemoteEmbeddingStore
+
+    spec = deepfm.model_spec(**_DFM_HOST)
+    key = deepfm.HOST_FM_KEY
+    from elasticdl_tpu_torch.common import gauge as gaugelib
+
+    fleet = [PSServer(spec.host_io, shard=s, num_shards=2, gauges=gaugelib.Registry()).start()
+             for s in range(2)]
+    addrs = ",".join(s.address for s in fleet)
+    jserver = JaxServingServer(jdeepfm.model_spec(**_DFM_HOST), ps_addresses=addrs,
+                               max_batch=4, batch_buckets=[4])
+    params = jax.device_get(jserver._template.params)
+    # The port replica serves the JAX weights from a published checkpoint.
+    ckpt_dir = str(tmp_path / "ckpt")
+    writer = Trainer(spec, device="cpu")
+    state = writer.init_state(None)
+    state.model.load_jax_params(params)
+    mgr = CheckpointManager(ckpt_dir)
+    mgr.save(0, writer.host_state(state), wait=True)
+    mgr.publish(0)
+    server = ServingServer(spec, checkpoint_dir=ckpt_dir, ps_addresses=addrs, max_batch=4,
+                           batch_buckets=[4], max_delay_ms=2, poll_interval_s=3600,
+                           cache_rows=1 << 10, device="cpu").start()
+    client = ServingClient(server.address)
+    rng = np.random.default_rng(4)
+    feats = {"dense": rng.uniform(0, 50, (4, 13)).astype(np.float32),
+             "cat": rng.integers(0, 1 << 30, (4, 26)).astype(np.int32)}
+    try:
+        client.wait_ready(10.0)
+        padded = dict(feats, __mask__=np.ones(4, np.float32))
+        want = np.asarray(jserver._run_batch(dict(padded), 4)[0])
+        got = np.asarray(client.predict(feats)["outputs"])
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        stats = client.model_info()["cache"][key]
+        assert stats["misses"] > 0 and stats["size"] > 0
+        # Training pushes underneath: the cache still serves the old rows.
+        ids = np.unique(spec.host_io[key].ids_fn(feats))
+        store = RemoteEmbeddingStore(key, spec.host_io[key].dim, addrs.split(","))
+        for _ in range(30):
+            store.push_grad(ids, np.ones((ids.size, store.dim), np.float32))
+        np.testing.assert_array_equal(np.asarray(client.predict(feats)["outputs"]), got)
+        assert client.model_info()["cache"][key]["hits"] >= ids.size
+        # A publish reloads and invalidates: the next answer is a fresh pull's.
+        invalidations = stats["invalidations"]  # the startup load's
+        mgr.save(1, writer.host_state(state), wait=True)
+        mgr.publish(1)
+        assert server._watcher.poke()
+        info = client.model_info()
+        assert info["step"] == 1
+        assert info["cache"][key]["invalidations"] == invalidations + 1
+        assert info["cache"][key]["size"] == 0
+        after = np.asarray(client.predict(feats)["outputs"])
+        jserver._caches[key].invalidate()  # the JAX replica's cache is warm too
+        fresh = np.asarray(jserver._run_batch(dict(padded), 4)[0])
+        assert np.abs(after - got).max() > 1e-4
+        np.testing.assert_allclose(after, fresh, rtol=1e-5, atol=1e-6)
+        text = server.gauges.render_prometheus()
+        assert "edl_serving_cache_hit_ratio" in text and "edl_serving_cache_rows" in text
+        store.close()
+    finally:
+        client.close()
+        server.stop(grace=0)
+        jserver.stop()
+        for s in fleet:
+            s.stop(grace=0)
