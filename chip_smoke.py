@@ -127,6 +127,22 @@ exits non-zero without its result line:
    requests with skewed ids, the cache's hit rate after warm-up, request
    and flush p50; after pushes under it, a publish empties the cache and
    the answers equal a fresh pull's. No flash kernel runs here.
+14. the model zoo (``phase_zoo``) at the reference bench's widths: MNIST,
+   ResNet-50 on CIFAR-10 (stages 3-4-6-3, width 64, GroupNorm(8)) and
+   Wide&Deep on census (65536 buckets, dim 8, MLP 100-50; its two tables
+   row-sharded under ParameterServer, a world of one). (a) Each model 3
+   steps in f32 on the card and on the CPU from the same weights: every
+   loss, step 1's gradients and all parameters after the steps within
+   ``ZOO_F32_REL``. (b) Each at its bench batch (4096, 512, 8192) in bf16:
+   5 warm-up and 30 timed steps, step p50 by CUDA events, examples/s,
+   peak memory, the step's FLOPs against the bf16 peak, the loss falling;
+   ResNet-50's step split by torch.profiler into convolutions and GEMMs,
+   GroupNorm and elementwise work, SGD and the rest, with the host's
+   enqueue. (c) The Wide&Deep CLI job with ``--prep_depth=2`` on a SQLite
+   census table (16 tasks of 8192 rows): the prep pool's width 1, an eval
+   round's AUC, a checkpoint. (d) A replica over that checkpoint answers
+   16 requests, equal to ``predict`` in process. No flash kernel runs
+   here.
 
 Prints the card's name and power limit first, a ``{"kernels": [...]}``
 line before the last, and ``{"ok": true, "device": {...}}`` last.  The
@@ -1581,11 +1597,11 @@ _DFM_GROUPS = (
 )
 
 
-def _dfm_breakdown(fn) -> dict:
-    """One ``fn()`` under torch.profiler: device time grouped into gather,
-    scatter-add, Adam, GEMMs and the rest, the top kernels, and the host's
-    top operators by self time (under the profiler, which slows them), with
-    the count of kernels launched."""
+def _dfm_breakdown(fn, kernel_groups=_DFM_GROUPS) -> dict:
+    """One ``fn()`` under torch.profiler: device time grouped by
+    ``kernel_groups`` (DeepFM's: gather, scatter-add, Adam, GEMMs) and the
+    rest, the top kernels, and the host's top operators by self time (under
+    the profiler, which slows them), with the count of kernels launched."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1603,11 +1619,11 @@ def _dfm_breakdown(fn) -> dict:
             launches += e.count
         elif e.self_cpu_time_total > 0 and e.key != "Activity Buffer Request":
             by_op[e.key] = by_op.get(e.key, 0.0) + e.self_cpu_time_total / 1e3
-    groups = {name: 0.0 for name, _ in _DFM_GROUPS}
+    groups = {name: 0.0 for name, _ in kernel_groups}
     groups["rest"] = 0.0
     for key, ms in by_kernel.items():
         k = key.lower()
-        name = next((n for n, frags in _DFM_GROUPS if any(f in k for f in frags)), "rest")
+        name = next((n for n, frags in kernel_groups if any(f in k for f in frags)), "rest")
         groups[name] += ms
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:14]
     host = sorted(by_op.items(), key=lambda kv: -kv[1])[:14]
@@ -3332,6 +3348,373 @@ def phase_host_tier(card: str) -> dict:
             "rss_gib": rss, "job": job, "serving": serving, "wall_s": wall}
 
 
+# ---- phase 14: the model zoo ------------------------------------------------------
+
+# The reference bench's widths and batches (tools/bench_all.py:41-80):
+# MNIST at the zoo default; ResNet-50 (stages 3-4-6-3, width 64, CIFAR
+# stem, GroupNorm(8)); Wide&Deep at 65536 buckets a feature, dim 8, MLP
+# 100-50, its two tables row-sharded under the ParameterServer strategy (a
+# world of one).  Each model's own optimizer and learning rate.
+ZOO_WIDTH = {
+    "mnist": {},
+    "resnet50": dict(depth=50, width=64),
+    "wide_deep": dict(buckets=65536, embedding_dim=8, hidden=(100, 50)),
+}
+ZOO_STRATEGY = {"mnist": "AllReduce", "resnet50": "AllReduce", "wide_deep": "ParameterServer"}
+ZOO_BATCH = {"mnist": 4096, "resnet50": 512, "wide_deep": 8192}
+# (a) Card against CPU at f32 (TF32 off), 3 steps from the same weights.
+# Held at ZOO_F32_REL: every step's loss (relative), step 1's gradient of
+# every parameter and all parameters after the steps as one vector (error
+# norm over norm).  The single leaves after the steps are logged, not held:
+# ResNet-50 at lr 0.1 on batches of 8 amplifies f32 noise (its loss rises
+# 2.5 -> 13 -> 78 over the 3 steps; on the CPU a 1e-6 relative change of the
+# weights moved a GroupNorm bias by 3.2e-4 relative after them, and all
+# parameters together by 6.4e-6).
+ZOO_PARITY_BATCH = {"mnist": 64, "resnet50": 8, "wide_deep": 8192}
+ZOO_PARITY_STEPS = 3
+ZOO_F32_REL = 1e-4
+# (b) bench.py's protocol in bf16: 5 warm-up steps, 30 timed.
+ZOO_WARM, ZOO_STEPS = 5, 30
+# (c) The CLI job: 16 tasks of one minibatch of 8192 census rows in a
+# SQLite table, an eval round on ZOO_VAL rows and a checkpoint at step 16.
+ZOO_JOB_TASKS, ZOO_VAL = 16, 20000
+# (d) The replica: 16 requests of one bucket each.
+ZOO_REQUESTS, ZOO_REQUEST_ROWS = 16, 64
+ZOO_DEVICE = "cuda"
+CENSUS_COLUMNS = ["label", "age", "education_num", "capital_gain", "capital_loss",
+                  "hours_per_week", "workclass", "education", "marital_status", "occupation",
+                  "relationship", "race", "sex", "native_country", "extra_cat"]
+# Profiler kernel-name fragments of the ResNet-50 step's groups: the
+# convolutions and GEMMs (cuDNN and cuBLAS, their layout transposes
+# included), the SGD update (foreach kernels); GroupNorm's reductions and
+# the elementwise passes are the rest of the kernels but for these.
+_ZOO_GROUPS = (
+    ("sgd", ("multi_tensor_apply", "sgd")),
+    ("conv_gemm", ("conv", "cudnn", "xmma", "implicit", "fprop", "dgrad", "wgrad", "sm90",
+                   "cutlass", "nhwc", "nchw", "winograd", "gemm", "nvjet", "dot_kernel")),
+    ("norm_elementwise", ("elementwise", "reduce", "norm", "vectorized", "unrolled", "copy",
+                          "fill", "pad", "cat", "pool", "index", "softmax", "nll", "where")),
+)
+
+
+def _zoo_module(name: str):
+    from elasticdl_tpu_torch.models import cifar10_resnet, mnist, wide_deep
+
+    return {"mnist": mnist, "resnet50": cifar10_resnet, "wide_deep": wide_deep}[name]
+
+
+def _zoo_records(name: str, n: int, seed: int, out: str) -> list:
+    """``n`` synthetic records of the model's dataset, through the file
+    the generator writes (RecordIO images, census CSV lines)."""
+    from elasticdl_tpu_torch.data import synthetic
+    from elasticdl_tpu_torch.data.recordio import RecordIOReader
+
+    family = {"mnist": "mnist", "resnet50": "cifar10", "wide_deep": "census"}[name]
+    path = os.path.join(out, f"{family}-{seed}.data")
+    synthetic.generate(family, path, n, seed=seed)
+    if family == "census":
+        with open(path, "rb") as f:
+            records = [line for line in f.read().split(b"\n") if line]
+    else:
+        records = list(RecordIOReader(path).read_range(0, n))
+    os.remove(path)
+    return records
+
+
+def _zoo_batches(spec, records: list, batch: int) -> list:
+    return [spec.feed(records[i:i + batch]) for i in range(0, len(records), batch)]
+
+
+def _zoo_trainer(spec, name: str, device: str):
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+
+    return Trainer(spec, device=device, config=JobConfig(distribution_strategy=ZOO_STRATEGY[name]))
+
+
+def _zoo_parity(name: str, out: str) -> dict:
+    """(a) 3 f32 steps on the card and on the CPU from the port's own init,
+    copied: each step's loss, step 1's gradients, the parameters after."""
+    mod = _zoo_module(name)
+    spec = mod.model_spec(compute_dtype="float32", **ZOO_WIDTH[name])
+    n = ZOO_PARITY_BATCH[name]
+    batches = _zoo_batches(spec, _zoo_records(name, ZOO_PARITY_STEPS * n, 1, out), n)
+    sides, tree = {}, None
+    for dev in ("cpu", ZOO_DEVICE):
+        tr = _zoo_trainer(spec, name, dev)
+        state = tr.init_state(0 if tree is None else None)
+        if tree is None:
+            tree = mod.params_to_jax(state.model)
+        else:
+            state.model.load_jax_params(tree)
+        # Step 1's gradients from a backward of their own: the optimizer may
+        # rewrite .grad in place (SGD nesterov's foreach update on the card
+        # adds the momentum into it).
+        placed = tr.shard_batch(batches[0])
+        spec.loss(tr._apply(state.model, placed, train=True), placed).backward()
+        grads = {k: p.grad.detach().cpu().clone() for k, p in state.model.named_parameters()}
+        state.model.zero_grad(set_to_none=True)
+        state, metrics = tr.run_train_steps(state, batches)
+        sides[dev] = ([float(m["loss"]) for m in metrics], grads,
+                      {k: p.detach().cpu().clone() for k, p in state.model.named_parameters()})
+        del tr, state
+    (closs, cgrad, cparam), (gloss, ggrad, gparam) = sides["cpu"], sides[ZOO_DEVICE]
+    held = {f"loss{i}": abs(a - b) / abs(b) for i, (a, b) in enumerate(zip(gloss, closs))}
+    held.update({f"grad0/{k}": _rel(g, cgrad[k]) for k, g in ggrad.items()})
+    held["params"] = _rel(torch.cat([p.reshape(-1) for p in gparam.values()]),
+                          torch.cat([p.reshape(-1) for p in cparam.values()]))
+    leaves = {k: _rel(p, cparam[k]) for k, p in gparam.items()}
+    worst, worst_leaf = max(held, key=held.get), max(leaves, key=leaves.get)
+    log(f"[zoo] (a) {name} card vs CPU, f32, {ZOO_PARITY_STEPS} steps of {n}: losses "
+        + ", ".join(f"{x:.6f}" for x in gloss) + " (CPU " + ", ".join(f"{x:.6f}" for x in closs)
+        + f"); all parameters after the steps {held['params']:.3g}; largest held reading "
+        f"{worst} {held[worst]:.3g} (limit {ZOO_F32_REL}); largest single parameter after the "
+        f"steps {worst_leaf} {leaves[worst_leaf]:.3g}")
+    assert all(v <= ZOO_F32_REL for v in held.values()), (name, held)
+    return {"losses": gloss, "cpu_losses": closs, "held": {worst: held[worst],
+            "params": held["params"]}, "worst_leaf": [worst_leaf, leaves[worst_leaf]]}
+
+
+def _step_flops(spec, trainer, batch: dict, rows: int) -> float:
+    """Operations of one training step at ``rows`` examples: the matrix
+    products and convolutions of a forward and backward on a 2-example
+    slice, counted by ``FlopCounterMode``, scaled."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    small = trainer.shard_batch({k: v[:2] for k, v in batch.items()})
+    model = trainer.init_state(None).model
+    counter = FlopCounterMode(display=False)
+    with counter:
+        trainer._apply(model, small, train=True).float().sum().backward()
+    return counter.get_total_flops() / 2 * rows
+
+
+def _zoo_timed(name: str, out: str, card: str) -> dict:
+    """(b) The model at its bench batch in bf16: 5 warm-up steps and 30
+    timed on one placed batch (bench.py's protocol); step p50 from CUDA
+    events at each step's end, examples/s, peak memory; the loss must fall
+    over the timed steps.  ResNet-50 also gets a profile split."""
+    mod = _zoo_module(name)
+    spec = mod.model_spec(**ZOO_WIDTH[name])
+    n = ZOO_BATCH[name]
+    [batch] = _zoo_batches(spec, _zoo_records(name, n, 2, out), n)
+    trainer = _zoo_trainer(spec, name, ZOO_DEVICE)
+    flops = _step_flops(spec, trainer, batch, n) if name != "wide_deep" else 0.0
+    state = trainer.init_state(0)
+    placed = trainer.shard_batch(batch)
+    for _ in range(ZOO_WARM):
+        state = trainer.train_step(state, placed)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(ZOO_STEPS + 1)]
+    losses = []
+    t = time.perf_counter()
+    ends[0].record()
+    for i in range(ZOO_STEPS):
+        state, metrics, _ = trainer.train_step(state, placed)
+        losses.append(metrics["loss"])
+        ends[i + 1].record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3 / ZOO_STEPS
+    step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+    p50 = statistics.median(step_ms)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    result = {"batch": n, "p50_step_ms": p50, "host_ms_per_step": host_ms,
+              "examples_per_s": n / p50 * 1e3, "peak_gib": peak / 2**30,
+              "loss_first5": first, "loss_last5": last, "step_flops": flops}
+    bound = ""
+    if flops:
+        result["bound_ms"] = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+        bound = (f"; {flops / 1e12:.3f} TFLOP a step (convolutions and products), bound "
+                 f"{result['bound_ms']:.3f} ms at 989 TFLOP/s, {result['bound_ms'] / p50:.3f} of it")
+    log(f"[zoo] (b) {name} bf16 at B={n} ({ZOO_STEPS} steps after {ZOO_WARM} warm-up): step "
+        f"p50 {p50:.3f} ms (CUDA events; min {min(step_ms):.3f}, max {max(step_ms):.3f}), host "
+        f"clock {host_ms:.3f} ms a step, {n / p50 * 1e3:.0f} examples/s, peak memory "
+        f"{peak / 2**30:.3f} GiB{bound}; loss {first:.4f} -> {last:.4f} (means of the first and "
+        f"last 5 timed steps) on {card}")
+    assert all(np.isfinite(losses)) and last < first, (name, losses)
+    if name == "resnet50":
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state = trainer.train_step(state, placed)[0]
+        enqueue_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        holder = [state]
+
+        def one_step():
+            holder[0] = trainer.train_step(holder[0], placed)[0]
+
+        split = _dfm_breakdown(one_step, _ZOO_GROUPS)
+        result.update(enqueue_ms=enqueue_ms, split=split)
+        log(f"[zoo] (b) resnet50 one step: host enqueue {enqueue_ms:.3f} ms, device busy "
+            f"{split['device_ms']:.3f} ms in {split['kernels']} kernels: "
+            + json.dumps(split["groups_ms"]) + f" (norm_elementwise = GroupNorm's reductions and "
+            f"the elementwise passes; rest = the other kernels) on {card}")
+        log("[zoo] (b) resnet50 top kernels: " + json.dumps(split["top_kernels_ms"]))
+        log(f"[zoo] (b) resnet50 host, profiled: {split['host_ms']:.3f} ms self time; top "
+            "operators: " + json.dumps(split["top_host_ops_ms"][:8]))
+    del trainer, state, placed
+    torch.cuda.empty_cache()
+    return result
+
+
+def _census_table(path: str, n: int, seed: int) -> str:
+    """A SQLite census table of ``n`` synthetic rows (``write_table``)."""
+    from elasticdl_tpu_torch.data.synthetic import synthetic_census
+    from elasticdl_tpu_torch.data.table import write_table
+
+    csv = path + ".csv"
+    synthetic_census(csv, n, seed)
+    with open(csv) as f:
+        rows = [line.split(",") for line in f.read().splitlines() if line]
+    os.remove(csv)
+    write_table(path, rows, CENSUS_COLUMNS)
+    return path
+
+
+def _zoo_cli(out: str, card: str) -> dict:
+    """(c) ``python -m elasticdl_tpu_torch.client.main train
+    --model_def=wide_deep.model_spec`` at full width under the
+    ParameterServer strategy with ``--prep_depth=2``, its training data a
+    SQLite census table: one worker process on the card, an eval round
+    (AUC) and a checkpoint at the last step."""
+    import ast
+
+    from elasticdl_tpu_torch.common.checkpoint import read_manifest
+
+    t = time.perf_counter()
+    n = ZOO_JOB_TASKS * ZOO_BATCH["wide_deep"]
+    train = _census_table(os.path.join(out, "train.db"), n, 21)
+    val = _census_table(os.path.join(out, "val.db"), ZOO_VAL, 22)
+    gen_s = time.perf_counter() - t
+    ckpt, pods = os.path.join(out, "ckpt"), os.path.join(out, "pods")
+    w = ZOO_WIDTH["wide_deep"]
+    params = (f"buckets={w['buckets']};embedding_dim={w['embedding_dim']};"
+              f"hidden={','.join(str(h) for h in w['hidden'])}")
+    cmd = [sys.executable, "-m", "elasticdl_tpu_torch.client.main", "train", "--local",
+           "--job_name=chip14", "--model_def=wide_deep.model_spec", f"--model_params={params}",
+           "--distribution_strategy=ParameterServer", "--prep_depth=2", "--learning_rate=1e-3",
+           f"--training_data={train}", f"--validation_data={val}",
+           f"--minibatch_size={ZOO_BATCH['wide_deep']}", "--num_minibatches_per_task=1",
+           "--num_epochs=1", f"--evaluation_steps={ZOO_JOB_TASKS}",
+           f"--checkpoint_steps={ZOO_JOB_TASKS}", f"--checkpoint_dir={ckpt}",
+           f"--pod_log_dir={pods}"]
+    log_path = os.path.join(out, "cli.log")
+    t = time.perf_counter()
+    proc = _start_cli(cmd, log_path)
+    try:
+        rc = proc.wait(timeout=300)
+    finally:
+        _stop_cli(proc)
+    wall = time.perf_counter() - t
+    text = _read(log_path)
+    assert rc == 0, f"the Wide&Deep CLI job exited {rc}; see {log_path}"
+    line = next(x for x in text.splitlines() if "job finished: " in x)
+    status = ast.literal_eval(line.split("job finished: ", 1)[1])
+    pod_log = _read(os.path.join(pods, "chip14-worker-0.log"))
+    events = _worker_events(pod_log)
+    summary = events["summary"]
+    pool = next(x for x in pod_log.splitlines() if "prep pool: " in x)
+    width = int(pool.split("prep pool: ", 1)[1].split(" ", 1)[0])
+    manifest = read_manifest(ckpt)
+    auc = status["eval_metrics"]["auc"]
+    log(f"[zoo] (c) CLI job: tables written in {gen_s:.1f} s ({n} training rows, {ZOO_VAL} "
+        f"validation rows); rc {rc} in {wall:.1f} s; {status['done']} tasks, step "
+        f"{summary['step']}, prep pool width {width} (prep_depth 2, the table reader declares "
+        f"no thread_safe_ranges); eval " + json.dumps(status["eval_metrics"])
+        + f"; manifest step {manifest['step']}; worker phase times "
+        + json.dumps(summary.get("phase_times", {})) + f"; state bytes "
+        + json.dumps(summary.get("state_bytes", {})) + f" on {card}")
+    assert status["done"] == ZOO_JOB_TASKS and summary["step"] == ZOO_JOB_TASKS
+    assert width == 1, pool
+    assert status["eval_rounds"] >= 1 and 0.5 < auc < 1.0, status["eval_metrics"]
+    assert manifest["step"] == ZOO_JOB_TASKS
+    for path in (train, val):
+        os.remove(path)
+    return {"wall_s": wall, "gen_s": gen_s, "prep_pool_width": width,
+            "eval_metrics": status["eval_metrics"], "summary_step": summary["step"],
+            "phase_times": summary.get("phase_times"), "ckpt": ckpt,
+            "manifest_step": manifest["step"]}
+
+
+def _zoo_replica(ckpt: str, step: int, out: str, card: str) -> dict:
+    """(d) A replica on the card over (c)'s checkpoint: 16 Predict
+    requests of one bucket each, equal to ``predict`` on the checkpoint's
+    weights in process."""
+    from elasticdl_tpu_torch.common.checkpoint import CheckpointManager
+    from elasticdl_tpu_torch.models import wide_deep
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+    from elasticdl_tpu_torch.serving.client import ServingClient
+    from elasticdl_tpu_torch.serving.server import ServingServer
+
+    spec = wide_deep.model_spec(**ZOO_WIDTH["wide_deep"])
+    records = _zoo_records("wide_deep", ZOO_REQUESTS * ZOO_REQUEST_ROWS, 23, out)
+    feats = [{k: v for k, v in b.items() if k != "labels"}
+             for b in _zoo_batches(spec, records, ZOO_REQUEST_ROWS)]
+    server = ServingServer(spec, checkpoint_dir=ckpt, max_batch=ZOO_REQUEST_ROWS,
+                           batch_buckets=[ZOO_REQUEST_ROWS], max_delay_ms=2,
+                           poll_interval_s=3600, device=ZOO_DEVICE).start()
+    client = ServingClient(server.address)
+    try:
+        client.wait_ready(60.0)
+        assert server.live_step == step, (server.live_step, step)
+        walls, answers = [], []
+        for f in feats:
+            t = time.perf_counter()
+            answers.append(np.asarray(client.predict(f)["outputs"], np.float32))
+            walls.append((time.perf_counter() - t) * 1e3)
+    finally:
+        client.close()
+        server.stop(grace=0)
+    trainer = Trainer(spec, device=ZOO_DEVICE)
+    state = trainer.adopt_restored(CheckpointManager(ckpt).restore(step))
+    want = [trainer.run_predict_step(state.model, f).float().cpu().numpy() for f in feats]
+    err = max(float(np.abs(a - w).max()) for a, w in zip(answers, want))
+    p50 = statistics.median(walls)
+    log(f"[zoo] (d) replica over step {step}: {ZOO_REQUESTS} requests of {ZOO_REQUEST_ROWS} "
+        f"rows, request p50 {p50:.3f} ms; answers in [{min(a.min() for a in answers):.4f}, "
+        f"{max(a.max() for a in answers):.4f}], largest difference from predict in process "
+        f"{err:.3g} on {card}")
+    assert all(a.shape == (ZOO_REQUEST_ROWS,) for a in answers)
+    assert err <= 1e-6, err
+    return {"request_p50_ms": p50, "max_abs_err": err}
+
+
+def phase_zoo(card: str) -> dict:
+    """Phase 14: the model zoo on the card.  (a) MNIST, ResNet-50 and
+    Wide&Deep at full width, card against CPU at f32 over 3 steps; (b) each
+    at its bench batch in bf16, timed, with ResNet-50's profile split; (c)
+    the Wide&Deep CLI job from a SQLite table under the ParameterServer
+    strategy; (d) a replica over its checkpoint."""
+    import shutil
+
+    from elasticdl_tpu_torch.ops import kernels
+    from elasticdl_tpu_torch.ps import host_store
+
+    t_phase = time.perf_counter()
+    out = os.path.join(REPO, "chiprun_out", "zoo")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    launched = dict(kernels.counts())
+    host_store._load()  # the census decode's native library, built from the checkout
+    report = {"parity": {}, "timed": {}}
+    for name in ZOO_WIDTH:
+        report["parity"][name] = _zoo_parity(name, out)
+    torch.cuda.empty_cache()
+    for name in ZOO_WIDTH:
+        report["timed"][name] = _zoo_timed(name, out, card)
+    job = _zoo_cli(out, card)
+    report["job"] = job
+    report["replica"] = _zoo_replica(job["ckpt"], job["manifest_step"], out, card)
+    shutil.rmtree(job["ckpt"])  # ~0.1 GB a checkpoint: too much to bring back
+    assert kernels.counts() == launched, "phase 14 launches no flash kernel"
+    report["wall_s"] = time.perf_counter() - t_phase
+    log(f"[zoo] phase 14 in {report['wall_s']:.1f} s")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA card",
@@ -3364,6 +3747,7 @@ def main() -> int:
     report["ps"] = phase_ps(card)
     report["opt_shard"] = phase_opt_shard(card)
     report["host_tier"] = phase_host_tier(card)
+    report["zoo"] = phase_zoo(card)
     report["wall_s"] = time.perf_counter() - t0
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

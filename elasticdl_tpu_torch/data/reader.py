@@ -225,15 +225,22 @@ def _split_table_path(data_path: str) -> tuple:
     return path, table
 
 
-#: The SQLite file header (``elasticdl_tpu/data/table.py``), for sniffing.
+#: The SQLite file header (``data/table.py``'s format), for sniffing.
 SQLITE_MAGIC = b"SQLite format 3\x00"
 
 
 def _make_table_reader(data_path: str, **params) -> AbstractDataReader:
-    raise NotImplementedError(
-        f"{data_path}: the SQLite table reader (data/table.py) is not ported "
-        "yet (ROADMAP, PyTorch port queue: the other zoo models)"
-    )
+    from elasticdl_tpu_torch.data.table import TableDataReader
+
+    path, table = _split_table_path(data_path)
+    if table:
+        params.setdefault("table", table)
+    files = _expand(path)
+    if len(files) == 1:
+        return TableDataReader(files[0], **params)
+    # A directory or glob of database files: one reader a file, routed by
+    # shard name (each table reader's source is "<file>#<table>").
+    return CompositeDataReader([TableDataReader(f, **params) for f in files])
 
 
 _READERS = {

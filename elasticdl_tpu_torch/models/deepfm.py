@@ -55,6 +55,7 @@ from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.data.codecs import criteo_feed, criteo_feed_pre
 from elasticdl_tpu_torch.models.spec import EmbeddingTableSpec, HostTableIO, ModelSpec
 from elasticdl_tpu_torch.models.tabular import (
+    adam,
     bce_loss,
     binary_metrics,
     fuse_feature_ids,
@@ -226,12 +227,6 @@ def _metrics(logits: torch.Tensor, batch: Dict[str, torch.Tensor], mask=None) ->
     return binary_metrics(logits, batch["labels"], mask)
 
 
-def _adam(parameters, learning_rate: float) -> torch.optim.Adam:
-    """``optax.adam(learning_rate)``: b1 0.9, b2 0.999, eps 1e-8, every
-    parameter dense."""
-    return torch.optim.Adam(parameters, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
-
-
 def _example_batch(batch_size: int, pre: bool = False) -> Dict[str, np.ndarray]:
     if pre:
         return {
@@ -348,7 +343,7 @@ def model_spec(
         predict=_predict,
         loss=_loss,
         metrics=_metrics,
-        optimizer=functools.partial(_adam, learning_rate=learning_rate),
+        optimizer=functools.partial(adam, learning_rate=learning_rate),
         feed=(
             functools.partial(criteo_feed_pre, buckets=buckets_per_feature)
             if pipeline_preprocess

@@ -80,6 +80,12 @@ def binary_metrics(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> dic
     }
 
 
+def adam(parameters, learning_rate: float) -> torch.optim.Adam:
+    """``optax.adam(learning_rate)``: b1 0.9, b2 0.999, eps 1e-8, every
+    parameter dense (the tabular models' optimizer)."""
+    return torch.optim.Adam(parameters, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+
+
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
     """BCE over real examples only (padding carries zero loss, hence zero
     gradient)."""

@@ -147,6 +147,16 @@ def exceeds_hbm_guard(vocab_size: int, dim: int, num_devices: int = 1) -> bool:
     return 3 * table_bytes(vocab_size, dim) > HOST_TIER_GUARD_BYTES * max(1, num_devices)
 
 
+def init_table(generator: torch.Generator, vocab_size: int, dim: int,
+               scale: float = 0.01, device: Any = None) -> torch.Tensor:
+    """A fresh packed ``[P, pack*stride]`` table (``table_shape``) of
+    normal draws times ``scale`` from ``generator``, the reference's
+    ``init_table``: every element is drawn, the padding rows and dead lanes
+    too (the lookup never reads them)."""
+    out = torch.empty(table_shape(vocab_size, dim), device=device)
+    return out.normal_(0.0, 1.0, generator=generator).mul_(scale)
+
+
 def _pack_geometry(width: int, dim: int) -> Tuple[int, int]:
     """(pack, stride) of a table of physical width ``width`` holding
     ``dim``-value logical rows; ``width == dim`` is the plain layout."""

@@ -66,8 +66,11 @@ world and layout that wrote it (whole tables, param-shaped moments):
   ``.`` — the JAX parameter-tree path (``params/blocks/b0/wqkv``), as
   ``transformer_lm.params_to_jax`` gives it;
 - ``opt_state/mu/<p>`` and ``opt_state/nu/<p>``: the Adam(W) moments (optax's
-  ``ScaleByAdamState`` ``mu``/``nu``; torch's ``exp_avg``/``exp_avg_sq``);
-- ``opt_state/count``: the optimizer's update count; ``step``: the step.
+  ``ScaleByAdamState`` ``mu``/``nu``; torch's ``exp_avg``/``exp_avg_sq``),
+  and ``opt_state/count``, the optimizer's update count;
+- or, for SGD with momentum, ``opt_state/trace/<p>`` (optax's
+  ``TraceState`` ``trace``; torch's ``momentum_buffer``) and no count;
+- ``step``: the step.
 
 With sharded state, ``snapshot_state`` (and ``host_state``) gathers the
 tables' rows and the flat moments from the ranks: a collective every rank
@@ -129,7 +132,27 @@ MASK_KEY = "__mask__"
 
 #: Canonical-state path prefixes and keys (see the module docstring).
 PARAMS, MU, NU = "params/", "opt_state/mu/", "opt_state/nu/"
+TRACE = "opt_state/trace/"
 COUNT_KEY, STEP_KEY = "opt_state/count", "step"
+
+#: Each optimizer family's canonical slots: (torch's per-parameter state
+#: name, the canonical prefix), and whether optax keeps an update count.
+_ADAM_LAYOUT = ((("exp_avg", MU), ("exp_avg_sq", NU)), True)
+_SGD_MOMENTUM_LAYOUT = ((("momentum_buffer", TRACE),), False)
+
+
+def optimizer_layout(optimizer: torch.optim.Optimizer) -> Tuple[Tuple[Tuple[str, str], ...], bool]:
+    """(slots, has_count) of ``optimizer`` in the canonical state: Adam and
+    AdamW keep two moments and a count, SGD with momentum one trace.  Any
+    other optimizer raises: its state would not survive a checkpoint."""
+    if isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+        return _ADAM_LAYOUT
+    if isinstance(optimizer, torch.optim.SGD) and all(
+            g["momentum"] > 0 and g["dampening"] == 0 for g in optimizer.param_groups):
+        return _SGD_MOMENTUM_LAYOUT
+    raise NotImplementedError(
+        f"the canonical state holds Adam(W) and SGD with momentum (no dampening), "
+        f"not {type(optimizer).__name__} with {optimizer.defaults}")
 
 #: ``--optimizer_sharding`` values.
 OPT_MODES = ("replicated", "sharded", "auto")
@@ -387,6 +410,10 @@ class Trainer:
         # The sharded optimizer's plan, resolved per state (``init_state``);
         # None: the replicated layout.
         self._opt_plan: Optional[Dict[str, Any]] = None
+        # The optimizer's canonical slots, from a probe of the spec's factory.
+        self._opt_slots, self._opt_count = (
+            optimizer_layout(spec.optimizer([torch.nn.Parameter(torch.zeros(1))]))
+            if spec.optimizer else ((), False))
         self._loss_takes_mask = spec.loss is not None and (
             "mask" in inspect.signature(spec.loss).parameters
         )
@@ -611,14 +638,16 @@ class Trainer:
         ``_resolve_opt_sharding``) in ``mode`` (default: the flag's): never
         on a data-parallel axis of one rank; ``auto`` when the dense
         leaves' two Adam moments reach ``--optimizer_sharding_auto_mb`` a
-        replica (row-sharded tables do not count: ``_OPT_KEEP``)."""
+        replica (row-sharded tables do not count: ``_OPT_KEEP``; SGD's one
+        trace counts once)."""
         mode = mode or self.optimizer_sharding
         if mode == "replicated" or int(self.mesh.shape[self.opt_axis]) <= 1:
             return False
         if mode == "sharded":
             return True
         itemsize = {path: p.element_size() for path, p in paths}
-        per_replica = sum(2 * e.size * itemsize[path] for path, e in plan.items()
+        slots = len(self._opt_slots)
+        per_replica = sum(slots * e.size * itemsize[path] for path, e in plan.items()
                           if isinstance(e, _OptShard))
         threshold = float(getattr(self.config, "optimizer_sharding_auto_mb", 64.0)) * (1 << 20)
         return per_replica >= threshold
@@ -1147,7 +1176,7 @@ class Trainer:
         zero_moments = self._gather_zero_moments(zero, opt_state) if zero and stepped else {}
         count = 0
         for st in opt_state.values():
-            count = st["step"]
+            count = st.get("step", 0)
             break
         for path, p in self._param_paths(state.model):
             table = path in self._table_keys
@@ -1156,16 +1185,16 @@ class Trainer:
                 continue
             full_shape = snap[PARAMS + path].shape
             if path in zero_moments:
-                snap[MU + path], snap[NU + path] = zero_moments[path]
+                for (_, key), slot in zip(self._opt_slots, zero_moments[path]):
+                    snap[key + path] = slot
                 continue
             st = opt_state.get(p)
-            if st:
-                for key, name in ((MU, "exp_avg"), (NU, "exp_avg_sq")):
+            for name, key in self._opt_slots:
+                if st and st.get(name) is not None:
                     snap[key + path] = self._gather_rows(st[name]) if table else take(st[name])
-            else:
-                snap[MU + path] = torch.zeros(full_shape, dtype=p.dtype, device=p.device)
-                snap[NU + path] = torch.zeros(full_shape, dtype=p.dtype, device=p.device)
-        if optimizer is not None:
+                else:
+                    snap[key + path] = torch.zeros(full_shape, dtype=p.dtype, device=p.device)
+        if optimizer is not None and self._opt_count:
             # torch keeps the count as a float tensor per parameter (all
             # equal); optax as one int32.
             snap[COUNT_KEY] = (
@@ -1190,20 +1219,19 @@ class Trainer:
         return full.view((-1,) + tuple(local.shape[1:]))
 
     def _gather_zero_moments(self, zero: _ZeroShards, opt_state) -> Dict[str, tuple]:
-        """Every dense leaf's (mu, nu), param-shaped, from the ranks' flat
-        shards: ONE all-gather of this rank's shards of both moments."""
-        mine = torch.cat([opt_state[p][name] for name in ("exp_avg", "exp_avg_sq")
-                          for p in zero.params])
+        """Every dense leaf's optimizer slots ((mu, nu) or (trace,)),
+        param-shaped, from the ranks' flat shards: ONE all-gather of this
+        rank's shards of every slot."""
+        names = [name for name, _ in self._opt_slots]
+        mine = torch.cat([opt_state[p][name] for name in names for p in zero.params])
         try:
             full = self.reducer.all_gather(mine, self.mesh.group((self.opt_axis,)), tag="snapshot")
         except coll.CollectiveFailed as e:
             raise CollectiveError(f"gathering the optimizer's shards failed: {e}") from e
-        full = full.view(zero.n, 2, zero.total)
-        mu = full[:, 0].reshape(-1)
-        nu = full[:, 1].reshape(-1)
+        full = full.view(zero.n, len(names), zero.total)
+        slots = [full[:, j].reshape(-1) for j in range(len(names))]
         dense = torch.contiguous_format
-        return {path: (zero.unflatten(mu, e).clone(memory_format=dense),
-                       zero.unflatten(nu, e).clone(memory_format=dense))
+        return {path: tuple(zero.unflatten(slot, e).clone(memory_format=dense) for slot in slots)
                 for path, _, e in zero.leaves}
 
     @staticmethod
@@ -1256,8 +1284,9 @@ class Trainer:
                 shape = (shape[0] * n,) + shape[1:]
             shapes[PARAMS + path] = shape
             if state.optimizer is not None:
-                shapes[MU + path] = shapes[NU + path] = shape
-        if state.optimizer is not None:
+                for _, key in self._opt_slots:
+                    shapes[key + path] = shape
+        if state.optimizer is not None and self._opt_count:
             shapes[COUNT_KEY] = ()
         return shapes
 
@@ -1266,7 +1295,8 @@ class Trainer:
     ) -> TrainState:
         """Load a canonical state into ``state`` (default: a new one from
         ``init_state(None)``) on this trainer's device: parameters copied in
-        place, Adam(W) moments and count set, the step taken.  Under
+        place, the optimizer's slots set (Adam(W)'s moments and count, or
+        SGD's trace), the step taken.  Under
         sharding each rank takes its rows of the tables and its shards of
         the dense moments, without a collective, so a checkpoint of any
         world size and layout restores into any other (the reference's
@@ -1280,7 +1310,9 @@ class Trainer:
         paths = self._param_paths(model)
         template = self.restore_template(state)
         params = {STEP_KEY} | {PARAMS + path for path, _ in paths}
-        opt = {COUNT_KEY} | {MU + path for path, _ in paths} | {NU + path for path, _ in paths}
+        opt = {key + path for _, key in self._opt_slots for path, _ in paths}
+        if self._opt_count:
+            opt.add(COUNT_KEY)
         required = params | opt if optimizer is not None else params
         missing = required - set(arrays)
         unexpected = set(arrays) - params - opt
@@ -1317,25 +1349,30 @@ class Trainer:
             if zero is not None:
                 zero.refresh()
             if optimizer is not None:
-                count = int(np.asarray(arrays[COUNT_KEY]))
+                # Adam's slots mean something once it has counted a step;
+                # SGD's trace once the state has taken one.
+                count = int(np.asarray(arrays[COUNT_KEY if self._opt_count else STEP_KEY]))
                 optimizer.state.clear()
                 if count > 0:
-                    def entry(mu, nu, like):
-                        return {"step": torch.tensor(float(count), dtype=torch.float32),
-                                "exp_avg": moment(mu, like), "exp_avg_sq": moment(nu, like)}
+                    def entry(slots, like):
+                        st = {name: moment(a, like)
+                              for (name, _), a in zip(self._opt_slots, slots)}
+                        if self._opt_count:
+                            st["step"] = torch.tensor(float(count), dtype=torch.float32)
+                        return st
 
                     shards = {}
                     if zero is not None:
                         shards = {path: (e, sp) for (path, _, e), sp in zip(zero.leaves, zero.params)}
                     for path, p in paths:
-                        mu, nu = host(MU + path, path), host(NU + path, path)
+                        slots = [host(key + path, path) for _, key in self._opt_slots]
                         if path in shards:
                             e, sp = shards[path]
-                            mu, nu = (zero.split(torch.from_numpy(np.ascontiguousarray(a)).reshape(-1), e)
-                                      .numpy() for a in (mu, nu))
-                            optimizer.state[sp] = entry(mu, nu, sp)
+                            slots = [zero.split(torch.from_numpy(np.ascontiguousarray(a)).reshape(-1), e)
+                                     .numpy() for a in slots]
+                            optimizer.state[sp] = entry(slots, sp)
                         else:
-                            optimizer.state[p] = entry(mu, nu, p)
+                            optimizer.state[p] = entry(slots, p)
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
         return TrainState(int(np.asarray(arrays[STEP_KEY])), model, optimizer)

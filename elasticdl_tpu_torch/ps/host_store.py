@@ -4,7 +4,8 @@ store of the PS host tier and the ingest functions.
 Port of ``elasticdl_tpu/ps/host_store.py`` (``_load``, ``_OPTIMIZERS``,
 ``HostEmbeddingStore``, ``native_lib_available``, ``recordio_index_native``,
 ``recordio_verify_native``, ``recordio_read_native``,
-``criteo_decode_native``, ``criteo_decode_pre_native``).  The library is the
+``criteo_decode_native``, ``criteo_decode_pre_native``,
+``census_decode_native``).  The library is the
 port's own copy of the C++ source, ``elasticdl_tpu_torch/csrc/edl_native.cc``,
 built at first use with the reference Makefile's flags into
 ``elasticdl_tpu_torch/csrc/build/`` (git-ignored) under a name that carries a
@@ -132,6 +133,10 @@ def _load() -> ctypes.CDLL:
         lib.edl_criteo_decode_pre.restype = _i64
         lib.edl_criteo_decode_pre.argtypes = [
             _u8p, _i64p, _i64, _u8p, _u16p, _u16p, _i64,
+        ]
+        lib.edl_census_decode.restype = _i64
+        lib.edl_census_decode.argtypes = [
+            _u8p, _i64p, _i64, _i32p, _f32p, _i32p, _i64,
         ]
         _lib = lib
         return lib
@@ -313,10 +318,11 @@ def recordio_read_native(
     return out[:got], cum
 
 
-def _malformed(buf: np.ndarray, offsets: np.ndarray, rc: int) -> ValueError:
+def _malformed(buf: np.ndarray, offsets: np.ndarray, rc: int,
+               fmt: str = "criteo") -> ValueError:
     i = -rc - 1
     bad = bytes(buf[offsets[i] : offsets[i + 1]])
-    return ValueError(f"malformed criteo record {i}: {bad[:120]!r}")
+    return ValueError(f"malformed {fmt} record {i}: {bad[:120]!r}")
 
 
 def criteo_decode_native(buf: np.ndarray, offsets: np.ndarray) -> tuple:
@@ -337,6 +343,31 @@ def criteo_decode_native(buf: np.ndarray, offsets: np.ndarray) -> tuple:
     rc = int(lib.edl_criteo_decode(buf, offsets, n, labels, dense, cat))
     if rc < 0:
         raise _malformed(buf, offsets, rc)
+    return labels, dense, cat
+
+
+def census_decode_native(
+    buf: np.ndarray, offsets: np.ndarray, hash_bins: int
+) -> tuple:
+    """Decode n packed census CSV records -> (labels[n] int32, dense[n,5]
+    float32, cat[n,9] int32).
+
+    Numerics follow ``preprocessing.ToNumber`` (stripped; empty or invalid
+    -> 0.0), strings ``preprocessing.Hashing`` (crc32 of the stripped bytes
+    % ``hash_bins``), as the plain feed (``data.codecs.census_feed_plain``)
+    does.  A record whose label does not parse, or with surplus fields,
+    raises ``ValueError``.
+    """
+    lib = _load()
+    buf = np.ascontiguousarray(buf, np.uint8)
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    n = len(offsets) - 1
+    labels = np.zeros((n,), np.int32)
+    dense = np.zeros((n, 5), np.float32)
+    cat = np.zeros((n, 9), np.int32)
+    rc = int(lib.edl_census_decode(buf, offsets, n, labels, dense, cat, hash_bins))
+    if rc < 0:
+        raise _malformed(buf, offsets, rc, "census")
     return labels, dense, cat
 
 

@@ -1483,11 +1483,18 @@ class Worker:
     def _submit_prep(self, task: Task):
         if self._prep_pool is None:
             # One prep thread per pipeline slot, so a slow shard never
-            # serializes the preps queued behind it.
+            # serializes the preps queued behind it.  A reader that does not
+            # declare thread_safe_ranges (a shared-connection source, such
+            # as the SQLite table reader) gets one thread: the queue still
+            # holds prep_depth leased tasks, but their reads run one at a
+            # time, as such a reader requires.
+            safe = bool(getattr(self.reader, "thread_safe_ranges", False))
+            width = max(1, self.config.prep_depth) if safe else 1
             self._prep_pool = ThreadPoolExecutor(
-                max_workers=max(1, self.config.prep_depth),
-                thread_name_prefix="edl-prep",
+                max_workers=width, thread_name_prefix="edl-prep",
             )
+            logger.info("prep pool: %d thread(s) for prep_depth %d (reader "
+                        "thread_safe_ranges=%s)", width, self.config.prep_depth, safe)
         return self._prep_pool.submit(self._prep_fused_host, task)
 
     def _dispatch_prepped(self, prepped: tuple) -> None:

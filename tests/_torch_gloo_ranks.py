@@ -338,3 +338,38 @@ def host_tier_steps(rank, world, model_kw, jax_params, ps_addresses, batches):
         state, m = trainer.run_train_step(state, batch)
         losses.append(float(m["loss"]))
     return {"losses": losses, "pushed": pushed, "remote": trainer._remote_ps}
+
+
+def wide_deep_steps(rank, world, variants, model_kw, jax_params, batches):
+    """Wide&Deep (two row-shardable tables: ``wide`` of dim 1, packed 128
+    rows to a physical row, and ``deep_embedding``) from the carried JAX
+    weights on the flat ``{dp: world}`` mesh, once per variant
+    ``(strategy, impl)``: each step's loss, the gathered canonical
+    parameters after the steps, and this rank's rows of each table."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.models import wide_deep
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+
+    mesh = create_mesh(dcn_parallelism=1)
+    out = {}
+    for strategy, impl in variants:
+        config = JobConfig(distribution_strategy=strategy, embedding_lookup_impl=impl)
+        trainer = Trainer(wide_deep.model_spec(**model_kw), device="cpu", mesh=mesh,
+                          config=config)
+        state = trainer.adopt_restored(_canonical_from(trainer, trainer.init_state(0), jax_params))
+        losses = []
+        for batch in batches:
+            state, m = trainer.run_train_step(state, batch)
+            losses.append(float(m["loss"]))
+        host = trainer.host_state(state)
+        out[(strategy, impl)] = {
+            "losses": losses,
+            "params": {k[len("params/"):]: np.asarray(v) for k, v in host.items()
+                       if k.startswith("params/")},
+            "rows": (int(state.model.wide.shape[0]), int(state.model.deep_embedding.shape[0])),
+            "impl": trainer.ctx.embedding_impl,
+        }
+    return out

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from elasticdl_tpu_torch.models import cifar10_resnet, mnist, wide_deep
 from elasticdl_tpu_torch.models import transformer_lm as tlm
 from elasticdl_tpu_torch.ops import flash_attention as tfa
 from elasticdl_tpu_torch.ops import kernels
@@ -440,3 +441,77 @@ def test_cuda_ps_shard_never_initialises_the_card(card):
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"moved": True, "cuda_initialized": False}
+
+
+# ---- the model zoo on the card ------------------------------------------------------
+
+_ZOO = {
+    "mnist": (mnist, {}),
+    "resnet14": (cifar10_resnet, dict(depth=14, width=8)),
+    "wide_deep": (wide_deep, dict(buckets=64, hidden=(32, 16))),
+}
+
+
+def _zoo_batches(name, n=3, b=32):
+    rng = np.random.default_rng(11)
+    out = []
+    for _ in range(n):
+        if name == "wide_deep":
+            batch = {"dense": rng.uniform(0, 100, (b, 5)).astype(np.float32),
+                     "cat": rng.integers(0, 1 << 31, (b, 9)).astype(np.int32),
+                     "labels": (rng.random(b) < 0.3).astype(np.int32)}
+        else:
+            size, ch = (28, 1) if name == "mnist" else (32, 3)
+            batch = {"images": rng.random((b, size, size, ch), dtype=np.float32),
+                     "labels": rng.integers(0, 10, b).astype(np.int32)}
+        batch["__mask__"] = (np.arange(b) < b - 3).astype(np.float32)
+        out.append(batch)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_ZOO))
+def test_cuda_zoo_model_steps_match_the_cpu(card, name):
+    """Three training steps of each zoo model on the card and on the CPU
+    from the same weights, f32 with TF32 off (Wide&Deep under the
+    ParameterServer strategy, a world of one): every loss and every
+    parameter after the steps within 1e-4 (error norm over norm)."""
+    from elasticdl_tpu_torch.common.config import JobConfig
+
+    mod, kw = _ZOO[name]
+    strategy = "ParameterServer" if name == "wide_deep" else "AllReduce"
+    spec = mod.model_spec(compute_dtype="float32", **kw)
+    batches = _zoo_batches(name)
+    results = {}
+    for device in ("cpu", "cuda"):
+        trainer = Trainer(spec, device=device, config=JobConfig(distribution_strategy=strategy))
+        state = trainer.init_state(None if device == "cuda" else 0)
+        if device == "cpu":
+            tree = mod.params_to_jax(state.model)
+        else:
+            state.model.load_jax_params(tree)
+        losses = []
+        for batch in batches:
+            state, metrics = trainer.run_train_step(state, batch)
+            losses.append(float(metrics["loss"]))
+        results[device] = (losses, {n: p.detach().cpu() for n, p in state.model.named_parameters()})
+    (cl, cp), (gl, gp) = results["cpu"], results["cuda"]
+    np.testing.assert_allclose(gl, cl, rtol=1e-4)
+    for key, ref in cp.items():
+        assert float((gp[key] - ref).norm() / ref.norm().clamp_min(1e-30)) <= 1e-4, key
+
+
+def test_cuda_preprocessing_and_crosses_equal_the_host(card):
+    """The layers' torch branch and Wide&Deep's uint32 crosses on card
+    tensors give the host's integers exactly."""
+    from elasticdl_tpu_torch import preprocessing as pre
+
+    rng = np.random.default_rng(12)
+    ids = rng.integers(-(1 << 31), 1 << 31, (512, 9), dtype=np.int64)
+    for layer, x in ((pre.Hashing(1 << 20), ids),
+                     (pre.IndexLookup(num_oov=3).adapt(ids[:64, 0]), ids[:128, 0]),
+                     (pre.Discretization([-1.0, 0.0, 2.5]), rng.normal(0, 2, 256)),
+                     (pre.RoundIdentity(7), rng.normal(3, 4, 256))):
+        np.testing.assert_array_equal(layer(torch.from_numpy(x).cuda()).cpu().numpy(), layer(x))
+    cat = torch.from_numpy(ids.astype(np.int32))
+    np.testing.assert_array_equal(wide_deep.wide_ids(cat.cuda(), 65536).cpu().numpy(),
+                                  wide_deep.wide_ids(cat, 65536).numpy())

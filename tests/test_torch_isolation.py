@@ -47,6 +47,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         "parallel.distributed", "parallel.mesh", "parallel.collectives",
         # The PS host tier.
         "ps.service", "ps.reshard", "ps.main", "serving.embedding_cache",
+        # The model zoo with its codecs, layers and table reader.
+        "models.mnist", "models.cifar10_resnet", "models.wide_deep", "models.common",
+        "preprocessing", "preprocessing.layers", "data.table",
     ):
         assert f"elasticdl_tpu_torch.{name}" in mods, name
     code = (

@@ -801,3 +801,51 @@ def test_training_metrics_fetch_reduces_vectors_like_the_reference():
     assert sorted(ours) == sorted(want) == ["auc", "loss"]
     for k, v in want.items():
         assert ours[k] == pytest.approx(v, rel=1e-12)
+
+
+class _SlowCountingReader(_Mux):
+    """``_Mux`` with a 0.3 s read that counts the ``read_records`` calls in
+    flight at once; ``thread_safe_ranges`` is the class's own declaration
+    (the base ``_Mux`` leaves it unset, like a shared-connection reader)."""
+
+    def __init__(self, train, val, thread_safe_ranges):
+        super().__init__(train, val)
+        self.thread_safe_ranges = thread_safe_ranges
+        self._lock = __import__("threading").Lock()
+        self.active = self.peak = 0
+
+    def read_records(self, shard):
+        with self._lock:
+            self.active += 1
+            self.peak = max(self.peak, self.active)
+        try:
+            time.sleep(0.3)
+            return list(super().read_records(shard))
+        finally:
+            with self._lock:
+                self.active -= 1
+
+
+@pytest.mark.parametrize("thread_safe", [False, True], ids=["shared-connection", "thread-safe"])
+def test_prep_pool_is_one_thread_for_a_reader_without_thread_safe_ranges(tmp_path, thread_safe):
+    """The reference's width rule for the prep-ahead pool: ``prep_depth``
+    threads only for a reader that declares ``thread_safe_ranges``, else
+    one, so a reader that holds one connection never sees two
+    ``read_records`` calls at once.  With ``prep_depth=2`` the worker
+    leases two tasks back to back and preps both: the thread-safe reader
+    reads them together, its ranges also split over the ingest pool (peak
+    at least 2), the other one one call at a time (peak 1)."""
+    train, val = _data(tmp_path)
+    config = JobConfig(training_data=train, validation_data=val,
+                       checkpoint_dir=str(tmp_path / "ckpt"),
+                       **dict(_JOB, task_pipelining=True, prep_depth=2,
+                              evaluation_steps=0, checkpoint_steps=0))
+    reader, eval_reader = create_data_reader(train), create_data_reader(val)
+    per_task = config.minibatch_size * config.num_minibatches_per_task
+    servicer = MasterServicer(TaskDispatcher(reader.create_shards(per_task), num_epochs=1))
+    counting = _SlowCountingReader(reader, eval_reader, thread_safe)
+    worker = Worker(config, DirectMasterProxy(servicer), counting, worker_id="w0",
+                    spec=tlm.model_spec(**_MODEL), device="cpu")
+    result = worker.run()
+    assert result["step"] == N_TRAIN // MB
+    assert counting.peak >= 2 if thread_safe else counting.peak == 1
