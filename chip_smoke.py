@@ -143,6 +143,25 @@ exits non-zero without its result line:
    round's AUC, a checkpoint. (d) A replica over that checkpoint answers
    16 requests, equal to ``predict`` in process. No flash kernel runs
    here.
+15. ``transformer_lm`` across ranks (``phase_ring_tp``), gloo ranks on
+   card tensors at phase 4's width. (a) The ring over 2 and 4 spawned ranks
+   at the training attention shape (B=16, global L=1024, H=12, D=64), bf16
+   and f32, causal: output and gradients against the plain attention over
+   the whole sequence in f32 on one process; each limit must reject a ring
+   that skips the first rotated block and one that masks with local
+   positions; gloo's bf16 sum of card tensors checked exact. (b) The
+   sequence path on ``{dp: 2}`` (the ring), global batch 8, 4 steps: losses
+   against one process on the same batches from the same weights (the
+   limit must reject a ring that never rotates), one state on both ranks,
+   step p50 and the ring's p2p ms a step. (c) The tensor path on ``(dp 1,
+   tp 2)`` and ``(dp 2, tp 2)``: the same, the limit rejecting a version
+   without *f*; half the matmul weights a rank; the tp all-reduce's ms a
+   step; the gathered state restored into a world of one bit for bit, and
+   a step. (d) One CLI job, ``--multihost --num_workers=2
+   --tensor_parallelism=2``, over phase 7's files with eval rounds and
+   checkpoints: every task done once, the epoch's step count, equal
+   digests. Neither path launches a flash kernel across ranks, as in the
+   reference.
 
 Prints the card's name and power limit first, a ``{"kernels": [...]}``
 line before the last, and ``{"ok": true, "device": {...}}`` last.  The
@@ -3715,6 +3734,453 @@ def phase_zoo(card: str) -> dict:
     return report
 
 
+# Phase 15: transformer_lm across ranks at phase 4's width, gloo ranks on
+# card tensors (NCCL refuses two ranks on one card, phase 11 (b)).
+#
+# (a) The ring over RING_WORLDS spawned ranks at the training attention
+# shape (B=16, global L=1024, H=12, D=64), causal, in both dtypes: each
+# rank's output shard and gradient shards (of sum(out * cot)) against
+# attention_reference over the whole sequence on one process, in f32 from
+# the same inputs.  Relative error norms ("rel": |got - ref| / |ref|, of the
+# output and of each gradient).  Each limit must reject two wrong rings,
+# computed on one process as masked plain attention: one that skips the
+# first rotated block, one that masks with local positions.  Set from the
+# readings on the card (NVIDIA H100 80GB HBM3, 700 W; 2 and 4 ranks alike:
+# bf16 1.61e-3 to 1.66e-3, one output rounding; f32 3.0e-7 to 7.6e-7) with
+# room on both sides: the wrong rings read 0.81 to 1.10 in both dtypes.
+RING_WORLDS = (2, 4)
+RING_B = 16
+RING_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+# (b)-(c): global batch RT_BATCH, RT_STEPS steps, from init_state(0), the
+# losses against one process on the same batches from the same weights
+# (remat on: the rotations and the tp sums replay in the backward).  Set
+# from the readings on the card (NVIDIA H100 80GB HBM3, 700 W), in bf16:
+# the ring 1.7e-5 to 6.1e-5 (its f32 einsums against the flash kernels),
+# tp 3.2e-5 to 3.6e-4 on (dp 1, tp 2) and (dp 2, tp 2) (two bf16 partial
+# sums against one product); in f32 both 0 to 9.5e-7.  Each limit must
+# reject its wrong version, whose largest |diff| over the steps read: a
+# ring that never rotates 8.5e-3 (bf16) and 8.3e-3 (f32), tp without f
+# 1.17e-2 and 1.18e-2.
+RT_BATCH, RT_STEPS, RT_DTYPE = 8, 4, "bfloat16"
+RING_LOSS_ABS = {"bfloat16": 5e-4, "float32": 1e-5}
+TP_LOSS_ABS = {"bfloat16": 2e-3, "float32": 1e-5}
+# (d) The CLI job: --multihost --num_workers=2 --tensor_parallelism=2 over
+# phase 7's files, one epoch, eval rounds and checkpoints (GANG_FLAGS),
+# remat off as in the other CLI phases.
+RT_JOB = "chip15"
+
+
+def _ring_inputs(seed: int, dtype, device: str = "cuda") -> list:
+    """q, k, v and the cotangent, [RING_B, LT, HT, DT], from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(RING_B, LT, HT, DT, generator=g).to(device=device, dtype=dtype)
+            for _ in range(4)]
+
+
+def _masked_attention(q, k, v, mask) -> torch.Tensor:
+    """Plain attention over ``[B, L, H, D]`` with an explicit ``[L, L]``
+    mask: the wrong rings' outputs on one process."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
+    probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _ring_masks(n: int) -> dict:
+    """The causal mask of the right ring and of the two wrong ones, on the
+    card: ``skip`` drops each query block's first rotated key block (rank
+    r's keys from rank r-1), ``local`` compares positions within the
+    blocks instead of global ones."""
+    pos = torch.arange(LT, device="cuda")
+    block = pos // (LT // n)
+    causal = pos[:, None] >= pos[None, :]
+    return {
+        "skip": causal & (block[None, :] != (block[:, None] - 1) % n),
+        "local": (pos % (LT // n))[:, None] >= (pos % (LT // n))[None, :],
+        "right": causal,
+    }
+
+
+def _rel_norm(got, ref) -> float:
+    return float((got.float() - ref).norm() / ref.norm())
+
+
+def _ring_readings(shards: dict, masks: dict, dtype) -> dict:
+    """The ring's (``shards``: output and gradients, concatenated over
+    the ranks) and the wrong rings' relative errors against the f32
+    reference."""
+    q, k, v, cot = (t.float().requires_grad_(i < 3)
+                    for i, t in enumerate(_ring_inputs(15, dtype)))
+    out = {}
+    for name in ("right", "skip", "local"):
+        for t in (q, k, v):
+            t.grad = None
+        o = _masked_attention(q, k, v, masks[name])
+        (o * cot).sum().backward()
+        if name == "right":
+            ref = [o.detach()] + [t.grad.clone() for t in (q, k, v)]
+            got = shards
+        else:
+            got = [o.detach()] + [t.grad.clone() for t in (q, k, v)]
+        out[name] = [_rel_norm(g, r) for g, r in zip(got, ref)]
+        del o
+    return out
+
+
+def _lm_batches(n_steps: int, batch: int, seed: int) -> list:
+    from elasticdl_tpu_torch.data.codecs import encode_lm_example
+    from elasticdl_tpu_torch.data.codecs import lm_feed
+
+    rng = np.random.default_rng(seed)
+    toks = _planted_sequences(rng, batch * n_steps, TRAIN_WIDTH["seq_len"], TRAIN_WIDTH["vocab"])
+    records = [encode_lm_example(t) for t in toks]
+    return [lm_feed(records[i * batch:(i + 1) * batch]) for i in range(n_steps)]
+
+
+def _lm_run(trainer, batches: list) -> dict:
+    """``batches`` through ``trainer`` from ``init_state(0)``: each step's
+    loss, host seconds and collective seconds by op; the flash launches;
+    the digest of the gathered state and this rank's matmul-weight bytes."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.ops import kernels
+    from elasticdl_tpu_torch.worker.main import _state_digest
+
+    state = trainer.init_state(0)
+    torch.cuda.synchronize()
+    kernels.reset_counts()  # the steps start here
+    losses, step_s, by_step = [], [], []
+    for batch in batches:
+        before = dict(trainer.reducer.by_op)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = trainer.run_train_step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        by_step.append({k: v - before.get(k, 0.0) for k, v in trainer.reducer.by_op.items()})
+    launches = {n: kernels.counts().get(n, 0) for n in (fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL)}
+    snap = trainer.snapshot_state(state)
+    torch.cuda.synchronize()
+    weights = sum(int(p.nbytes) for name, p in state.model.named_parameters()
+                  if name.rsplit(".", 1)[-1] in ("wqkv", "wo", "w1", "w2"))
+    return {"losses": losses, "step_s": step_s, "by_step": by_step, "launches": launches,
+            "digest": _state_digest(snap), "matmul_bytes": weights, "state": state,
+            "snapshot": snap}
+
+
+class _Stay:
+    """A wrong ring's rotation: each rank keeps its own key and value
+    blocks."""
+
+    @staticmethod
+    def apply(k, v, reducer, group):
+        return k, v
+
+
+def _ring_tp_rank(rank, world, plan, dtype):
+    """Phase 15's spawned rank: the ring cases over the world's flat mesh,
+    then each ``transformer_lm`` run of ``plan`` (``(name, parallelism,
+    create_mesh kwargs, fault, checkpoint directory)``; ``fault``:
+    ``"no_f"`` leaves *f* out of the tensor path, ``"no_rotation"`` keeps
+    each rank's own key and value blocks at every ring step)."""
+    from elasticdl_tpu_torch.common.checkpoint import CheckpointManager
+    from elasticdl_tpu_torch.models import transformer_lm
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.ops import kernels
+    from elasticdl_tpu_torch.ops import ring_attention as ra
+    from elasticdl_tpu_torch.ops.embedding import ParallelContext
+    from elasticdl_tpu_torch.parallel import collectives as coll
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+
+    out = {"ring": {}, "lm": {}}
+    mesh = create_mesh()
+    reducer = coll.Reducer(mesh)
+    group = mesh.group(("dp",))
+    # The tp sum of a bf16 card tensor over gloo (values whose every
+    # partial sum is exact in bf16), against the f32 sum.
+    probe = torch.full((3,), 0.5 * (rank + 1), device="cuda", dtype=torch.bfloat16)
+    want = torch.full((3,), sum(0.5 * (r + 1) for r in range(world)), device="cuda")
+    out["bf16_sum_exact"] = bool(torch.equal(coll.tp_all_reduce(probe, reducer, group),
+                                             want.to(torch.bfloat16)))
+    ctx = ParallelContext(axis_name="dp", axis_size=world, axis_index=rank, group=group,
+                          reducer=reducer)
+    s = LT // world
+    for ring_dtype in (torch.bfloat16, torch.float32):
+        q, k, v, cot = (t[:, rank * s:(rank + 1) * s] for t in _ring_inputs(15, ring_dtype))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        kernels.reset_counts()
+        o = ra.ring_attention(*leaves, axis_name="dp", causal=True, ctx=ctx)
+        (o.float() * cot.float()).sum().backward()
+        launches = sum(kernels.counts().get(n, 0) for n in (fa.KERNEL, fa.DQ_KERNEL,
+                                                            fa.DKV_KERNEL))
+        # As f32 numpy (exact for bf16): the queue shares tensors through
+        # file descriptors that close with this process.
+        shards = [t.detach().float().cpu().numpy() for t in [o] + [x.grad for x in leaves]]
+        times = []
+        for _ in range(3):
+            for t in leaves:
+                t.grad = None
+            before = reducer.by_op.get("ring:p2p", 0.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = ra.ring_attention(*leaves, axis_name="dp", causal=True, ctx=ctx)
+            (o.float() * cot.float()).sum().backward()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0, reducer.by_op["ring:p2p"] - before))
+        out["ring"][str(ring_dtype)] = {
+            "shards": shards, "launches": launches,
+            "fwd_bwd_ms": statistics.median(a for a, _ in times) * 1e3,
+            "p2p_ms": statistics.median(b for _, b in times) * 1e3,
+        }
+        del leaves, o
+    torch.cuda.empty_cache()
+    batches = _lm_batches(RT_STEPS, RT_BATCH, 15)
+    for name, parallelism, mesh_kw, fault, save in plan:
+        spec = transformer_lm.model_spec(compute_dtype=dtype, parallelism=parallelism,
+                                         **TRAIN_WIDTH)
+        trainer = Trainer(spec, device="cuda", mesh=create_mesh(**mesh_kw))
+        real_f, real_rotate = transformer_lm.tp_grad_sync, ra._Rotate
+        if fault == "no_f":
+            transformer_lm.tp_grad_sync = lambda x, reducer, group: x
+        if fault == "no_rotation":
+            ra._Rotate = _Stay
+        try:
+            run = _lm_run(trainer, batches)
+        finally:
+            transformer_lm.tp_grad_sync, ra._Rotate = real_f, real_rotate
+        if save and rank == 0:
+            CheckpointManager(save).save(run["state"].step, trainer.to_host(run["snapshot"]),
+                                         wait=True)
+        del run["state"], run["snapshot"]
+        run["shape"] = dict(trainer.mesh.shape)
+        out["lm"][name] = run
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def _lm_single(parallelism: str, batches: list, dtype: str) -> dict:
+    """One process on the same batches from the same weights."""
+    from elasticdl_tpu_torch.models import transformer_lm
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+
+    spec = transformer_lm.model_spec(compute_dtype=dtype, parallelism=parallelism,
+                                     **TRAIN_WIDTH)
+    run = _lm_run(Trainer(spec, device="cuda"), batches)
+    del run["state"], run["snapshot"]
+    torch.cuda.empty_cache()
+    return run
+
+
+def _rt_cli(card: str) -> dict:
+    """(d): the CLI's local mode, --multihost --num_workers=2
+    --tensor_parallelism=2, over phase 7's files."""
+    import ast
+    import shutil
+
+    from elasticdl_tpu_torch.common.checkpoint import read_manifest
+
+    out = os.path.join(REPO, "chiprun_out", "job")
+    train, val = os.path.join(out, "train.rio"), os.path.join(out, "val.rio")
+    assert os.path.exists(train) and os.path.exists(val), "phase 7 writes the job's data"
+    ckpt, pods = os.path.join(out, "ckpt15"), os.path.join(out, "pods15")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(pods, ignore_errors=True)
+    params = ";".join(f"{k}={v}" for k, v in TRAIN_WIDTH.items())
+    cmd = [sys.executable, "-m", "elasticdl_tpu_torch.client.main", "train", "--local",
+           f"--job_name={RT_JOB}", "--model_def=transformer_lm.model_spec",
+           f"--model_params={params};compute_dtype=bfloat16;remat=false;parallelism=tensor",
+           "--learning_rate=3e-4", f"--training_data={train}", f"--validation_data={val}",
+           f"--checkpoint_dir={ckpt}", f"--pod_log_dir={pods}", "--num_workers=2",
+           "--multihost=true", "--tensor_parallelism=2", f"--coordinator_port={_free_port()}"]
+    cmd += [f"--{k}={v}" for k, v in GANG_FLAGS.items()]
+    torch.cuda.empty_cache()
+    os.environ["ELASTICDL_TORCH_DIST_BACKEND"] = "gloo"
+    os.environ["ELASTICDL_STATE_DIGEST"] = "1"
+    cli_path = os.path.join(out, "cli15.log")
+    t0 = time.time()
+    try:
+        proc = _start_cli(cmd, cli_path)
+    finally:
+        del os.environ["ELASTICDL_TORCH_DIST_BACKEND"], os.environ["ELASTICDL_STATE_DIGEST"]
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        _stop_cli(proc)
+    wall_s = time.time() - t0
+    cli = _read(cli_path)
+    assert rc == 0, f"the job exited {rc}; see {cli_path}"
+    status = ast.literal_eval(cli.split("job finished: ", 1)[1].splitlines()[0])
+    names = [f"{RT_JOB}-worker-{r}" for r in (0, 1)]
+    logs = {n: _read(os.path.join(pods, f"{n}.log")) for n in names}
+    ev = {n: _worker_events(t) for n, t in logs.items()}
+    digests = {n: {json.loads(x[len("[worker-event] "):])["step"]:
+                   json.loads(x[len("[worker-event] "):])["digest"]
+                   for x in t.splitlines() if x.startswith("[worker-event] ")
+                   and '"event": "checkpoint"' in x} for n, t in logs.items()}
+    n_tasks = JOB_TRAIN // (GANG_FLAGS["minibatch_size"] * GANG_FLAGS["num_minibatches_per_task"])
+    epoch_steps = n_tasks * GANG_FLAGS["num_minibatches_per_task"]
+    assert status["finished"] and status["done"] == n_tasks, status
+    assert status["abandoned"] == 0 and status["duplicate_done"] == 0, status
+    assert status["eval_rounds"] >= 1 and np.isfinite(status["eval_metrics"]["loss"]), status
+    for n in names:
+        assert ev[n]["gang"]["mesh"] == {"dp": 1, "tp": 2}, ev[n]["gang"]
+        summary = ev[n]["summary"]
+        assert summary["step"] == epoch_steps and summary["state_bytes"]["sharded_state"]
+        # The tensor path's attention is the plain version: no flash kernel.
+        assert not any(summary["launches"].values()), summary["launches"]
+    sa, sb = ev[names[0]]["summary"], ev[names[1]]["summary"]
+    assert sa["tasks"] == sb["tasks"]
+    shared = sorted(set(digests[names[0]]) & set(digests[names[1]]))
+    assert shared and all(digests[names[0]][k] == digests[names[1]][k] for k in shared), digests
+    manifest = read_manifest(ckpt)
+    assert manifest["step"] == epoch_steps, manifest
+    p50 = statistics.median(sa["step_ms"])
+    tp_s = sa["collective_by_op"].get("tp:all_reduce", 0.0)
+    log(f"[ring_tp] (d) CLI --multihost --num_workers=2 --tensor_parallelism=2 on phase 7's "
+        f"files: {status['done']} tasks done ({n_tasks} a epoch), {status['abandoned']} "
+        f"abandoned, {status['duplicate_done']} duplicates, {status['eval_rounds']} eval "
+        f"rounds (loss {status['eval_metrics']['loss']:.4f}), final step {manifest['step']}, "
+        f"digests equal at steps {shared}; step p50 {p50:.2f} ms (device events, rank 0), "
+        f"tp all-reduce {tp_s:.2f} s in all, state bytes {sa['state_bytes']}; "
+        f"job wall {wall_s:.1f}s; on {card}")
+    shutil.rmtree(ckpt)  # 1.33 GB a checkpoint
+    return {"status": {k: status[k] for k in ("done", "abandoned", "duplicate_done",
+                                              "eval_rounds", "eval_metrics")},
+            "final_step": manifest["step"], "p50_step_ms": p50, "tp_all_reduce_s": tp_s,
+            "wall_s": wall_s, "digest_steps": shared}
+
+
+def phase_ring_tp(card: str, dtype: str = RT_DTYPE) -> dict:
+    """Phase 15: the ring and tensor parallelism at phase 4's width over
+    spawned gloo ranks on the card (module docstring); ``dtype``: the
+    compute dtype of (b) and (c)."""
+    import shutil
+
+    from elasticdl_tpu_torch.common.checkpoint import CheckpointManager
+    from elasticdl_tpu_torch.models import transformer_lm
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+    from elasticdl_tpu_torch.worker.main import _state_digest
+
+    t_phase = time.perf_counter()
+    ckpt = os.path.join(REPO, "chiprun_out", "ring_tp")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    plans = {
+        2: [("ring_dp2", "sequence", {}, None, None),
+            ("ring_dp2_no_rotation", "sequence", {}, "no_rotation", None),
+            ("tp_dp1_tp2", "tensor", dict(tensor_parallelism=2), None, None),
+            ("tp_dp1_tp2_no_f", "tensor", dict(tensor_parallelism=2), "no_f", None)],
+        4: [("tp_dp2_tp2", "tensor", dict(tensor_parallelism=2), None, ckpt)],
+    }
+    torch.cuda.empty_cache()
+    worlds = {}
+    for n in RING_WORLDS:
+        t = time.perf_counter()
+        worlds[n] = _spawn_ranks(_ring_tp_rank, n, plans[n], dtype)
+        log(f"[ring_tp] world of {n}: {time.perf_counter() - t:.1f} s")
+    report = {"ring": {}, "lm": {}}
+
+    # (a) The ring against the whole-sequence reference, and the wrong rings.
+    for n in RING_WORLDS:
+        ranks = worlds[n]
+        assert all(r["bf16_sum_exact"] for r in ranks), "gloo's bf16 sum of card tensors"
+        masks = _ring_masks(n)
+        for ring_dtype in (torch.bfloat16, torch.float32):
+            key = str(ring_dtype)
+            shards = [torch.from_numpy(np.concatenate([r["ring"][key]["shards"][j] for r in ranks],
+                                                      axis=1)).to("cuda") for j in range(4)]
+            readings = _ring_readings(shards, masks, ring_dtype)
+            del shards
+            limit = RING_TOL[ring_dtype]
+            right = readings["right"]
+            log(f"[ring_tp] (a) ring over {n} ranks, {key}: rel error of out, dq, dk, dv "
+                + ", ".join(f"{x:.2e}" for x in right) + f" (limit {limit:.0e}); a ring that "
+                "skips the first rotated block reads " + ", ".join(
+                    f"{x:.2e}" for x in readings["skip"]) + "; one that masks with local "
+                "positions " + ", ".join(f"{x:.2e}" for x in readings["local"])
+                + f"; fwd+bwd {ranks[0]['ring'][key]['fwd_bwd_ms']:.2f} ms, of it p2p "
+                f"{ranks[0]['ring'][key]['p2p_ms']:.2f} ms (rank 0, host clock)")
+            assert max(right) <= limit, (n, key, right)
+            for wrong in ("skip", "local"):
+                assert max(readings[wrong]) > limit, (n, key, wrong, readings[wrong])
+            assert all(r["ring"][key]["launches"] == 0 for r in ranks)
+            report["ring"][f"{n}/{key}"] = {
+                "rel": right, "skip": readings["skip"], "local": readings["local"],
+                "fwd_bwd_ms": [r["ring"][key]["fwd_bwd_ms"] for r in ranks],
+                "p2p_ms": [r["ring"][key]["p2p_ms"] for r in ranks]}
+        torch.cuda.empty_cache()
+
+    # (b) and (c): the losses against one process, the ranks' states.
+    batches = _lm_batches(RT_STEPS, RT_BATCH, 15)
+    single = {p: _lm_single(p, batches, dtype) for p in ("sequence", "tensor")}
+    # One process: the sequence path's flash kernels (a forward replayed
+    # under remat), none on the tensor path's plain attention.
+    _check_job_launches(single["sequence"]["launches"], TRAIN_WIDTH["n_layers"], RT_STEPS,
+                        RT_STEPS)
+    assert not any(single["tensor"]["launches"].values()), single["tensor"]["launches"]
+    runs = {name: [r["lm"][name] for r in worlds[n]]
+            for n in RING_WORLDS for name, *_ in plans[n]}
+    for name, ranks in runs.items():
+        parallelism = "tensor" if name.startswith("tp") else "sequence"
+        ref = single[parallelism]
+        limit = (TP_LOSS_ABS if parallelism == "tensor" else RING_LOSS_ABS)[dtype]
+        diffs = [abs(a - b) for a, b in zip(ranks[0]["losses"], ref["losses"])]
+        later = range(1, RT_STEPS)
+        r0 = ranks[0]
+        step_ms = statistics.median(r0["step_s"][i] for i in later) * 1e3
+        p2p = statistics.median(r0["by_step"][i].get("ring:p2p", 0.0) for i in later) * 1e3
+        tp_ms = statistics.median(r0["by_step"][i].get("tp:all_reduce", 0.0) for i in later) * 1e3
+        grads_ms = statistics.median(r0["by_step"][i].get("grads:all_reduce", 0.0)
+                                     for i in later) * 1e3
+        log(f"[ring_tp] {name} {r0['shape']} {dtype}: losses " + ", ".join(
+            f"{x:.6f}" for x in r0["losses"]) + " vs one process " + ", ".join(
+            f"{x:.6f}" for x in ref["losses"]) + "; |diff| " + ", ".join(
+            f"{x:.2e}" for x in diffs) + f" (limit {limit:.0e}); step p50 {step_ms:.1f} ms "
+            f"(host clock, steps 2-{RT_STEPS}), of it ring p2p {p2p:.1f} ms, tp all-reduce "
+            f"{tp_ms:.1f} ms, gradient all-reduce {grads_ms:.1f} ms; matmul weights a rank "
+            f"{r0['matmul_bytes'] / 1e6:.1f} MB (one process {ref['matmul_bytes'] / 1e6:.1f} MB)"
+            f"; flash launches {r0['launches']}")
+        assert not any(v for r in ranks for v in r["launches"].values()), name
+        report["lm"][name] = {
+            "shape": r0["shape"], "losses": r0["losses"], "single_losses": ref["losses"],
+            "abs_diff": diffs, "step_ms": step_ms, "p2p_ms": p2p, "tp_all_reduce_ms": tp_ms,
+            "grads_all_reduce_ms": grads_ms, "matmul_bytes": r0["matmul_bytes"],
+            "single_matmul_bytes": ref["matmul_bytes"]}
+        if name.endswith(("no_f", "no_rotation")):
+            assert max(diffs) > limit, f"the limit cannot see {name}"
+            continue
+        assert max(diffs) <= limit, (name, diffs)
+        # One state: every rank has the same losses and gathers the same
+        # canonical state.
+        assert all(r["losses"] == r0["losses"] for r in ranks), [r["losses"] for r in ranks]
+        assert len({r["digest"] for r in ranks}) == 1, name
+        if parallelism == "tensor":
+            assert r0["matmul_bytes"] * r0["shape"]["tp"] == ref["matmul_bytes"]
+    log(f"[ring_tp] single-process step p50 (host clock): sequence "
+        f"{statistics.median(single['sequence']['step_s'][1:]) * 1e3:.1f} ms (flash kernels), "
+        f"tensor {statistics.median(single['tensor']['step_s'][1:]) * 1e3:.1f} ms (plain "
+        f"attention)")
+    # The gathered (dp 2, tp 2) state into a world of one, bit for bit, and a step.
+    spec = transformer_lm.model_spec(compute_dtype=dtype, parallelism="tensor", **TRAIN_WIDTH)
+    bare = Trainer(spec, device="cuda")
+    state = bare.adopt_restored(CheckpointManager(ckpt).restore(), bare.init_state(None))
+    digest = _state_digest(bare.snapshot_state(state))
+    assert state.step == RT_STEPS and digest == runs["tp_dp2_tp2"][0]["digest"], digest
+    state, m = bare.run_train_step(state, batches[0])
+    assert state.step == RT_STEPS + 1 and np.isfinite(float(m["loss"]))
+    del bare, state
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt)  # 1.33 GB
+    log(f"[ring_tp] (c) the (dp 2, tp 2) gathered state restored into a world of one bit for "
+        f"bit and stepped (loss {float(m['loss']):.6f}); on {card}")
+
+    # (d) The CLI job.
+    report["cli"] = _rt_cli(card)
+    report["wall_s"] = time.perf_counter() - t_phase
+    log(f"[ring_tp] phase 15 wall {report['wall_s']:.1f} s")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA card",
@@ -3748,6 +4214,7 @@ def main() -> int:
     report["opt_shard"] = phase_opt_shard(card)
     report["host_tier"] = phase_host_tier(card)
     report["zoo"] = phase_zoo(card)
+    report["ring_tp"] = phase_ring_tp(card)
     report["wall_s"] = time.perf_counter() - t0
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -179,10 +179,11 @@ class JobConfig:
     # (dp, tp) mesh — models declaring a tensor_sharding plan split their
     # weight matrices over the inner tp axis (Megatron column/row splits)
     # and the batch shards over the outer dp axis.  This is the CONFIGURED
-    # tensor-parallel degree; elastic reform resolves the legal shape for
-    # the live device count (resolve_2d_shape: dp shrinks first, tp only
-    # degrades along its divisor chain when fewer than tp devices remain).
-    # Mutually exclusive with dcn_data_parallelism > 1.
+    # tensor-parallel degree; each world resolves its legal shape
+    # (mesh.resolve_world_shape: the reference's resolve_2d_shape when it
+    # uses every rank, else tp degrades along its divisor chain until it
+    # divides the world, since no rank can sit out).  Mutually exclusive
+    # with dcn_data_parallelism > 1.
     tensor_parallelism: int = 1
 
     # --- collectives (r15, parallel/collectives.py — graftreduce) ---

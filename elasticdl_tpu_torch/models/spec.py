@@ -29,6 +29,12 @@ over pytrees; here the state is an ``nn.Module`` and the functions take it:
   (``EmbeddingTableSpec``): under the ParameterServer strategy the
   trainer keeps only this rank's rows of each (``parallel/trainer.py``)
   and ``apply`` takes the trainer's ``ParallelContext`` as ``ctx``
+- ``tensor_sharding(module) -> {path: dim}`` the tensor-parallel plan:
+  which dim of each weight splits over a ``(dp, tp)`` mesh's ``tp`` axis
+  (Megatron's column and row splits; paths as the canonical state's,
+  ``blocks/b0/wqkv``); the trainer keeps this rank's contiguous slice of
+  each (``shard_parameters``) and ``apply`` takes the trainer's
+  ``ParallelContext`` as ``ctx``.  None: the model never splits a weight
 - ``host_io``                               the host-tier tables
   (``HostTableIO``), keyed by the batch key ``apply`` reads their rows
   under: the rows live in the native host store, not on the device
@@ -105,6 +111,29 @@ class ModelSpec:
     # injected rows from the batch under the key instead of looking up a
     # parameter table.
     host_io: Dict[str, HostTableIO] = dataclasses.field(default_factory=dict)
+    # (module) -> {parameter path: dim split over the tp axis}.
+    tensor_sharding: Optional[Callable[[Any], Dict[str, int]]] = None
+
+
+def shard_parameters(model: Any, dims: Dict[str, int], index: int, n: int) -> None:
+    """Replace each parameter named in ``dims`` (``{path: dim}``, ``/``
+    between module names) by its ``index``-th of ``n`` contiguous equal
+    slices along ``dim``, in place: a row-sharded table's rows, a
+    tensor-parallel weight's columns or rows.  A dim ``n`` does not divide
+    raises."""
+    import torch
+
+    for path, d in dims.items():
+        module = model
+        names = path.split("/")
+        for name in names[:-1]:
+            module = getattr(module, name)
+        full = getattr(module, names[-1]).detach()
+        if full.shape[d] % n:
+            raise ValueError(f"parameter {path}: dim {d} of {tuple(full.shape)} does not "
+                             f"split over {n} ranks")
+        k = full.shape[d] // n
+        setattr(module, names[-1], torch.nn.Parameter(full.narrow(d, index * k, k).clone()))
 
 
 def load_model_spec(model_zoo: str, model_def: str, **params: Any) -> ModelSpec:

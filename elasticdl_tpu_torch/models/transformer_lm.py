@@ -1,6 +1,6 @@
 """Decoder-only transformer LM — the PyTorch port of
-``elasticdl_tpu/models/transformer_lm.py`` (``parallelism="sequence"`` on
-one device: serving and training).
+``elasticdl_tpu/models/transformer_lm.py``: serving and training on one
+device, sequence parallelism (the ring) and tensor parallelism.
 
 Architecture, as in the reference: pre-RMSNorm blocks, causal multi-head
 attention, GELU MLP (4x), learned positional embedding, weight-tied LM
@@ -13,7 +13,8 @@ same function with them:
 
 - blocks run in ``sorted()`` name order (``b0, b1, b10, b11, b2, ...`` at
   12 layers), not numeric order;
-- ``wqkv``'s output splits ``[all-q | all-k | all-v]``, not head-major;
+- ``wqkv``'s output splits ``[all-q | all-k | all-v]`` in the sequence
+  path and head-major (``[q_h | k_h | v_h]`` per head) in the tensor path;
 - GELU is the tanh approximation (``jax.nn.gelu``'s default);
 - RMSNorm takes its statistics and applies its f32 scale in f32 and
   downcasts once;
@@ -29,8 +30,17 @@ parameters on every call, inside each (checkpointed) block, so gradients
 reach them; a forward without autograd (serving) reuses casts kept until
 a parameter changes.
 
-Tensor parallelism (``_tp_block``/``_tp_apply``) and the sequence ring are
-later slices of the port.
+``model_spec(parallelism="sequence")`` (the default) declares
+``batch_shard_dim=1``: on a mesh whose last axis has more than one rank the
+trainer shards each sequence over it, positions are globalised with the
+rank's place on the axis and attention is the ring
+(``ops/ring_attention.py``).  ``parallelism="tensor"`` is Megatron's split
+on a ``(dp, tp)`` mesh: ``wqkv`` and ``w1`` column-sharded, ``wo`` and
+``w2`` row-sharded over ``tp`` (``tensor_sharding``; a rank's module holds
+only its shards), examples over ``dp``, and one tp sum a residual branch
+(*g*, ``collectives.tp_all_reduce``) with *f* (``tp_grad_sync``) after
+each norm.  Its attention is the plain version over the rank's heads, as
+in the reference.  Without a tp axis the same path runs dense.
 """
 
 from __future__ import annotations
@@ -47,8 +57,10 @@ from torch.utils.checkpoint import checkpoint
 from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.data.codecs import lm_feed
 from elasticdl_tpu_torch.models.metrics import masked_mean
-from elasticdl_tpu_torch.models.spec import ModelSpec
-from elasticdl_tpu_torch.ops.ring_attention import ring_attention
+from elasticdl_tpu_torch.models.spec import ModelSpec, shard_parameters
+from elasticdl_tpu_torch.ops.embedding import ParallelContext
+from elasticdl_tpu_torch.ops.ring_attention import attention_reference, ring_attention
+from elasticdl_tpu_torch.parallel.collectives import tp_all_reduce, tp_grad_sync
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _MATMUL_WEIGHTS = ("wqkv", "wo", "w1", "w2")
@@ -95,6 +107,37 @@ class Block(nn.Module):
         h = _rms_norm(x, self.ln2)
         h = F.gelu(h @ w["w1"], approximate="tanh")
         return x + h @ w["w2"]
+
+    def forward_tp(
+        self,
+        x: torch.Tensor,
+        w: Optional[Dict[str, torch.Tensor]],
+        n_heads: int,
+        ctx: ParallelContext,
+    ) -> torch.Tensor:
+        """The block under tensor parallelism (the reference's
+        ``_tp_block``): this rank holds ``wqkv``/``w1`` column shards and
+        ``wo``/``w2`` row shards; ``x`` and the norm gains are replicated
+        over ``tp``.  Each residual branch ends in one tp sum (*g*); *f*
+        sits after each norm, so the gains see the whole cotangent.
+        Attention runs over this rank's ``n_heads / tp`` heads, which
+        ``wqkv``'s head-major columns hold whole.  No tp group: the dense
+        path."""
+        b, l, dim = x.shape
+        head_dim = dim // n_heads
+        if w is None:
+            w = {key: getattr(self, key).to(x.dtype) for key in _MATMUL_WEIGHTS}
+        reducer, group = ctx.reducer, ctx.tp_group
+        h = tp_grad_sync(_rms_norm(x, self.ln1), reducer, group)
+        qkv = h @ w["wqkv"]  # [B, L, 3*dim/tp]
+        local_heads = qkv.shape[-1] // (3 * head_dim)
+        q, k, v = qkv.view(b, l, local_heads, 3, head_dim).unbind(3)
+        att = attention_reference(q, k, v, causal=True)
+        out = att.reshape(b, l, local_heads * head_dim) @ w["wo"]
+        x = x + tp_all_reduce(out, reducer, group)
+        h = tp_grad_sync(_rms_norm(x, self.ln2), reducer, group)
+        h = F.gelu(h @ w["w1"], approximate="tanh")
+        return x + tp_all_reduce(h @ w["w2"], reducer, group)
 
 
 class TransformerLM(nn.Module):
@@ -191,35 +234,59 @@ class TransformerLM(nn.Module):
         tokens: torch.Tensor,
         attention: Callable[..., torch.Tensor] = ring_attention,
         remat: bool = False,
+        ctx: Optional[ParallelContext] = None,
+        tensor: bool = False,
     ) -> torch.Tensor:
-        """Logits f32 ``[B, L, vocab]`` for int tokens ``[B, L]``.
+        """Logits f32 ``[B, L, vocab]`` for int tokens ``[B, L]`` (this
+        rank's sequence shard ``[B, L/n]`` under the ring).
         ``attention(q, k, v, causal=True)`` over ``[B, L, H, D]``: the
-        kernel routing by default; a plain version for comparisons.
-        ``remat``: under autograd, recompute each block's activations in
-        the backward instead of keeping them (the reference's per-block
-        ``jax.checkpoint``)."""
+        kernel routing (the ring over ``ctx.axis_name`` when that axis has
+        more than one rank) by default; a plain version for comparisons.
+        ``tensor``: the tensor-parallel blocks (``Block.forward_tp``, over
+        ``ctx.tp_group``; ``attention`` unused).  ``remat``: under
+        autograd, recompute each block's activations in the backward
+        instead of keeping them (the reference's per-block
+        ``jax.checkpoint``); the ring's rotations and the tp sums replay
+        with it."""
+        ctx = ctx or ParallelContext()
         l = tokens.shape[1]
+        ring = not tensor and ctx.axis_name is not None and ctx.axis_size > 1
+        n_shards = ctx.axis_size if ring else 1
         max_seq = self.pos_emb.shape[0]
         # Fail loud on over-long sequences: positions past max_seq would
         # index past pos_emb.
-        if l > max_seq:
+        if l * n_shards > max_seq:
             raise ValueError(
-                f"global sequence length {l} exceeds max_seq "
+                f"global sequence length {l * n_shards} exceeds max_seq "
                 f"{max_seq}; raise max_seq in the model spec"
             )
         grad = torch.is_grad_enabled()
         cast = None if grad else self._weights()
-        pos = torch.arange(l, device=tokens.device)
-        x = self.tok_emb[tokens.long()] + self.pos_emb[pos][None]
+        # Global positions of this rank's sequence chunk.
+        offset = ctx.axis_index * l if ring else 0
+        pos = offset + torch.arange(l, device=tokens.device)
+        # F.embedding, not indexing: its backward sums a token's rows in a
+        # fixed order (an indexing backward's scatter-add does not), so the
+        # tp ranks, each computing the replicated table's gradient on its
+        # own, keep one table bit for bit.
+        x = F.embedding(tokens.long(), self.tok_emb) + self.pos_emb[pos][None]
         x = x.to(self.compute_dtype)
+        # The last argument of each block: the tp context, or the attention.
+        if tensor:
+            last = ctx
+        elif ring:
+            last = functools.partial(attention, axis_name=ctx.axis_name, ctx=ctx)
+        else:
+            last = attention
         for name in sorted(self.blocks):  # the reference's order: b0, b1, b10, ...
             blk = self.blocks[name]
+            run = blk.forward_tp if tensor else blk
             w = None if cast is None else cast["blocks"][name]
             if remat and grad:
-                x = checkpoint(blk, x, w, self.n_heads, attention,
+                x = checkpoint(run, x, w, self.n_heads, last,
                                use_reentrant=False, preserve_rng_state=False)
             else:
-                x = blk(x, w, self.n_heads, attention)
+                x = run(x, w, self.n_heads, last)
         x = _rms_norm(x, self.ln_f)
         # Weight-tied head; logits in f32 after the compute-dtype product.
         head = self.tok_emb.to(self.compute_dtype) if cast is None else cast["head"]
@@ -230,12 +297,43 @@ def _apply(
     model: TransformerLM,
     batch: Dict[str, torch.Tensor],
     train: bool = False,
+    ctx: ParallelContext = ParallelContext(),
     remat: bool = True,
     **_,
 ):
     # Rematerialization per block in training only, as in the reference:
     # eval and predict have no backward to save memory for.
-    return model(batch["tokens"], remat=remat and train)
+    return model(batch["tokens"], remat=remat and train, ctx=ctx)
+
+
+def _tp_apply(
+    model: TransformerLM,
+    batch: Dict[str, torch.Tensor],
+    train: bool = False,
+    ctx: ParallelContext = ParallelContext(),
+    remat: bool = True,
+    **_,
+):
+    """The hybrid-parallel forward (the reference's ``_tp_apply``): this
+    rank's examples ``[B/dp, L]``, whole sequences (no position offset),
+    weight shards over ``ctx.tp_group``."""
+    tp = ctx.tp_size if ctx.tp_axis is not None else 1
+    if model.n_heads % tp:
+        raise ValueError(
+            f"tensor parallelism {tp} does not divide n_heads {model.n_heads}; "
+            f"pick tp from the head count's divisor chain"
+        )
+    return model(batch["tokens"], remat=remat and train, ctx=ctx, tensor=True)
+
+
+def _tp_dims(model: TransformerLM) -> Dict[str, int]:
+    """The ``ModelSpec.tensor_sharding`` plan (the reference's
+    ``_tp_dims``): column splits (``wqkv``, ``w1``) shard dim 1, their
+    outputs per-rank slices; row splits (``wo``, ``w2``) shard dim 0, their
+    outputs partial sums the block's ``tp_all_reduce`` completes.
+    Embeddings and norm gains replicate."""
+    dims = {"wqkv": 1, "wo": 0, "w1": 1, "w2": 0}
+    return {f"blocks/{name}/{key}": d for name in model.blocks for key, d in dims.items()}
 
 
 def _loss(logits: torch.Tensor, batch: Dict[str, torch.Tensor], mask=None) -> torch.Tensor:
@@ -299,16 +397,22 @@ def params_from_jax(
     n_heads: int,
     compute_dtype: str = "bfloat16",
     device: Any = None,
+    tp_rank: int = 0,
+    tp: int = 1,
 ) -> TransformerLM:
     """The port's model holding a JAX ``transformer_lm`` params pytree
-    (numpy arrays, as ``jax.device_get`` returns them)."""
+    (numpy arrays, as ``jax.device_get`` returns them); with ``tp > 1``,
+    rank ``tp_rank``'s tensor-parallel shards of it (``_tp_dims``)."""
     dev = resolve_device(device)
     vocab, dim = np.shape(tree["tok_emb"])
     model = TransformerLM(
         vocab, dim, n_heads, len(tree["blocks"]), np.shape(tree["pos_emb"])[0],
         _DTYPES[compute_dtype], dev,
     )
-    return model.load_jax_params(tree)
+    model.load_jax_params(tree)
+    if tp > 1:
+        shard_parameters(model, _tp_dims(model), tp_rank, tp)
+    return model
 
 
 def params_to_jax(model: TransformerLM) -> Dict[str, Any]:
@@ -345,31 +449,32 @@ def model_spec(
     remat: bool = True,
     parallelism: str = "sequence",
 ) -> ModelSpec:
-    """``parallelism="sequence"`` on one device is the ported variant;
-    ``"tensor"`` (Megatron weight shards) is a later slice."""
-    if parallelism == "tensor":
-        raise NotImplementedError(
-            "transformer_lm parallelism='tensor' is not ported yet (ROADMAP, "
-            "PyTorch port queue: ring and tensor-parallel attention)"
-        )
-    if parallelism != "sequence":
+    """``parallelism`` picks the scale axis: ``"sequence"`` (default, the
+    ring over the mesh's last axis) or ``"tensor"`` (Megatron weight shards
+    over the ``(dp, tp)`` mesh's ``tp`` axis, examples over ``dp``; see
+    the module docstring)."""
+    if parallelism not in ("sequence", "tensor"):
         raise ValueError(
             f"parallelism must be 'sequence' or 'tensor', got {parallelism!r}"
         )
     if compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {compute_dtype!r}")
+    tensor = parallelism == "tensor"
     return ModelSpec(
         name="transformer_lm",
         init=functools.partial(
             _init, vocab=vocab, dim=dim, n_heads=n_heads, n_layers=n_layers,
             max_seq=max_seq, compute_dtype=_DTYPES[compute_dtype],
         ),
-        apply=functools.partial(_apply, remat=remat),
+        apply=functools.partial(_tp_apply if tensor else _apply, remat=remat),
         check_batch=_check_batch,
         example_batch=functools.partial(_example_batch, seq_len=seq_len),
-        batch_shard_dim=1,
+        # The sequence path shards dim 1; the tensor path keeps sequences
+        # whole and shards the examples over dp.
+        batch_shard_dim=0 if tensor else 1,
         loss=_loss,
         metrics=_metrics,
         optimizer=functools.partial(_adamw, learning_rate=learning_rate),
         feed=lm_feed,
+        tensor_sharding=_tp_dims if tensor else None,
     )

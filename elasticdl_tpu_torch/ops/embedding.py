@@ -89,10 +89,13 @@ class ParallelContext:
     context): ``axis_name`` is the mesh axis tables shard over (None on one
     device), ``sharded_embeddings`` whether tables are row-sharded over it,
     ``embedding_impl`` the sharded route (resolved by the trainer through
-    ``resolve_impl``).  The port adds what the reference's ``lax``
-    collectives know from the trace: the axis's size, this rank's position
-    on it, its process group and the ``Reducer`` the collectives run
-    through."""
+    ``resolve_impl``).  ``axis_name`` is also the sequence axis the ring
+    attention rotates over.  ``tp_axis`` names the tensor-parallel axis of a
+    ``(dp, tp)`` mesh (None elsewhere): a model with a ``tensor_sharding``
+    plan runs its column/row-split path when it is set.  The port adds what
+    the reference's ``lax`` collectives know from the trace: each axis's
+    size, this rank's position on the last one, the process groups of its
+    lines and the ``Reducer`` the collectives run through."""
 
     axis_name: Optional[str] = None
     sharded_embeddings: bool = False
@@ -101,6 +104,9 @@ class ParallelContext:
     axis_index: int = 0
     group: Any = None
     reducer: Any = None
+    tp_axis: Optional[str] = None
+    tp_size: int = 1
+    tp_group: Any = None
 
 
 def row_stride(dim: int) -> int:

@@ -41,8 +41,15 @@ axis position ``i``, as the reference's).  Every call goes through
 the backend refuses or a peer is gone, raises ``CollectiveFailed`` naming
 the op; nothing retries or moves a tensor elsewhere.
 
-The tensor-parallel pair ``tp_all_reduce``/``tp_grad_sync`` is a later
-slice of the port.
+**The tensor-parallel pair** (the 2-D ``(dp, tp)`` mesh): Megatron's *g*
+(``tp_all_reduce``: a sum over the ``tp`` group forward, the identity
+backward) and *f* (``tp_grad_sync``: the identity forward, a sum over
+``tp`` backward), each an ``autograd.Function`` over the tp line's group
+and flat on the wire, as the reference's custom-VJP pair.
+
+**The ring's rotation** (``Reducer.ring_shift``, sequence parallelism):
+every rank of an axis line sends a block to the next position and receives
+the previous position's, one ``isend``/``irecv`` pair a tensor.
 """
 
 from __future__ import annotations
@@ -272,6 +279,38 @@ class Reducer:
             group, [x], "all_to_all", tag)
         return out
 
+    def ring_shift(self, tensors: List[torch.Tensor], group, shift: int = 1,
+                   tag: str = "ring") -> List[torch.Tensor]:
+        """Each of ``tensors`` sent to the position ``shift`` ahead on
+        ``group``'s line, and the one ``shift`` behind received in its place
+        (fresh tensors): one ``isend``/``irecv`` pair a tensor, all posted
+        together (``batch_isend_irecv``), so no rank blocks in a send before
+        its receive is posted.  gloo moves host memory only: card tensors
+        cross through host copies there, inside the timed call."""
+        import torch.distributed as dist
+
+        n = dist.get_world_size(group)
+        me = dist.get_group_rank(group, dist.get_rank())
+        to = dist.get_global_rank(group, (me + shift) % n)
+        frm = dist.get_global_rank(group, (me - shift) % n)
+        device = tensors[0].device
+        staged = tensors[0].is_cuda and dist.get_backend(group) == "gloo"
+        out: List[torch.Tensor] = []
+
+        def run() -> None:
+            sends = [t.detach().contiguous() for t in tensors]
+            if staged:
+                sends = [t.cpu() for t in sends]
+            recvs = [torch.empty_like(t) for t in sends]
+            ops = ([dist.P2POp(dist.isend, t, to, group) for t in sends]
+                   + [dist.P2POp(dist.irecv, t, frm, group) for t in recvs])
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+            out.extend(t.to(device) for t in recvs)
+
+        self._collective(run, group, list(tensors), "p2p", tag)
+        return out
+
     def _hier_reduce(self, flat: torch.Tensor) -> torch.Tensor:
         """The 3-step hierarchical all-reduce of one flat buffer over
         ``topo.axis``: zero-padded to n_local divisibility (exact for a
@@ -346,18 +385,51 @@ def psum_scatter(x: torch.Tensor, axis: str, reducer: Reducer, tag: str = "zero"
     return flat if group is None else reducer.reduce_scatter(flat, group, tag)
 
 
-def tp_all_reduce(*_args, **_kwargs):
-    raise NotImplementedError(
-        "tp_all_reduce is not ported yet (ROADMAP, PyTorch port queue: ring "
-        "and tensor-parallel attention)"
-    )
+class _TpAllReduce(torch.autograd.Function):
+    """Megatron's *g*: the sum over the tp group forward, the identity
+    backward (the cotangent at a sum's output is already replicated over
+    the tp ranks, and each rank's partial contributed to it linearly)."""
+
+    @staticmethod
+    def forward(ctx, x, reducer, group):
+        return reducer.all_reduce(x.clone(), group, tag="tp")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
 
 
-def tp_grad_sync(*_args, **_kwargs):
-    raise NotImplementedError(
-        "tp_grad_sync is not ported yet (ROADMAP, PyTorch port queue: ring "
-        "and tensor-parallel attention)"
-    )
+class _TpGradSync(torch.autograd.Function):
+    """Megatron's *f*: the identity forward, the sum over the tp group
+    backward (every tp rank's branch consumed the replicated activation,
+    so its gradient is the sum of the ranks' partials)."""
+
+    @staticmethod
+    def forward(ctx, x, reducer, group):
+        ctx.reducer, ctx.group = reducer, group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.reducer.all_reduce(g.contiguous().clone(), ctx.group, tag="tp"), None, None
+
+
+def tp_all_reduce(x: torch.Tensor, reducer: Reducer, group) -> torch.Tensor:
+    """Megatron's *g* over the tensor-parallel line ``group`` (after each
+    row-split matmul): the partial activations summed forward, the
+    cotangent passed through backward.  Flat (no hierarchical route): the
+    mesh puts ``tp`` on consecutive ranks, and the per-block activation is
+    far below any residue worth scattering.  ``group`` None (a line of one
+    rank): the identity.  A failed sum raises ``CollectiveFailed``."""
+    return x if group is None else _TpAllReduce.apply(x, reducer, group)
+
+
+def tp_grad_sync(x: torch.Tensor, reducer: Reducer, group) -> torch.Tensor:
+    """Megatron's *f* over ``group`` (on the replicated activation after
+    each norm, before a column-split matmul): the identity forward, the
+    partial cotangents summed backward, so the norm gains and everything
+    upstream see the whole gradient.  ``group`` None: the identity."""
+    return x if group is None else _TpGradSync.apply(x, reducer, group)
 
 
 def interhost_bytes_per_step(

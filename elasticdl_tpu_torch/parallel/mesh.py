@@ -10,7 +10,11 @@ reference lays out its devices:
 - 2-D ``(dp, ep)`` (``dcn_parallelism > 1``): ``dp = dcn_parallelism``
   rows of ``ep = world / dcn_parallelism`` consecutive ranks, rank
   ``d * ep + e`` at row ``d``, column ``e``.  Examples shard over ``dp``;
-  the inner ``ep`` axis is the embedding and sequence axis.
+  the inner ``ep`` axis is the embedding and sequence axis;
+- 2-D ``(dp, tp)`` (``tensor_parallelism > 1``): ``dp = world / tp`` rows
+  of ``tp`` consecutive ranks.  The inner ``tp`` axis holds a
+  tensor-parallel model's weight shards (``ModelSpec.tensor_sharding``) and
+  carries its per-block activation sums; examples shard over ``dp``.
 
 A ``Mesh`` holds this rank's position, the world's process group and one
 group per axis line this rank lies on (``torch.distributed.new_group``,
@@ -102,14 +106,26 @@ def create_mesh(
     dcn_parallelism: int = 1,
     hosts: Sequence[str] = (),
     world: Optional[Tuple[int, int, Any]] = None,
+    tensor_parallelism: int = 1,
 ) -> Mesh:
     """The mesh over the current process group's world (a world of one
     without a group when none is initialized).  ``dcn_parallelism > 1``
-    builds ``(dp, ep)`` and must divide the world; ``hosts`` names each
-    rank's host for the hierarchical route.  Every rank must call this
-    with the same arguments: the axis groups are collective to make."""
+    builds ``(dp, ep)`` and must divide the world; ``tensor_parallelism >
+    1`` builds ``(dp, tp)`` with ``tp`` consecutive ranks a row and must
+    divide the world too (``resolve_world_shape`` picks a legal degree);
+    the two are mutually exclusive.  ``hosts`` names each rank's host for
+    the hierarchical route.  Every rank must call this with the same
+    arguments: the axis groups are collective to make."""
     n, rank, world_group = world if world is not None else _world()
-    if dcn_parallelism > 1:
+    if tensor_parallelism > 1:
+        if dcn_parallelism > 1:
+            raise ValueError("tensor_parallelism and dcn_parallelism are mutually "
+                             "exclusive (no 3-D mesh)")
+        if n % tensor_parallelism:
+            raise ValueError(f"tensor_parallelism {tensor_parallelism} does not divide "
+                             f"{n} ranks (resolve_world_shape picks legal shapes)")
+        shape = {DATA_AXIS: n // tensor_parallelism, MODEL_AXIS: tensor_parallelism}
+    elif dcn_parallelism > 1:
         if n % dcn_parallelism:
             raise ValueError(f"dcn_parallelism {dcn_parallelism} does not divide {n} ranks")
         shape = {DATA_AXIS: dcn_parallelism, EMBED_AXIS: n // dcn_parallelism}
@@ -151,6 +167,20 @@ def resolve_2d_shape(n_devices: int, tensor_parallelism: int) -> Tuple[int, int]
         while tp > 1 and tensor_parallelism % tp:
             tp -= 1
     return n // tp, tp
+
+
+def resolve_world_shape(n_ranks: int, tensor_parallelism: int) -> Tuple[int, int]:
+    """The ``(dp, tp)`` shape a world of ``n_ranks`` processes trains on:
+    ``resolve_2d_shape``'s, when it uses every rank; otherwise ``tp``
+    degrades along the configured degree's divisors to the largest that
+    divides the world.  The reference leaves the ranks past ``dp * tp``
+    idle until the next reform; a port rank is a process of the world,
+    whose every collective needs it, so none can sit out (ROADMAP, "Found
+    while porting")."""
+    dp, tp = resolve_2d_shape(n_ranks, tensor_parallelism)
+    if dp * tp != n_ranks:
+        tp = max(d for d in range(1, tp + 1) if tensor_parallelism % d == 0 and n_ranks % d == 0)
+    return n_ranks // tp, tp
 
 
 def mesh_shape(mesh: Mesh) -> Tuple[int, int]:
@@ -212,11 +242,13 @@ def dp_factorization(mesh: Mesh, axis_name: str = DATA_AXIS, local_size: int = 0
 class MeshManager:
     """Owns the current mesh.  A world is fixed per process in the port
     (a membership change restarts the worker), so ``reform`` rebuilds the
-    mesh over the same world: the ``dcn_parallelism`` fallback of the
-    reference's resize, and nothing else."""
+    mesh over the same world: the ``dcn_parallelism`` fallback and the
+    ``(dp, tp)`` resolution of the reference's resize, and nothing else."""
 
-    def __init__(self, dcn_parallelism: int = 1, hosts: Sequence[str] = ()):
+    def __init__(self, dcn_parallelism: int = 1, hosts: Sequence[str] = (),
+                 tensor_parallelism: int = 1):
         self._dcn = dcn_parallelism
+        self._tp = max(1, int(tensor_parallelism))
         self._hosts = tuple(hosts)
         self._mesh: Optional[Mesh] = None
         self._version = -1
@@ -234,8 +266,17 @@ class MeshManager:
 
     def reform(self, version: int) -> Mesh:
         n = _world()[0]
-        dcn = self._dcn
-        if dcn > 1 and n % dcn:
+        dcn, tp = self._dcn, 1
+        if self._tp > 1:
+            dp0, tp0 = resolve_2d_shape(n, self._tp)
+            dp, tp = resolve_world_shape(n, self._tp)
+            if (dp, tp) != (dp0, tp0):
+                logger.warning(
+                    "tensor_parallelism=%d: %d ranks factor to dp=%d x tp=%d with %d "
+                    "left over, and no rank can sit out of the world; tp degrades to "
+                    "%d (dp=%d)", self._tp, n, dp0, tp0, n - dp0 * tp0, tp, dp,
+                )
+        elif dcn > 1 and n % dcn:
             # Training availability beats layout (the reference's fallback):
             # a world the configured hierarchy does not divide trains flat.
             logger.warning(
@@ -243,7 +284,11 @@ class MeshManager:
                 "back to a flat 1-D mesh", dcn, n,
             )
             dcn = 1
-        self._mesh = create_mesh(dcn, self._hosts)
+        old = mesh_shape(self._mesh) if self._mesh is not None else None
+        self._mesh = create_mesh(dcn, self._hosts, tensor_parallelism=tp)
+        new = mesh_shape(self._mesh)
+        logger.info("membership v%d -> mesh of %d ranks (%s -> dp%dxtp%d)", version,
+                    self._mesh.size, "none" if old is None else "dp%dxtp%d" % old, *new)
         self._version = version
         return self._mesh
 

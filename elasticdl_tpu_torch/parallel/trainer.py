@@ -14,17 +14,28 @@ host tier (below).  The fused scan variants are a later slice of the port.
 
 Data parallelism over a process group (``mesh``: ``parallel/mesh.py``):
 each rank owns one device and holds the whole state; every rank feeds the
-same global batch and ``shard_batch`` takes its contiguous slice of the
-examples (dim 0, over every axis for a data-parallel model and over the
-outer axes for a sequence-parallel one, the reference's
-``_batch_spec_for``).  A step weighs the loss by ``count / psum(count)``
-(or ``w / |G'|`` without a mask: this rank's contributor weight over the
-mask's sum), sums the gradients, the loss and the metrics over the group
-through ``collectives`` in one reduction, then steps the optimizer, so a
-failed collective leaves the module and the optimizer as they were
-(``CollectiveError``).  Eval reduces the same way.  A sequence-parallel
-model over a mesh axis of more than one rank (the ring) is a later slice
-and raises.
+same global batch and ``shard_batch`` takes its part (the reference's
+``_batch_spec_for``): a data-parallel model's contiguous slice of the
+examples over the reduce axes; a sequence-parallel model's examples over
+the outer axes and its slice of each sequence over the last one (the ring
+runs in the forward and the backward, ``ops/ring_attention.py``).  A step
+weighs the loss by ``count / psum(count)`` (or ``w / psum(w)`` without a
+mask: this rank's contributor weight over the active ranks' count), sums
+the gradients, the loss and the metrics over the reduce axes through
+``collectives`` in one reduction, then steps the optimizer, so a failed
+collective leaves the module and the optimizer as they were
+(``CollectiveError``).  Eval reduces the same way.
+
+**Tensor parallelism** (a spec with ``tensor_sharding`` on a ``(dp, tp)``
+mesh): each rank's module holds its slice of every planned weight (the
+columns or rows on the plan's dim, ``shard_parameters``), the forward's
+tp sums run inside ``apply`` (``ParallelContext.tp_group``), and the
+reductions run over ``dp`` alone (``reduce_axes``): the tp ranks see the
+same examples, *f* and *g* leave the replicated leaves' gradients whole
+on every rank, and a shard's gradient is its own, so a sum over ``tp``
+would count them ``tp`` times.  The sharded optimizer leaves the shards
+alone (``_OPT_KEEP``); the canonical state holds them whole (gathered on
+their dim, sliced again by ``adopt_restored``).
 
 **Sharded state** (the reference's ParameterServer half, read from the
 job config):
@@ -113,7 +124,7 @@ from elasticdl_tpu_torch.common.config import DistributionStrategy
 from elasticdl_tpu_torch.common.device import resolve_device, set_matmul_precision
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.metrics import HIST_PREFIX
-from elasticdl_tpu_torch.models.spec import EmbeddingTableSpec, ModelSpec
+from elasticdl_tpu_torch.models.spec import EmbeddingTableSpec, ModelSpec, shard_parameters
 from elasticdl_tpu_torch.ops.embedding import (
     IMPL_AUTO,
     ParallelContext,
@@ -122,7 +133,7 @@ from elasticdl_tpu_torch.ops.embedding import (
     table_shape,
 )
 from elasticdl_tpu_torch.parallel import collectives as coll
-from elasticdl_tpu_torch.parallel.mesh import Mesh
+from elasticdl_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh
 
 logger = get_logger("parallel.trainer")
 
@@ -215,7 +226,8 @@ class _OptShard:
 
 
 #: Plan marker for the leaves the dp-sharding leaves alone: row-sharded
-#: tables, whose optimizer slots already co-shard with their rows.
+#: tables and tensor-parallel shards, whose optimizer slots already
+#: co-shard with them.
 _OPT_KEEP = "keep"
 
 
@@ -224,15 +236,18 @@ def opt_shard_plan(
     tables: List[EmbeddingTableSpec],
     sharded_embeddings: bool,
     n_shards: int,
+    tp_paths=(),
 ) -> Dict[str, Any]:
     """``{path: _OptShard or _OPT_KEEP}`` over the model's parameters in
-    their order: ``_OPT_KEEP`` for row-sharded tables, an ``_OptShard``
-    (offsets packed in that order) for every other leaf."""
+    their order: ``_OPT_KEEP`` for row-sharded tables and the
+    tensor-parallel leaves (``tp_paths``), an ``_OptShard`` (offsets packed
+    in that order) for every other leaf."""
     table_paths = {"/".join(t.path) for t in tables} if sharded_embeddings else set()
+    kept = table_paths | set(tp_paths)
     plan: Dict[str, Any] = {}
     offset = 0
     for path, p in params:
-        if path in table_paths:
+        if path in kept:
             plan[path] = _OPT_KEEP
             continue
         size = p.numel()
@@ -478,26 +493,25 @@ class Trainer:
     # ---- the mesh ----
 
     def _adopt_mesh_axes(self, mesh: Mesh) -> None:
-        """Axis roles (the reference's ``_adopt_mesh_axes``): reductions
-        over every axis; contributors are the EXAMPLE shards, every axis
-        for a data-parallel model and the outer axes for a
-        sequence-parallel one (its inner-axis slices hold pieces of the
-        same examples).  Embedding tables shard over the LAST axis, the
-        sharded optimizer over the first.  The collective topology and the
-        lookup's context resolve here and the contributor mask resets to
+        """Axis roles (the reference's ``_adopt_mesh_axes``).  ``tp_axis``
+        is the last axis when it is ``tp`` and the spec has a
+        ``tensor_sharding`` plan; reductions run over every other axis
+        (``reduce_axes``).  Contributors are the EXAMPLE shards: the reduce
+        axes for a data-parallel model (a tp rank is never excluded alone),
+        the outer axes for a sequence-parallel one (its last-axis slices
+        hold pieces of the same examples; on a flat mesh that is one
+        contributor).  Embedding tables and the ring use the LAST axis,
+        the sharded optimizer the first.  The collective topology and the
+        forward's context resolve here and the contributor mask resets to
         all-active."""
         names = mesh.axis_names
-        inner = mesh.shape[names[-1]]
-        if inner > 1 and self.spec.batch_shard_dim == 1:
-            raise NotImplementedError(
-                f"sequence parallelism over a mesh axis of {inner} ranks (the "
-                "ring) is not ported yet (ROADMAP, PyTorch port queue: ring "
-                "and tensor-parallel attention); set --dcn_data_parallelism "
-                "to the world size"
-            )
         self.mesh = mesh
-        self.reduce_axes = names
-        self.contributor_axes = names if self.spec.batch_shard_dim == 0 else names[:-1]
+        self.tp_axis = (MODEL_AXIS if self.spec.tensor_sharding is not None
+                        and names[-1] == MODEL_AXIS else None)
+        self.tp_size = int(mesh.shape[self.tp_axis]) if self.tp_axis else 1
+        self.reduce_axes = tuple(a for a in names if a != self.tp_axis)
+        self.contributor_axes = (self.reduce_axes if self.spec.batch_shard_dim == 0
+                                 else names[:-1])
         cfg = self.config
         topo = coll.resolve_topology(
             mesh, self.reduce_axes,
@@ -512,7 +526,12 @@ class Trainer:
             coll.contributor_count(mesh, self.contributor_axes) if self.contributor_axes else 1,
             np.float32,
         )
-        self.axis_name = names[-1]  # the embedding axis
+        # Ranks a contributor spans (a sequence-parallel example row's
+        # slices): psum over the reduce axes of the contributor weights is
+        # the mask's sum times this.
+        self._ranks_per_contributor = (
+            coll.contributor_count(mesh, self.reduce_axes) // self.num_contributors())
+        self.axis_name = names[-1]  # the embedding and sequence axis
         tables = self.spec.embedding_tables
         self.sharded_embeddings = (
             self.strategy == DistributionStrategy.PARAMETER_SERVER and bool(tables))
@@ -537,6 +556,9 @@ class Trainer:
             axis_index=mesh.position(self.axis_name),
             group=mesh.group((self.axis_name,)),
             reducer=self.reducer,
+            tp_axis=self.tp_axis,
+            tp_size=self.tp_size,
+            tp_group=mesh.group((self.tp_axis,)) if self.tp_axis else None,
         )
         self.opt_axis = names[0]  # the sharded optimizer's (data-parallel) axis
 
@@ -564,12 +586,14 @@ class Trainer:
         self._active_np = mask
 
     def _weight(self) -> Tuple[float, float]:
-        """This rank's contributor weight and the mask's sum |G'| (the
-        mask is replicated, so the sum is known here without a collective;
-        a sum of 0/1 floats is exact)."""
+        """This rank's contributor weight and the psum of the weights over
+        the reduce axes (the reference's ``n_active``: the mask's sum |G'|
+        times the ranks a contributor spans).  The mask is replicated, so
+        the sum is known here without a collective; a sum of 0/1 floats is
+        exact."""
         w = (coll.contributor_weight(self._active_np, self.mesh, self.contributor_axes)
              if self.contributor_axes else float(self._active_np[0]))
-        return w, max(float(self._active_np.sum()), 1.0)
+        return w, max(float(self._active_np.sum()) * self._ranks_per_contributor, 1.0)
 
     def _psum(self, tree: Dict[str, torch.Tensor], skip=(), skip_axes=()) -> Dict[str, torch.Tensor]:
         """``tree`` summed over the reduce axes (the keys in ``skip`` over
@@ -579,20 +603,29 @@ class Trainer:
         except Exception as e:
             raise CollectiveError(f"collective over {self.reduce_axes} failed: {e}") from e
 
-    def _apply(self, model: torch.nn.Module, batch: Dict[str, torch.Tensor], train: bool):
-        """The spec's forward, with this trainer's ``ParallelContext`` when
-        it takes one (a sharded lookup's collectives run inside it and in
-        its backward; the callers turn their failures into
-        ``CollectiveError``)."""
+    def _apply(self, model: torch.nn.Module, batch: Dict[str, torch.Tensor], train: bool,
+               ctx: Optional[ParallelContext] = None):
+        """The spec's forward, with this trainer's ``ParallelContext`` (or
+        ``ctx``) when it takes one (a sharded lookup's, the ring's and the
+        tp collectives run inside it and in its backward; the callers turn
+        their failures into ``CollectiveError``)."""
         if self._apply_takes_ctx:
-            return self.spec.apply(model, batch, train=train, ctx=self.ctx)
+            return self.spec.apply(model, batch, train=train, ctx=ctx or self.ctx)
         return self.spec.apply(model, batch, train=train)
 
     def sharded_state(self) -> bool:
         """Whether no rank holds the whole state: tables row-sharded over
-        more than one rank, or the sharded optimizer on.  Then
-        ``snapshot_state`` is a collective, and a lone rank cannot save."""
-        return (self.sharded_embeddings and self.ctx.axis_size > 1) or self._opt_plan is not None
+        more than one rank, weights split over a tp axis of more than one
+        rank, or the sharded optimizer on.  Then ``snapshot_state`` is a
+        collective, and a lone rank cannot save."""
+        return ((self.sharded_embeddings and self.ctx.axis_size > 1) or self.tp_size > 1
+                or self._opt_plan is not None)
+
+    def _tp_dims(self, model: torch.nn.Module) -> Dict[str, int]:
+        """``{path: dim}`` of the leaves split over the tp axis (the spec's
+        ``tensor_sharding`` plan), empty without a tp axis of more than one
+        rank."""
+        return self.spec.tensor_sharding(model) if self.tp_size > 1 else {}
 
     # ---- state ----
 
@@ -605,13 +638,11 @@ class Trainer:
         model = self.spec.init(seed=seed, device=self.device)
         pad_embedding_tables(model, self.spec.embedding_tables)
         if self.sharded_embeddings and self.ctx.axis_size > 1:
-            n, i = self.ctx.axis_size, self.ctx.axis_index
-            for t in self.spec.embedding_tables:
-                module, name = _module_param(model, t.path)
-                full = getattr(module, name).detach()
-                k = full.shape[0] // n
-                setattr(module, name, torch.nn.Parameter(full[i * k:(i + 1) * k].clone()))
-                del full
+            shard_parameters(model, dict.fromkeys(self._table_keys, 0),
+                             self.ctx.axis_index, self.ctx.axis_size)
+        if self.tp_size > 1:
+            shard_parameters(model, self._tp_dims(model), self.mesh.position(self.tp_axis),
+                             self.tp_size)
         optimizer = self._make_optimizer(model) if self.spec.optimizer else None
         return TrainState(step=0, model=model, optimizer=optimizer)
 
@@ -622,7 +653,8 @@ class Trainer:
         ``_zero_shards``)."""
         paths = self._param_paths(model)
         n = int(self.mesh.shape[self.opt_axis])
-        plan = opt_shard_plan(paths, self.spec.embedding_tables, self.sharded_embeddings, n)
+        plan = opt_shard_plan(paths, self.spec.embedding_tables, self.sharded_embeddings, n,
+                              tp_paths=self._tp_dims(model))
         self._opt_plan = plan if self._resolve_opt_sharding(plan, paths) else None
         if self._opt_plan is None:
             return self.spec.optimizer(model.parameters())
@@ -665,14 +697,32 @@ class Trainer:
 
     def shard_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """This rank's part of a GLOBAL host batch (numpy arrays or
-        tensors), on the device: the contiguous slice of the examples
-        (dim 0) at its contributor index, every rank feeding the same
-        global batch (the reference's ``_place_global``).  One rank:
-        placing is all it comes to."""
+        tensors), on the device, every rank feeding the same global batch
+        (the reference's ``_batch_spec_for`` and ``_place_global``): the
+        contiguous slice of the examples (dim 0) at its contributor index;
+        for a sequence-parallel model also the contiguous slice of dim 1 at
+        its position on the last axis, for the leaves that have a sequence
+        dim (a ``[B]`` mask follows the examples only).  One rank: placing
+        is all it comes to."""
         if self.num_contributors() > 1:
             batch = {k: v if np.ndim(v) == 0 else v[self._contributor_slice(k, v.shape[0])]
                      for k, v in batch.items()}
+        if self.spec.batch_shard_dim == 1 and self.ctx.axis_size > 1:
+            batch = {k: v[:, self._sequence_slice(k, v.shape[1])] if np.ndim(v) > 1 else v
+                     for k, v in batch.items()}
         return {k: self._to_device(v) for k, v in batch.items()}
+
+    def _sequence_slice(self, key: str, length: int) -> slice:
+        """This rank's contiguous slice of a sequence of ``length`` at its
+        position on the last (sequence) axis."""
+        n, i = self.ctx.axis_size, self.ctx.axis_index
+        if length % n:
+            raise ValueError(
+                f"batch dimension 1 of {key!r} (size {length}) not divisible by its "
+                f"mesh axis {self.axis_name!r} (size {n})"
+            )
+        size = length // n
+        return slice(i * size, (i + 1) * size)
 
     def _contributor_slice(self, key: str, n_examples: int) -> slice:
         """This rank's contiguous slice of ``n_examples`` examples at its
@@ -795,8 +845,9 @@ class Trainer:
         host_grads = self._host_grads(host_in)
         tree: Dict[str, torch.Tensor] = {}
         params = [(path, p) for path, p in self._param_paths(model) if p.grad is not None]
-        if zero is not None:
-            params = [(path, p) for path, p in params if path in self._table_keys]
+        if zero is not None:  # the leaves the sharded optimizer keeps whole
+            kept = self._table_keys | set(self._tp_dims(model))
+            params = [(path, p) for path, p in params if path in kept]
         for path, p in params:
             tree["grad/" + path] = p.grad
         tree["loss"] = loss.detach()
@@ -1174,13 +1225,21 @@ class Trainer:
         zero = _zero_of(optimizer)
         stepped = bool(opt_state)  # every rank alike: the steps are lockstep
         zero_moments = self._gather_zero_moments(zero, opt_state) if zero and stepped else {}
+        tp_dims = self._tp_dims(state.model)
         count = 0
         for st in opt_state.values():
             count = st.get("step", 0)
             break
+
+        def whole(path: str, t: torch.Tensor) -> torch.Tensor:
+            if path in self._table_keys:
+                return self._gather_rows(t)
+            if path in tp_dims:
+                return self._gather(t, self.ctx.tp_group, tp_dims[path])
+            return take(t)
+
         for path, p in self._param_paths(state.model):
-            table = path in self._table_keys
-            snap[PARAMS + path] = self._gather_rows(p) if table else take(p)
+            snap[PARAMS + path] = whole(path, p)
             if optimizer is None:
                 continue
             full_shape = snap[PARAMS + path].shape
@@ -1191,7 +1250,7 @@ class Trainer:
             st = opt_state.get(p)
             for name, key in self._opt_slots:
                 if st and st.get(name) is not None:
-                    snap[key + path] = self._gather_rows(st[name]) if table else take(st[name])
+                    snap[key + path] = whole(path, st[name])
                 else:
                     snap[key + path] = torch.zeros(full_shape, dtype=p.dtype, device=p.device)
         if optimizer is not None and self._opt_count:
@@ -1209,14 +1268,22 @@ class Trainer:
     def _gather_rows(self, local: torch.Tensor) -> torch.Tensor:
         """A row-sharded table (or its moment) whole: the table axis's ranks'
         rows in order (a fresh tensor); one rank: a clone."""
-        group = self.ctx.group if self.ctx.axis_size > 1 else None
+        return self._gather(local, self.ctx.group if self.ctx.axis_size > 1 else None, 0)
+
+    def _gather(self, local: torch.Tensor, group, dim: int) -> torch.Tensor:
+        """A leaf split over ``group``'s line on ``dim`` whole: the ranks'
+        slices in line order along ``dim`` (a fresh tensor); no group: a
+        clone."""
         if group is None:
             return local.detach().clone()
         try:
             full = self.reducer.all_gather(local.detach(), group, tag="snapshot")
         except coll.CollectiveFailed as e:
-            raise CollectiveError(f"gathering a table's rows failed: {e}") from e
-        return full.view((-1,) + tuple(local.shape[1:]))
+            raise CollectiveError(f"gathering a sharded leaf failed: {e}") from e
+        n = full.numel() // local.numel()
+        shape = list(local.shape)
+        shape[dim] *= n
+        return full.view((n,) + tuple(local.shape)).movedim(0, dim).reshape(shape)
 
     def _gather_zero_moments(self, zero: _ZeroShards, opt_state) -> Dict[str, tuple]:
         """Every dense leaf's optimizer slots ((mu, nu) or (trace,)),
@@ -1278,10 +1345,14 @@ class Trainer:
         whatever this rank keeps of them."""
         shapes: Dict[str, Tuple[int, ...]] = {STEP_KEY: ()}
         n = self.ctx.axis_size if self.sharded_embeddings else 1
+        tp_dims = self._tp_dims(state.model)
         for path, p in self._param_paths(state.model):
             shape = tuple(p.shape)
             if path in self._table_keys:
                 shape = (shape[0] * n,) + shape[1:]
+            if path in tp_dims:
+                d = tp_dims[path]
+                shape = shape[:d] + (shape[d] * self.tp_size,) + shape[d + 1:]
             shapes[PARAMS + path] = shape
             if state.optimizer is not None:
                 for _, key in self._opt_slots:
@@ -1322,6 +1393,8 @@ class Trainer:
                 f"{sorted(missing)[:8]}, unexpected {sorted(unexpected)[:8]}"
             )
         n, i = self.ctx.axis_size, self.ctx.axis_index
+        tp_dims = self._tp_dims(model)
+        tp_i = self.mesh.position(self.tp_axis) if tp_dims else 0
 
         def host(key: str, path: str) -> np.ndarray:
             arr = np.asarray(arrays[key], np.float32)
@@ -1330,6 +1403,8 @@ class Trainer:
             if path in self._table_keys and n > 1:
                 k = arr.shape[0] // n
                 arr = arr[i * k:(i + 1) * k]
+            if path in tp_dims:
+                arr = np.split(arr, self.tp_size, axis=tp_dims[path])[tp_i]
             return arr
 
         def load(arr: np.ndarray, dst: torch.Tensor) -> torch.Tensor:
@@ -1389,9 +1464,11 @@ class Trainer:
 
     def collective_bytes_per_step(self, state: TrainState) -> Dict[str, int]:
         """Analytic per-replica inter-host bytes of one step's dense-gradient
-        all-reduce under this mesh's resolved topology against the flat
-        route (``collectives.interhost_bytes_per_step``), sharded tables
-        left out: their gradients never cross the table axis."""
+        all-reduce over the reduce axes under this mesh's resolved topology
+        against the flat route (``collectives.interhost_bytes_per_step``),
+        sharded tables left out: their gradients never cross the table
+        axis.  A tensor-parallel leaf counts its local shard, 1/tp of it:
+        each rank reduces only that over ``dp``."""
         sizes = [p.numel() for path, p in self._param_paths(state.model)
                  if path not in self._table_keys]
         n = coll.contributor_count(self.mesh, self.reduce_axes)
@@ -1410,15 +1487,19 @@ class Trainer:
         batch.pop(MASK_KEY, None)
         if self.spec.host_io:
             batch.update(self._pull_host_rows(batch, local=False)[0])
-        # The whole batch on every rank: prediction is per example and
-        # needs no collective.
+        # The whole batch on every rank: prediction is per example, so a
+        # sequence-parallel model attends over whole sequences here (no
+        # ring); a sharded model's collectives still run.
         tensors = {k: self._to_device(v) for k, v in batch.items()}
+        ctx = self.ctx
+        if self.spec.batch_shard_dim == 1:
+            ctx = dataclasses.replace(ctx, axis_size=1, axis_index=0)
         with torch.inference_mode():
             if self.spec.predict is not None:
                 if self._predict_takes_ctx:
-                    return self.spec.predict(state, tensors, ctx=self.ctx)
+                    return self.spec.predict(state, tensors, ctx=ctx)
                 return self.spec.predict(state, tensors)
-            return self._apply(state, tensors, train=False)
+            return self._apply(state, tensors, train=False, ctx=ctx)
 
 
 def outputs_to_numpy(outputs: Any) -> Any:

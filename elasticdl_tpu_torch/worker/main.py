@@ -465,7 +465,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         addresses = membership.get("addresses") or {}
         hosts = [addresses.get(w, "") for w in sorted(ranks, key=ranks.get)]
         mesh = MeshManager(config.dcn_data_parallelism,
-                           hosts if all(hosts) and spec.enabled else ()).mesh
+                           hosts if all(hosts) and spec.enabled else (),
+                           tensor_parallelism=config.tensor_parallelism).mesh
         gang_event = dict(worker_id=worker_id, settle_s=settle_s,
                           init_process_group_s=time.time() - t0, rank=spec.process_id,
                           world=spec.num_processes, version=membership["version"],

@@ -106,7 +106,7 @@ from elasticdl_tpu_torch.master.task_dispatcher import (
     Task,
 )
 from elasticdl_tpu_torch.models.spec import ModelSpec, load_model_spec_for_job
-from elasticdl_tpu_torch.parallel.mesh import Mesh
+from elasticdl_tpu_torch.parallel.mesh import Mesh, mesh_shape
 from elasticdl_tpu_torch.parallel.trainer import (
     MASK_KEY,
     CollectiveError,
@@ -577,6 +577,15 @@ class Worker:
         g.gauge(
             gaugelib.LEASE_DEPTH, "locally buffered task leases"
         ).set(float(len(self._leased)))
+        # The mesh's (dp, tp) shape (a 1-D mesh reads dp=n, tp=1), one
+        # sample per axis.
+        dp, tp = mesh_shape(self.trainer.mesh)
+        for ax, val in (("dp", dp), ("tp", tp)):
+            g.gauge(
+                "edl_mesh_shape",
+                "current mesh extent per axis (dp=data, tp=model)",
+                labels={"axis": ax},
+            ).set(float(val))
         for name, secs in self.phases.snapshot().items():
             g.gauge(
                 "edl_phase_seconds_total",

@@ -373,3 +373,95 @@ def wide_deep_steps(rank, world, variants, model_kw, jax_params, batches):
             "impl": trainer.ctx.embedding_impl,
         }
     return out
+
+
+def ring_tp_cases(rank, world, q, k, v, cot, tp_x, tp_cot, device="cpu"):
+    """The port's ring over the flat ``{dp: world}`` mesh on this rank's
+    sequence shard of ``q``, ``k``, ``v`` (``[B, L, H, D]``, global):
+    the output causal and not, and the gradients of ``sum(ring * cot)``
+    (causal); then the tensor-parallel pair over the same line, with
+    ``tp_x[rank]`` in and ``tp_cot[rank]`` as the cotangent: each one's
+    output and input gradient.  Tensors on ``device``; everything back as
+    numpy."""
+    import torch
+
+    from elasticdl_tpu_torch.ops.embedding import ParallelContext
+    from elasticdl_tpu_torch.ops.ring_attention import ring_attention
+    from elasticdl_tpu_torch.parallel import collectives as coll
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh()
+    reducer = coll.Reducer(mesh)
+    group = mesh.group(("dp",))
+    ctx = ParallelContext(axis_name="dp", axis_size=world, axis_index=rank, group=group,
+                          reducer=reducer)
+    s = q.shape[1] // world
+    local = [torch.from_numpy(a[:, rank * s:(rank + 1) * s].copy()).to(device)
+             for a in (q, k, v, cot)]
+    out = {}
+    for causal in (False, True):
+        out[f"out_causal={causal}"] = ring_attention(
+            *local[:3], axis_name="dp", causal=causal, ctx=ctx).cpu().numpy()
+    leaves = [t.clone().requires_grad_() for t in local[:3]]
+    (ring_attention(*leaves, axis_name="dp", causal=True, ctx=ctx) * local[3]).sum().backward()
+    out["grads"] = [t.grad.cpu().numpy() for t in leaves]
+    for name, fn in (("all_reduce", coll.tp_all_reduce), ("grad_sync", coll.tp_grad_sync)):
+        x = torch.from_numpy(tp_x[rank].copy()).to(device).requires_grad_()
+        y = fn(x, reducer, group)
+        (y * torch.from_numpy(tp_cot[rank]).to(device)).sum().backward()
+        out[name] = (y.detach().cpu().numpy(), x.grad.cpu().numpy())
+    out["by_op"], out["calls"] = dict(reducer.by_op), reducer.calls
+    return out
+
+
+def lm_mesh_runs(rank, world, runs, device="cpu"):
+    """``transformer_lm`` runs over meshes of this world, one after another
+    (every rank makes the same meshes in the same order).  Each run (a
+    dict): ``model`` (``model_spec`` kwargs), ``mesh``
+    (``create_mesh`` kwargs; ``manager`` instead: ``MeshManager`` kwargs),
+    ``config`` (``JobConfig`` kwargs), ``params`` (a JAX params tree, whole)
+    or ``canonical`` (a canonical state), ``batches`` (global host
+    batches) and ``save`` (a directory rank 0 checkpoints the final state
+    in).  Returns per run: each step's metrics, one eval step's metrics on
+    the first batch, the canonical state gathered after adopting the
+    weights and after the steps, the mesh's shape, and this rank's bytes of
+    the matmul weights.  The trainers run on ``device``."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.checkpoint import CheckpointManager
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.models import transformer_lm
+    from elasticdl_tpu_torch.parallel.mesh import MeshManager, create_mesh
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+
+    results = []
+    for run in runs:
+        mesh = (MeshManager(**run["manager"]).mesh if "manager" in run
+                else create_mesh(**run.get("mesh", {})))
+        trainer = Trainer(transformer_lm.model_spec(**run["model"]), device=device, mesh=mesh,
+                          config=JobConfig(**run.get("config", {})))
+        canonical = run.get("canonical")
+        if canonical is None:
+            canonical = _canonical_from(trainer, trainer.init_state(0), run["params"])
+        state = trainer.adopt_restored(canonical)
+        restored = {k: np.asarray(v).copy() for k, v in trainer.host_state(state).items()}
+        metrics = []
+        for batch in run["batches"]:
+            state, m = trainer.run_train_step(state, batch)
+            metrics.append({k: v.detach().cpu().numpy() for k, v in m.items()})
+        ev = trainer.run_eval_step(state, run["batches"][0])
+        host = {k: np.asarray(v).copy() for k, v in trainer.host_state(state).items()}
+        if run.get("save") and rank == 0:
+            CheckpointManager(run["save"]).save(state.step, host, wait=True)
+        results.append({
+            "metrics": metrics,
+            "eval": {k: v.cpu().numpy() for k, v in ev.items()},
+            "restored": restored,
+            "host": host,
+            "step": state.step,
+            "shape": dict(mesh.shape),
+            "matmul_bytes": sum(int(p.nbytes) for name, p in state.model.named_parameters()
+                                if name.rsplit(".", 1)[-1] in ("wqkv", "wo", "w1", "w2")),
+            "by_op": dict(trainer.reducer.by_op),
+        })
+    return results

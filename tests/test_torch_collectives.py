@@ -183,6 +183,13 @@ def test_left_out_collectives_name_their_roadmap_items():
     # ranks); over a line of one rank it keeps its input.
     x = torch.arange(6.0)
     assert torch.equal(coll.psum_scatter(x, "dp", coll.Reducer(tmesh.Mesh({"dp": 1}))), x)
+    # The tensor-parallel pair is ported (tests/test_torch_ring_tp.py runs
+    # it across ranks); over a line of one rank (no group) both are the
+    # identity, forward and backward.
+    red = coll.Reducer(tmesh.Mesh({"dp": 1, "tp": 1}))
     for fn in (coll.tp_all_reduce, coll.tp_grad_sync):
-        with pytest.raises(NotImplementedError, match="ring and tensor-parallel attention"):
-            fn(None, "tp")
+        y = torch.arange(6.0, requires_grad=True)
+        out = fn(y, red, None)
+        assert out is y
+        (out * torch.arange(6.0)).sum().backward()
+        assert torch.equal(y.grad, torch.arange(6.0))

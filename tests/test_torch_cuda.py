@@ -15,6 +15,8 @@ largest error over the largest element, and delta's largest error over
 its largest element.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -515,3 +517,74 @@ def test_cuda_preprocessing_and_crosses_equal_the_host(card):
     cat = torch.from_numpy(ids.astype(np.int32))
     np.testing.assert_array_equal(wide_deep.wide_ids(cat.cuda(), 65536).cpu().numpy(),
                                   wide_deep.wide_ids(cat, 65536).numpy())
+
+
+# ---- the ring and tensor parallelism across gloo ranks on the card ---------------------
+
+_RT_MODEL = dict(vocab=512, dim=64, n_heads=4, n_layers=2, max_seq=128, seq_len=128,
+                 compute_dtype="float32")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_cuda_ring_and_tp_pair_across_gloo_ranks(card, monkeypatch, world):
+    """The ring over ``world`` gloo ranks on card tensors (each rank's
+    sequence shard; key and value blocks through host copies) against the
+    plain attention over the whole sequence, output and gradients, at
+    tests/test_ring_attention.py's rtol 2e-4, atol 2e-5; the tp pair's
+    sums exact."""
+    from _torch_gloo_ranks import ring_tp_cases, run_ranks
+    from elasticdl_tpu_torch.ops.ring_attention import attention_reference
+
+    monkeypatch.setenv("ELASTICDL_TORCH_DEVICE", "cuda")
+    monkeypatch.setenv("ELASTICDL_TORCH_DIST_BACKEND", "gloo")
+    q, k, v, cot = _arrays((2, 128, 4, 16), 21, n=4)
+    tp_x, tp_cot = _arrays((world, 3, 5), 22, n=2)
+    ranks = run_ranks(ring_tp_cases, world, q, k, v, cot, tp_x, tp_cot, "cuda")
+    leaves = [torch.from_numpy(a).cuda().requires_grad_() for a in (q, k, v)]
+    for causal in (False, True):
+        ref = attention_reference(*leaves, causal=causal)
+        got = np.concatenate([r[f"out_causal={causal}"] for r in ranks], axis=1)
+        np.testing.assert_allclose(got, ref.detach().cpu().numpy(), rtol=2e-4, atol=2e-5)
+    (ref * torch.from_numpy(cot).cuda()).sum().backward()
+    for j, leaf in enumerate(leaves):
+        got = np.concatenate([r["grads"][j] for r in ranks], axis=1)
+        np.testing.assert_allclose(got, leaf.grad.cpu().numpy(), rtol=2e-4, atol=2e-5)
+    for rank, r in enumerate(ranks):
+        # The sums' order is gloo's: exact for two ranks.
+        np.testing.assert_allclose(r["all_reduce"][0], tp_x.sum(axis=0), rtol=1e-6, atol=1e-7)
+        np.testing.assert_array_equal(r["all_reduce"][1], tp_cot[rank])
+        np.testing.assert_array_equal(r["grad_sync"][0], tp_x[rank])
+        np.testing.assert_allclose(r["grad_sync"][1], tp_cot.sum(axis=0), rtol=1e-6, atol=1e-7)
+
+
+def test_cuda_ring_and_tp_trainers_on_two_gloo_ranks(card, monkeypatch):
+    """``transformer_lm`` on the card over two gloo ranks: the sequence path
+    on ``{dp: 2}`` (the ring) and the tensor path on ``(dp 1, tp 2)``, f32,
+    3 steps from carried weights: losses within 1e-4 of one process (the
+    f32 limit of chip_smoke.py's phase 15), one state on both ranks, half
+    the matmul weights a tp rank."""
+    from _torch_gloo_ranks import lm_mesh_runs, run_ranks
+
+    monkeypatch.setenv("ELASTICDL_TORCH_DEVICE", "cuda")
+    monkeypatch.setenv("ELASTICDL_TORCH_DIST_BACKEND", "gloo")
+    batches = _gang_batches()
+    runs, singles = [], []
+    for parallelism, mesh in (("sequence", {}), ("tensor", dict(tensor_parallelism=2))):
+        model = dict(_RT_MODEL, parallelism=parallelism)
+        trainer = Trainer(tlm.model_spec(**model), device="cuda")
+        state = trainer.init_state(0)
+        params = copy.deepcopy(tlm.params_to_jax(state.model))
+        losses = []
+        for batch in batches:
+            state, m = trainer.run_train_step(state, batch)
+            losses.append(float(m["loss"]))
+        singles.append((losses, sum(int(getattr(b, w).nbytes) for b in state.model.blocks.values()
+                                    for w in ("wqkv", "wo", "w1", "w2"))))
+        runs.append(dict(model=model, mesh=mesh, params=params, batches=batches))
+    ranks = run_ranks(lm_mesh_runs, 2, runs, "cuda")
+    for i, (losses, weights) in enumerate(singles):
+        got = [[float(m["loss"]) for m in r[i]["metrics"]] for r in ranks]
+        assert got[0] == got[1] and max(abs(a - b) for a, b in zip(got[0], losses)) <= 1e-4
+        assert all(np.array_equal(ranks[0][i]["host"][k], ranks[1][i]["host"][k])
+                   for k in ranks[0][i]["host"])
+        assert ranks[0][i]["matmul_bytes"] * (2 if i else 1) == weights

@@ -185,10 +185,18 @@ def test_two_rank_step_matches_the_jax_two_device_mesh(kind):
 
 
 def test_inner_axes_larger_than_one_rank_name_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="ring and tensor-parallel attention"):
-        Trainer(tlm.model_spec(**LM), device="cpu", mesh=Mesh({"dp": 2}))
-    with pytest.raises(NotImplementedError, match="ring and tensor-parallel attention"):
-        Trainer(tlm.model_spec(**LM), device="cpu", mesh=Mesh({"dp": 1, "ep": 2}))
+    # The ring is ported (tests/test_torch_ring_tp.py trains it against the
+    # JAX trainer): a sequence-parallel model builds on an inner axis of
+    # two ranks and rings over it, its examples whole on a flat mesh.
+    tr = Trainer(tlm.model_spec(**LM), device="cpu", mesh=Mesh({"dp": 2}, rank=1))
+    assert (tr.ctx.axis_name, tr.ctx.axis_size, tr.ctx.axis_index) == ("dp", 2, 1)
+    assert tr.contributor_axes == () and tr.num_contributors() == 1
+    tr = Trainer(tlm.model_spec(**LM), device="cpu", mesh=Mesh({"dp": 1, "ep": 2}))
+    assert (tr.ctx.axis_name, tr.ctx.axis_size) == ("ep", 2) and tr.reduce_axes == ("dp", "ep")
+    # Tensor parallelism too: the tp axis leaves the reductions.
+    tr = Trainer(tlm.model_spec(parallelism="tensor", **LM), device="cpu",
+                 mesh=Mesh({"dp": 1, "tp": 2}))
+    assert tr.ctx.tp_axis == "tp" and tr.reduce_axes == ("dp",)
     # Sharded tables over an ep axis of two ranks are ported: DeepFM under
     # the ParameterServer strategy builds on (dp=2, ep=2) and shards its
     # table over ep.
