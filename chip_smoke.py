@@ -113,7 +113,7 @@ exits non-zero without its result line:
    process: the card against the CPU at f32 over 3 steps, each side with
    a fresh store (losses and step 1's gradients within ``DFM_F32_REL``,
    the touched rows by ``HOST_ROW_FLIPS``); on one store, 5 warm steps and
-   6 pairs of 10 timed steps sync and ``use_async`` (depth 1), the order
+   3 pairs of 10 timed steps sync and ``use_async`` (depth 1), the order
    alternating: each pair's step p50s and ratio, examples/s, the sync
    step's parts (pull, H2D,
    device, the wait for the gradients' copy, push; the copy alone), the
@@ -158,14 +158,34 @@ exits non-zero without its result line:
    without *f*; half the matmul weights a rank; the tp all-reduce's ms a
    step; the gathered state restored into a world of one bit for bit, and
    a step. (d) One CLI job, ``--multihost --num_workers=2
-   --tensor_parallelism=2``, over phase 7's files with eval rounds and
-   checkpoints: every task done once, the epoch's step count, equal
-   digests. Neither path launches a flash kernel across ranks, as in the
-   reference.
+   --tensor_parallelism=2``, over 256 of phase 7's training sequences (16
+   steps) and its validation file, with eval rounds and checkpoints: every
+   task done once, the epoch's step count, equal digests. Neither path
+   launches a flash kernel across ranks, as in the reference.
+16. the serving fleet (``phase_fleet``): ``transformer_lm`` at the
+   GPT-2-small layer width (128 tokens, vocab 8192) in replica processes
+   (``python -m elasticdl_tpu_torch.serving.main``) under a
+   ``ServingFleetController`` over ``ProcessPodBackend`` with one warm
+   standby, over a published checkpoint, behind the p2c
+   ``FleetServingClient``, the control loop driven by ``poll_once``.
+   (a) ``start(2)``: each replica's cold boot-to-ready. (b) The same
+   tokens until every replica answered, at buckets 1 and 2: equal bit for
+   bit, and within ``MODEL_MAX_ABS``/``MODEL_MEAN_ABS`` of one process's
+   forward with the plain attention. (c) Online traffic at a fixed rate
+   breaks a 1 ms p99 target: two pressured polls scale 2 -> 3 and adopt
+   the warm spare; idle polls under bulk-lane traffic retire back to 2
+   (``drain_s`` 1.5); the events exactly ``[(2, 3), (3, 2)]``; Predict
+   p50 and p99 at 2 and 3 replicas. (d) A replica SIGKILLed under
+   traffic, relaunched as ``-r1``: zero failed requests, SIGKILL to ready.
+   (e) A second controller over the same registry, the first not stopped,
+   adopts the live replicas: same addresses, nothing spawned, equal
+   answers. (f) Per replica, flash forward launches = 12 x (flushes + warm
+   forwards), flushes in buckets 1 and 2, requests answered.
 
 Prints the card's name and power limit first, a ``{"kernels": [...]}``
 line before the last, and ``{"ok": true, "device": {...}}`` last.  The
-numbers also go to ``chiprun_out/chip_smoke.json``.
+numbers, each phase's wall seconds among them, also go to
+``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -2908,7 +2928,9 @@ HOST_WIDTH = dict(buckets_per_feature=1 << 20, embedding_dim=8, hidden=(400, 400
 HOST_BATCH, HOST_PARITY_STEPS, HOST_WARM, HOST_SPLIT_STEPS = 8192, 3, 5, 5
 # (a) Sync against async on one store: HOST_PAIRS pairs of HOST_PAIR_STEPS
 # timed steps each way, the order alternating from pair to pair.
-HOST_PAIRS, HOST_PAIR_STEPS = 6, 10
+# Three pairs: the ratio question was settled over 18 earlier pairs (async
+# slower in 14; PERF.md), and the script's time limit is shared.
+HOST_PAIRS, HOST_PAIR_STEPS = 3, 10
 # (b) One epoch of 131,072 records: 4 tasks of 4 minibatches, a checkpoint
 # every 8 steps, an eval round at the end; the worker stalls at its first
 # task boundary past the first checkpoint while PS shard 1 is SIGKILLed.
@@ -3765,9 +3787,11 @@ RT_BATCH, RT_STEPS, RT_DTYPE = 8, 4, "bfloat16"
 RING_LOSS_ABS = {"bfloat16": 5e-4, "float32": 1e-5}
 TP_LOSS_ABS = {"bfloat16": 2e-3, "float32": 1e-5}
 # (d) The CLI job: --multihost --num_workers=2 --tensor_parallelism=2 over
-# phase 7's files, one epoch, eval rounds and checkpoints (GANG_FLAGS),
-# remat off as in the other CLI phases.
+# the first RT_CLI_TRAIN of phase 7's training sequences (the same seed: one
+# epoch of 4 tasks, 16 steps) and phase 7's validation file, eval rounds and
+# checkpoints (GANG_FLAGS), remat off as in the other CLI phases.
 RT_JOB = "chip15"
+RT_CLI_TRAIN = 256
 
 
 def _ring_inputs(seed: int, dtype, device: str = "cuda") -> list:
@@ -3979,10 +4003,13 @@ def _rt_cli(card: str) -> dict:
     import shutil
 
     from elasticdl_tpu_torch.common.checkpoint import read_manifest
+    from elasticdl_tpu_torch.data.synthetic import synthetic_lm
 
     out = os.path.join(REPO, "chiprun_out", "job")
-    train, val = os.path.join(out, "train.rio"), os.path.join(out, "val.rio")
-    assert os.path.exists(train) and os.path.exists(val), "phase 7 writes the job's data"
+    val = os.path.join(out, "val.rio")
+    assert os.path.exists(val), "phase 7 writes the job's data"
+    train = synthetic_lm(os.path.join(out, "train15.rio"), RT_CLI_TRAIN, seed=0,
+                         seq_len=TRAIN_WIDTH["seq_len"], vocab=TRAIN_WIDTH["vocab"])
     ckpt, pods = os.path.join(out, "ckpt15"), os.path.join(out, "pods15")
     shutil.rmtree(ckpt, ignore_errors=True)
     shutil.rmtree(pods, ignore_errors=True)
@@ -4018,7 +4045,8 @@ def _rt_cli(card: str) -> dict:
                    json.loads(x[len("[worker-event] "):])["digest"]
                    for x in t.splitlines() if x.startswith("[worker-event] ")
                    and '"event": "checkpoint"' in x} for n, t in logs.items()}
-    n_tasks = JOB_TRAIN // (GANG_FLAGS["minibatch_size"] * GANG_FLAGS["num_minibatches_per_task"])
+    per_task = GANG_FLAGS["minibatch_size"] * GANG_FLAGS["num_minibatches_per_task"]
+    n_tasks = RT_CLI_TRAIN // per_task
     epoch_steps = n_tasks * GANG_FLAGS["num_minibatches_per_task"]
     assert status["finished"] and status["done"] == n_tasks, status
     assert status["abandoned"] == 0 and status["duplicate_done"] == 0, status
@@ -4037,8 +4065,9 @@ def _rt_cli(card: str) -> dict:
     assert manifest["step"] == epoch_steps, manifest
     p50 = statistics.median(sa["step_ms"])
     tp_s = sa["collective_by_op"].get("tp:all_reduce", 0.0)
-    log(f"[ring_tp] (d) CLI --multihost --num_workers=2 --tensor_parallelism=2 on phase 7's "
-        f"files: {status['done']} tasks done ({n_tasks} a epoch), {status['abandoned']} "
+    log(f"[ring_tp] (d) CLI --multihost --num_workers=2 --tensor_parallelism=2 on "
+        f"{RT_CLI_TRAIN} of phase 7's sequences: {status['done']} tasks done ({n_tasks} a "
+        f"epoch), {status['abandoned']} "
         f"abandoned, {status['duplicate_done']} duplicates, {status['eval_rounds']} eval "
         f"rounds (loss {status['eval_metrics']['loss']:.4f}), final step {manifest['step']}, "
         f"digests equal at steps {shared}; step p50 {p50:.2f} ms (device events, rank 0), "
@@ -4181,6 +4210,461 @@ def phase_ring_tp(card: str, dtype: str = RT_DTYPE) -> dict:
     return report
 
 
+# Phase 16: the serving fleet.  ``transformer_lm`` at the GPT-2-small layer
+# width (dim 768, 12 heads of 64, 12 layers, max_seq 1024, bf16) served by
+# replica processes (``python -m elasticdl_tpu_torch.serving.main``) that a
+# ``ServingFleetController`` runs through ``ProcessPodBackend`` with one warm
+# standby, behind the p2c ``FleetServingClient``, the control loop driven by
+# the harness (``poll_once``) as the reference's fleet harness drives it
+# (``tools/serving_bench.py:run_fleet_bench``).  Cut: 128 tokens a sequence
+# and vocab 8192 (phase 6's cut): a Predict answers with every logit as
+# JSON, ~12.5 MB a sequence at vocab 8192 ((b) measures it; ~4x that at
+# vocab 32768), and two must fit the gRPC cap (common/rpc.py, 64 MB).
+# Random weights from seed 0, published as a checkpoint that every replica
+# serves.
+FLEET_WIDTH = dict(vocab=8192, dim=768, n_heads=12, n_layers=12, max_seq=1024, seq_len=128)
+FLEET_JOB = "chip16"
+FLEET_DEVICE = "cuda"
+FLEET_BUCKETS = [1, 2]
+# Forwards a replica runs before it serves: the startup restore's warm
+# forward at the smallest bucket, then one warm-up forward a bucket.
+FLEET_WARM_FORWARDS = 1 + len(FLEET_BUCKETS)
+# (c) The offered load: one-sequence Predicts at FLEET_QPS a second, open
+# loop, FLEET_LOAD_S seconds at 2 and at 3 replicas: 100 requests a window,
+# so a window's p90 rests on ten samples (its p99 on the top two; longer
+# windows do not fit the script's time limit).  A Predict answers with
+# ~12 MB of JSON that the replica encodes and one client process decodes
+# ((b) times both), so the rate sits below one answer a second a replica.
+# The retirement runs under bulk-lane traffic at FLEET_BULK_QPS (outside the
+# online p99 the law reads).  The SLO target is below one flush, so real
+# online traffic breaks it.  (d) offers FLEET_KILL_QPS, which the one
+# surviving replica carries while the spare comes up.
+FLEET_QPS, FLEET_LOAD_S, FLEET_BULK_QPS, FLEET_KILL_QPS = 2.0, 50.0, 1.0, 1.5
+FLEET_AUTOSCALE = dict(min_replicas=2, max_replicas=3, target_p99_ms=1.0, up_consecutive=2,
+                       down_consecutive=2, cooldown_polls=1, drain_s=1.5)
+
+
+class _FleetLoad:
+    """Open-loop Predicts at ``qps`` through one ``FleetServingClient``
+    from a thread pool, until ``stop()``: every request's wall (ms) and
+    every failure (none may happen)."""
+
+    def __init__(self, fc, features: dict, qps: float, lane: str = "online"):
+        import threading
+
+        self._fc, self._features, self._qps, self._lane = fc, features, qps, lane
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name=f"fleet-load-{lane}", daemon=True)
+        self.ms, self.errors = [], []
+
+    def _one(self) -> None:
+        t = time.perf_counter()
+        try:
+            r = self._fc.predict(self._features, timeout_s=120.0, lane=self._lane)
+            assert r["model"] == "transformer_lm" and len(r["outputs"]) == 1, r["model"]
+            self.ms.append((time.perf_counter() - t) * 1e3)
+        except Exception as e:  # counted; the phase fails on any
+            self.errors.append(f"{type(e).__name__}: {e}")
+
+    def _run(self) -> None:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=16) as pool:
+            t0, i = time.perf_counter(), 0
+            while not self._stop.wait(max(0.0, t0 + i / self._qps - time.perf_counter())):
+                pool.submit(self._one)
+                i += 1
+
+    def start(self) -> "_FleetLoad":
+        self._thread.start()
+        return self
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(300.0)  # the pool drains its requests first
+        assert not self._thread.is_alive(), "fleet load did not drain"
+        ms = sorted(self.ms)
+        return {"lane": self._lane, "offered_qps": self._qps, "ok": len(ms),
+                "errors": list(self.errors),
+                "p50_ms": float(np.percentile(ms, 50)) if ms else None,
+                "p90_ms": float(np.percentile(ms, 90)) if ms else None,
+                "p99_ms": float(np.percentile(ms, 99)) if ms else None,
+                "max_ms": ms[-1] if ms else None}
+
+
+def _replica_numbers(maddr: str) -> dict:
+    """One replica's /metrics: flash forward launches, flushes by bucket,
+    requests answered."""
+    from elasticdl_tpu_torch.common.metrics_http import fetch
+
+    fams = fetch(maddr, timeout_s=30.0)
+
+    def samples(name):
+        return (fams.get(name) or {"samples": []})["samples"]
+
+    return {
+        "launches": sum(s["value"] for s in samples("edl_kernel_launches_total")
+                        if s["labels"].get("kernel") == "flash_attention_fwd"),
+        "flushes": {s["labels"]["bucket"]: s["value"]
+                    for s in samples("edl_serving_bucket_flushes_total") if s["value"]},
+        "served": sum(s["value"] for s in samples("edl_serving_requests_total")),
+    }
+
+
+def _check_fleet_replica(name: str, maddr: str, fresh: bool = False) -> dict:
+    """A quiescent replica's launch identity: flash forward launches = 12
+    x (its flushes + its warm forwards), flushes in buckets 1 and 2 only;
+    ``fresh``: nothing served yet, else something served."""
+    nums = _replica_numbers(maddr)
+    flushes = sum(nums["flushes"].values())
+    assert set(nums["flushes"]) <= {str(b) for b in FLEET_BUCKETS}, (name, nums)
+    assert nums["launches"] == FLEET_WIDTH["n_layers"] * (flushes + FLEET_WARM_FORWARDS), (
+        name, nums)
+    assert (nums["served"] == 0 and flushes == 0) if fresh else nums["served"] > 0, (name, nums)
+    return dict(nums, name=name)
+
+
+def _answer_everywhere(fc, maddrs: list, features: dict, max_requests: int = 16) -> dict:
+    """The same features through the fleet client, one request at a time,
+    until every replica has answered; each answer is attributed to the
+    replica whose request counter rose.  {metrics address: [answers]}."""
+
+    def served(m):
+        return _replica_numbers(m)["served"]
+
+    answers = {m: [] for m in maddrs}
+    for _ in range(max_requests):
+        before = {m: served(m) for m in maddrs}
+        out = np.asarray(fc.predict(features, timeout_s=120.0)["outputs"], np.float32)
+        rose = [m for m in maddrs if served(m) > before[m]]
+        assert len(rose) == 1, (rose, before)
+        answers[rose[0]].append(out)
+        if all(answers.values()):
+            return answers
+    raise AssertionError(f"not every replica answered in {max_requests} requests: "
+                         + str({m: len(a) for m, a in answers.items()}))
+
+
+def _free_port_run(n: int) -> int:
+    """A first port of ``n`` consecutive free ports on localhost."""
+    for _ in range(200):
+        base = _free_port()
+        if base + n >= 65535:
+            continue
+        socks = []
+        try:
+            for p in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("localhost", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no run of {n} free ports")
+
+
+def _wait_each_ready(ctl, n: int, t0: float, timeout_s: float = 300.0) -> dict:
+    """Seconds from ``t0`` to each replica's first healthy /healthz."""
+    from elasticdl_tpu_torch.common.metrics_http import fetch_text
+
+    ready = {}
+    deadline = time.perf_counter() + timeout_s
+    while len(ready) < n:
+        assert time.perf_counter() < deadline, f"only {sorted(ready)} ready in {timeout_s}s"
+        for name, _saddr, maddr in ctl.replicas():
+            if name in ready:
+                continue
+            try:
+                if '"status"' in fetch_text(maddr, "/healthz", 1.0):
+                    ready[name] = time.perf_counter() - t0
+            except OSError:
+                pass
+        time.sleep(0.1)
+    return ready
+
+
+def phase_fleet(card: str) -> dict:
+    """Phase 16: the serving fleet on the card (module docstring)."""
+    import random
+    import shutil
+
+    from elasticdl_tpu_torch.common import gauge as gaugelib
+    from elasticdl_tpu_torch.common.checkpoint import CheckpointManager
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.master.pod_manager import ProcessPodBackend
+    from elasticdl_tpu_torch.models import transformer_lm
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel.trainer import PARAMS, STEP_KEY, Trainer
+    from elasticdl_tpu_torch.serving.client import FleetServingClient
+    from elasticdl_tpu_torch.serving.fleet import AutoscaleConfig, ServingFleetController
+    from elasticdl_tpu_torch.serving.server import ServingServer
+
+    t_phase = time.perf_counter()
+    layers, seq, vocab = FLEET_WIDTH["n_layers"], FLEET_WIDTH["seq_len"], FLEET_WIDTH["vocab"]
+    out = os.path.join(REPO, "chiprun_out", "fleet")
+    shutil.rmtree(out, ignore_errors=True)
+    ckpt, logs = os.path.join(out, "ckpt"), os.path.join(out, "pods")
+    os.makedirs(logs)
+    torch.cuda.empty_cache()
+
+    # The weights every replica serves: seed 0, published as step 1.
+    spec = transformer_lm.model_spec(compute_dtype="bfloat16", **FLEET_WIDTH)
+    trainer = Trainer(spec, device=FLEET_DEVICE)
+    arrays = {k: v for k, v in trainer.host_state(trainer.init_state(0)).items()
+              if k.startswith((PARAMS, STEP_KEY))}
+    mgr = CheckpointManager(ckpt)
+    mgr.save(1, arrays, wait=True)
+    mgr.publish(1)
+    del trainer, arrays
+
+    base = _free_port_run(8)  # gRPC on base + slot, /metrics on base + 4 + slot
+    mbase = base + 4
+    cfg = {
+        "model_def": "transformer_lm.model_spec",
+        "model_params": dict(FLEET_WIDTH, compute_dtype="bfloat16"),
+        "checkpoint_dir": ckpt, "max_batch": max(FLEET_BUCKETS),
+        "batch_buckets": FLEET_BUCKETS, "device": FLEET_DEVICE,
+        "base_port": base, "metrics_base_port": mbase,
+        "target_p99_ms": FLEET_AUTOSCALE["target_p99_ms"],
+    }
+    path = os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p)
+    worker_env = {"ELASTICDL_SERVING_CONFIG": json.dumps(cfg), "PYTHONPATH": path}
+    state_path = os.path.join(out, "fleet_pods.json")
+    argv = [sys.executable, "-m", "elasticdl_tpu_torch.serving.main"]
+
+    def controller(log_dir: str):
+        backend = ProcessPodBackend(argv=argv, warm_standby=True, standby_pool=1, log_dir=log_dir)
+        return ServingFleetController(
+            backend, JobConfig(job_name=FLEET_JOB), base_port=base, metrics_base_port=mbase,
+            worker_env=worker_env, state_path=state_path,
+            autoscale=AutoscaleConfig(**FLEET_AUTOSCALE), autoscale_enabled=False,
+            gauges=gaugelib.Registry(),
+        ), backend
+
+    rng = np.random.default_rng(16)
+    one = {"tokens": rng.integers(0, vocab, (1, seq)).astype(np.int32)}
+    two = {"tokens": rng.integers(0, vocab, (2, seq)).astype(np.int32)}
+    report = {"config": dict(cfg, autoscale=FLEET_AUTOSCALE, qps=FLEET_QPS,
+                             load_s=FLEET_LOAD_S, bulk_qps=FLEET_BULK_QPS,
+                             kill_qps=FLEET_KILL_QPS)}
+    ctl, backend = controller(logs)
+    ctl2 = backend2 = None
+    clients = []
+    launches = {}  # replica -> flash launches, read when it was last quiescent
+    try:
+        # (a) Start and readiness: two cold replicas (the spare parks beside them).
+        t0 = time.perf_counter()
+        ctl.start(2)
+        boot = _wait_each_ready(ctl, 2, t0)
+        addrs = sorted(ctl.wait_ready(2, timeout_s=30.0))
+        maddr = {name: m for name, _s, m in ctl.replicas()}
+        for name, m in maddr.items():
+            _check_fleet_replica(name, m, fresh=True)
+        log(f"[fleet] (a) 2 replicas cold boot-to-ready (s): "
+            + ", ".join(f"{n} {s:.2f}" for n, s in sorted(boot.items())) + f"; on {card}")
+        report["cold_boot_s"] = boot
+
+        # (b) The same tokens until every replica answered, at both buckets:
+        # equal bit for bit, and within the model limits of one process's
+        # forward with the plain attention over the same checkpoint.
+        fc = FleetServingClient(addrs, rng=random.Random(16))
+        clients.append(fc)
+        got = {}
+        for key, feats in (("bucket1", one), ("bucket2", two)):
+            answers = _answer_everywhere(fc, sorted(maddr.values()), feats)
+            flat = [a for per in answers.values() for a in per]
+            assert all(np.array_equal(a, flat[0]) for a in flat), key
+            assert flat[0].shape == (feats["tokens"].shape[0], seq, vocab), flat[0].shape
+            assert np.isfinite(flat[0]).all()
+            got[key] = (flat[0], {m: len(a) for m, a in answers.items()})
+        ref = ServingServer(spec, checkpoint_dir=ckpt, max_batch=max(FLEET_BUCKETS),
+                            batch_buckets=FLEET_BUCKETS, device=FLEET_DEVICE)
+        assert ref.live_step == 1, ref.live_step
+
+        # No public surface runs the live model with another attention, so
+        # this reads the server's live model.
+        def plain_attention(q, k, v, causal):
+            return fa.flash_attention_plain(q, k, v, causal)[0]
+
+        parity = {}
+        with torch.inference_mode():
+            for key, feats in (("bucket1", one), ("bucket2", two)):
+                toks = torch.from_numpy(feats["tokens"]).to(FLEET_DEVICE)
+                plain = ref._live.state(toks, attention=plain_attention).float().cpu().numpy()
+                diff = np.abs(got[key][0] - plain)
+                parity[key] = {"max_abs": float(diff.max()), "mean_abs": float(diff.mean()),
+                               "answers_by_replica": got[key][1]}
+                assert diff.max() <= MODEL_MAX_ABS and diff.mean() <= MODEL_MEAN_ABS, parity
+        ref.stop(grace=0)
+        del ref
+        torch.cuda.empty_cache()
+        log(f"[fleet] (b) answers equal bit for bit on every replica at each bucket; against "
+            f"one process's plain attention: " + json.dumps(parity)
+            + f" (bounds {MODEL_MAX_ABS}, {MODEL_MEAN_ABS})")
+        report["parity"] = parity
+
+        # A Predict's JSON on the host: one bucket-1 answer encoded as the
+        # replica's codec does it (nested lists, then json.dumps:
+        # serving/server.py, common/rpc.py) and decoded as the client's does
+        # (json.loads), on this host's CPU; the median of three each.
+        enc, dec = [], []
+        for _ in range(3):
+            t = time.perf_counter()
+            payload = json.dumps({"outputs": got["bucket1"][0].tolist()}).encode()
+            enc.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            json.loads(payload.decode())
+            dec.append((time.perf_counter() - t) * 1e3)
+        codec = {"bytes": len(payload), "encode_ms": float(np.median(enc)),
+                 "decode_ms": float(np.median(dec))}
+        del payload
+        log(f"[fleet] (b) one answer's JSON: {codec['bytes'] / 1e6:.1f} MB, encode "
+            f"{codec['encode_ms']:.1f} ms, decode {codec['decode_ms']:.1f} ms (host clock)")
+        report["codec"] = codec
+
+        # (c) Scale up on real latency, then down under bulk traffic.
+        decisions = [ctl.poll_once(), ctl.poll_once()]  # absorb (a)-(b): baseline, quiet
+        load = _FleetLoad(fc, one, FLEET_QPS).start()
+        time.sleep(FLEET_LOAD_S / 2)
+        decisions.append(ctl.poll_once())
+        time.sleep(FLEET_LOAD_S / 2)
+        decisions.append(ctl.poll_once())
+        t_up = time.perf_counter()
+        at2 = load.stop()
+        assert [d["action"] for d in decisions] == ["", "", "", "up"], decisions
+        assert decisions[2]["up_streak"] == 1 and decisions[2]["slo"] >= 1.0, decisions
+        addrs3 = ctl.wait_ready(3, timeout_s=300.0)
+        adopt_s = time.perf_counter() - t_up
+        new = f"{FLEET_JOB}-serve-2"
+        assert os.path.islink(os.path.join(logs, f"{new}.log")), "the warm spare was not adopted"
+        maddr = {name: m for name, _s, m in ctl.replicas()}
+        _check_fleet_replica(new, maddr[new], fresh=True)
+        fc.set_replicas(addrs3)
+        load = _FleetLoad(fc, one, FLEET_QPS).start()
+        time.sleep(FLEET_LOAD_S)
+        at3 = load.stop()
+        for name, m in maddr.items():
+            _check_fleet_replica(name, m)
+        saddr = {name: s for name, s, _m in ctl.replicas()}
+        bulk = _FleetLoad(fc, one, FLEET_BULK_QPS, lane="bulk").start()
+        for _ in range(6):
+            time.sleep(0.5)
+            decisions.append(ctl.poll_once())
+            if decisions[-1]["action"]:
+                break
+        assert decisions[-1]["action"] == "down", decisions
+        t_down = time.perf_counter()
+        # The victim is out of membership at once but its pod lives on.
+        (victim,) = sorted(set(ctl.pods.live_pods()) - {n for n, _s, _m in ctl.replicas()})
+        fc.set_replicas(ctl.ready_addresses())
+        assert sorted(fc.addresses()) == addrs, fc.addresses()
+        deadline = time.perf_counter() + 60.0
+        while saddr[victim] in fc.inflight():  # the lingering channel's last request
+            assert time.perf_counter() < deadline, fc.inflight()
+            time.sleep(0.05)
+        launches[victim] = _check_fleet_replica(victim, maddr[victim])["launches"]
+        time.sleep(max(0.0, t_down + FLEET_AUTOSCALE["drain_s"] - time.perf_counter()))
+        decisions.append(ctl.poll_once())  # the drain is over: the pod goes
+        time.sleep(1.0)
+        retire = bulk.stop()
+        assert victim not in ctl.pods.live_pods() and ctl.pods.counts()["live"] == 2
+        events = [(e["from"], e["to"]) for e in ctl.events()]
+        assert events == [(2, 3), (3, 2)], events
+        for lr in (at2, at3, retire):
+            assert not lr["errors"] and lr["ok"] > 0, lr
+        log(f"[fleet] (c) at {FLEET_QPS} Predicts/s of one sequence for {FLEET_LOAD_S:.0f} s: "
+            + "; ".join(f"{n} replicas n={lr['ok']} p50 {lr['p50_ms']:.1f} ms p90 "
+                        f"{lr['p90_ms']:.1f} ms p99 {lr['p99_ms']:.1f} ms max {lr['max_ms']:.1f} ms"
+                        for n, lr in (("2", at2), ("3", at3)))
+            + f"; up decision to 3 ready (warm spare adopted) {adopt_s:.2f} s; "
+            f"retired {victim} under {retire['ok']} bulk requests, 0 errors; scale events "
+            + json.dumps([{k: e[k] for k in ("from", "to", "slo", "shed_online")}
+                          for e in ctl.events()]) + f"; on {card}")
+        report.update(load_2=at2, load_3=at3, retire=retire, adopt_s=adopt_s,
+                      decisions=decisions, scale_events=ctl.events())
+
+        # (d) SIGKILL a replica under traffic; the pod manager relaunches it.
+        killed = f"{FLEET_JOB}-serve-1"
+        launches[killed] = _check_fleet_replica(killed, maddr[killed])["launches"]
+        retries = gaugelib.default().counter("edl_rpc_retry_total",
+                                             labels={"service": "serving.fleet"})
+        retries0 = retries.value()
+        load = _FleetLoad(fc, one, FLEET_KILL_QPS).start()
+        # Its launches as late as can be read before the kill: forwards it
+        # runs between this scrape and the SIGKILL (at most the requests
+        # then in flight on it) are not counted.
+        launches[killed] = _replica_numbers(maddr[killed])["launches"]
+        deadline = time.perf_counter() + 60.0
+        while not fc.inflight().get(saddr[killed]):  # kill it under a request
+            assert time.perf_counter() < deadline, "no request reached the replica to kill"
+            time.sleep(0.002)
+        os.kill(backend.pid(killed), signal.SIGKILL)
+        t_kill = time.perf_counter()
+        ctl.wait_ready(2, timeout_s=300.0)
+        kill_s = time.perf_counter() - t_kill
+        time.sleep(2.0)
+        under_kill = load.stop()
+        under_kill["retries"] = retries.value() - retries0
+        # The request in flight on the killed replica, at least, was retried.
+        assert not under_kill["errors"] and under_kill["retries"] >= 1, under_kill
+        relaunch = f"{killed}-r1"
+        assert relaunch in ctl.pods.live_pods(), ctl.pods.live_pods()
+        warm = os.path.islink(os.path.join(logs, f"{relaunch}.log"))
+        log(f"[fleet] (d) SIGKILL of {killed} under {FLEET_KILL_QPS} Predicts/s: {under_kill['ok']} "
+            f"requests, 0 errors, {int(under_kill['retries'])} retried on another replica "
+            f"(p50 {under_kill['p50_ms']:.1f} ms, max {under_kill['max_ms']:.1f} ms); "
+            f"relaunched as {relaunch} "
+            f"({'warm spare' if warm else 'cold'}), SIGKILL to ready {kill_s:.2f} s; on {card}")
+        report.update(kill_to_ready_s=kill_s, kill_load=under_kill, relaunch_warm=warm)
+
+        # (e) A second controller over the same registry, the first not stopped.
+        live = sorted(ctl.pods.live_pods())
+        logs2 = os.path.join(out, "pods2")
+        ctl2, backend2 = controller(logs2)
+        t_adopt = time.perf_counter()
+        ctl2.start(2)
+        addrs2 = sorted(ctl2.wait_ready(2, timeout_s=60.0))
+        adopt2_s = time.perf_counter() - t_adopt
+        assert addrs2 == addrs and sorted(ctl2.pods.live_pods()) == live, (addrs2, live)
+        # Nothing spawned: no pod and no spare wrote a log, and each pod is
+        # the first controller's process.
+        assert not os.path.isdir(logs2) or not os.listdir(logs2), os.listdir(logs2)
+        assert backend2.standby_depth() == 0, backend2.standby_depth()
+        assert {n: backend2.pid(n) for n in live} == {n: backend.pid(n) for n in live}, live
+        fc2 = FleetServingClient(addrs2, rng=random.Random(17))
+        clients.append(fc2)
+        maddr = {name: m for name, _s, m in ctl2.replicas()}
+        answers = _answer_everywhere(fc2, sorted(maddr.values()), one)
+        assert all(np.array_equal(a, got["bucket1"][0]) for per in answers.values() for a in per)
+        log(f"[fleet] (e) a second controller adopted {live} in {adopt2_s:.2f} s: same "
+            f"addresses, nothing spawned; the adopted fleet answers as in (b)")
+        report["restart_adopt_s"] = adopt2_s
+
+        # (f) Per replica: launches = 12 x (flushes + warm forwards), buckets 1 and 2.
+        final = {name: _check_fleet_replica(name, m) for name, m in maddr.items()}
+        launches.update({name: f["launches"] for name, f in final.items()})
+        log("[fleet] (f) per replica (flash launches, flushes by bucket, requests): " + "; ".join(
+            f"{n} {int(f['launches'])} = {layers} x ({int(sum(f['flushes'].values()))} + "
+            f"{FLEET_WARM_FORWARDS}), {json.dumps(f['flushes'])}, {int(f['served'])}"
+            for n, f in sorted(final.items())))
+        report["replicas"] = final
+        report["flash_launches"] = int(sum(launches.values()))
+    finally:
+        for fc_ in clients:
+            fc_.close()
+        if ctl2 is not None:
+            ctl2.stop()  # SIGTERMs the adopted replicas
+        ctl.stop()  # the first controller's spare and anything left
+    shutil.rmtree(ckpt)
+    report["wall_s"] = time.perf_counter() - t_phase
+    log(f"[fleet] phase 16 in {report['wall_s']:.1f} s; {report['flash_launches']} flash launches "
+        f"over the fleet's replicas")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA card",
@@ -4195,26 +4679,35 @@ def main() -> int:
 
     set_matmul_precision()
     t0 = time.perf_counter()
-    report = {"card": card, "device": torch.cuda.get_device_name(0)}
-    report["build"] = phase_build()
-    report["kernel"] = phase_kernel_check()
-    report["kernel_bwd"] = phase_kernel_check_bwd()
-    report["train"] = phase_train_full_width(card)
-    report["serve"] = phase_serve_full_width(card)
-    report["grpc"] = phase_grpc_replica()
-    report["job"] = phase_job(card, report["train"]["p50_step_ms"])
-    report["process_job"] = phase_process_job(card, report["job"]["p50_step_ms"])
-    report["process_job_standby"] = phase_process_job_standby(
-        card, report["process_job"]["kill"]["recover_s"])
-    report["deepfm"] = phase_deepfm(card)
-    report["gang1"] = phase_gang_world1(card, report["train"]["p50_step_ms"])
-    report["gang2"] = phase_gang_pair(card)
+    report = {"card": card, "device": torch.cuda.get_device_name(0), "phase_wall_s": {}}
+
+    def run(key: str, fn, *args):
+        t = time.perf_counter()
+        report[key] = fn(*args)
+        report["phase_wall_s"][key] = time.perf_counter() - t
+        log(f"[wall] {key}: {report['phase_wall_s'][key]:.1f} s")
+        return report[key]
+
+    run("build", phase_build)
+    run("kernel", phase_kernel_check)
+    run("kernel_bwd", phase_kernel_check_bwd)
+    run("train", phase_train_full_width, card)
+    run("serve", phase_serve_full_width, card)
+    run("grpc", phase_grpc_replica)
+    run("job", phase_job, card, report["train"]["p50_step_ms"])
+    run("process_job", phase_process_job, card, report["job"]["p50_step_ms"])
+    run("process_job_standby", phase_process_job_standby, card,
+        report["process_job"]["kill"]["recover_s"])
+    run("deepfm", phase_deepfm, card)
+    run("gang1", phase_gang_world1, card, report["train"]["p50_step_ms"])
+    run("gang2", phase_gang_pair, card)
     log(card)
-    report["ps"] = phase_ps(card)
-    report["opt_shard"] = phase_opt_shard(card)
-    report["host_tier"] = phase_host_tier(card)
-    report["zoo"] = phase_zoo(card)
-    report["ring_tp"] = phase_ring_tp(card)
+    run("ps", phase_ps, card)
+    run("opt_shard", phase_opt_shard, card)
+    run("host_tier", phase_host_tier, card)
+    run("zoo", phase_zoo, card)
+    run("ring_tp", phase_ring_tp, card)
+    run("fleet", phase_fleet, card)
     report["wall_s"] = time.perf_counter() - t0
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -4237,10 +4730,13 @@ def main() -> int:
             "name": fa.KERNEL, "route": "cuda", "source": source + fa.SOURCE,
             "replaces": "elasticdl_tpu/ops/flash_attention.py:72",
             # Launches on the main paths: serving flushes, training steps,
-            # the job (train and eval steps, reload forwards) and the
-            # process-level jobs' last worker processes (train and eval steps).
+            # the job (train and eval steps, reload forwards), the
+            # process-level jobs' last worker processes (train and eval
+            # steps) and the serving fleet's replicas (flushes and warm
+            # forwards, read from each replica's /metrics).
             "launches": (report["serve"]["flash_launches"] + train_launches[fa.KERNEL]
-                         + job_launches[fa.KERNEL] + proc_launches[fa.KERNEL]),
+                         + job_launches[fa.KERNEL] + proc_launches[fa.KERNEL]
+                         + report["fleet"]["flash_launches"]),
             "max_abs_err": fwd["kernel"]["o_max_abs"], "ms": fwd["ms"],
             "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
             "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],

@@ -1,0 +1,567 @@
+"""Replica-fleet serving front of the PyTorch port: N serving replicas + a
+closed autoscaling loop.
+
+Port of ``elasticdl_tpu/serving/fleet.py``, same names, same control law.
+One :class:`ServingFleetController` owns a fleet of ``serving/server.py``
+replicas the way the master owns training workers, with the same
+machinery:
+
+- **Spawn/retire**: ``master/pod_manager.PodManager`` over a pluggable
+  backend.  Subprocess replicas run ``python -m
+  elasticdl_tpu_torch.serving.main`` (ProcessPodBackend; warm-standby
+  spares pre-pay the python + torch imports and park on a go-file exactly
+  like worker standbys), in-process replicas
+  (:class:`InProcessServingBackend`) serve the CPU fleet tests without
+  subprocess boot costs.  A replica that crashes relaunches on the
+  manager's budgeted path.
+- **Controller restart**: the pod-reattach registry (``state_path``).  A
+  restarted controller ADOPTS the still-serving orphan fleet instead of
+  spawning duplicates beside it; replicas ride the restart out.
+- **Autoscaling signal**: each replica's live /metrics endpoint.  The
+  controller scrapes per-replica online-lane latency histograms and
+  per-lane shed counters, forms WINDOWED signals by differencing
+  consecutive scrapes (cumulative counters make every poll a rate), and
+  compares the worst replica's windowed online p99 against the SLO target.
+
+Control law::
+
+    slo = max over replicas( windowed online p99 / target_p99_ms )
+    UP   pressure: slo >= up_slo  OR  online sheds in the window
+    DOWN pressure: slo <= down_slo AND zero sheds (any lane) in the window
+
+  Hysteresis, three layers, so the loop converges under an open-loop QPS
+  ramp instead of flapping:
+
+    1. a deadband between ``up_slo`` and ``down_slo`` where nothing moves;
+    2. consecutive-poll streaks (``up_consecutive``/``down_consecutive``,
+       down much slower than up — adding capacity late blows the SLO,
+       removing it late costs only idle replicas);
+    3. a post-action cooldown (``cooldown_polls``) so the fleet's response
+       to the LAST action is measured before the next one.
+
+The controller imports no torch: it is control plane, like the master.
+Model and device concerns live entirely inside the replicas it manages.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from elasticdl_tpu_torch.common import gauge as gaugelib
+from elasticdl_tpu_torch.common import locksan, trace
+from elasticdl_tpu_torch.common.config import JobConfig
+from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.common.metrics_http import fetch, fetch_text
+from elasticdl_tpu_torch.master.pod_manager import PodBackend, PodManager, PodPhase
+
+logger = get_logger("serving.fleet")
+
+#: Default first ports; replica at slot N serves gRPC on base+N and
+#: /metrics on metrics_base+N.  Deriving ports from the slot keeps the
+#: spawn env IDENTICAL across slots, which is what lets one warm standby
+#: spare serve any slot (ProcessPodBackend env-signature matching).
+DEFAULT_BASE_PORT = 8700
+DEFAULT_METRICS_BASE_PORT = 8800
+
+
+@dataclass(frozen=True)
+class AutoscaleConfig:
+    """The closed loop's knobs (the reference's defaults, tuned for
+    second-scale ramps); production cadences would stretch ``poll_s`` and
+    the streaks, not change the law."""
+
+    min_replicas: int = 1
+    max_replicas: int = 4
+    poll_s: float = 1.0
+    target_p99_ms: float = 100.0
+    #: windowed online p99 / target at or above this = scale-up pressure.
+    up_slo: float = 1.0
+    #: ... at or below this (with zero sheds) = scale-down pressure.  The
+    #: gap between the two thresholds is the hysteresis deadband.
+    down_slo: float = 0.6
+    #: consecutive pressured polls before acting (up fast, down slow).
+    up_consecutive: int = 2
+    down_consecutive: int = 6
+    #: polls to sit out after ANY scale action before the next decision.
+    cooldown_polls: int = 3
+    #: graceful-retirement window: a scale-down victim leaves the
+    #: readiness set IMMEDIATELY (the p2c client stops picking it at its
+    #: next membership refresh) but keeps serving until the window
+    #: elapses, and only then is its pod deleted.  Set it >= the client's
+    #: refresh cadence or retirement races in-flight picks — clients keep
+    #: choosing a replica that just vanished and burn their transient
+    #: retries on a corpse (the reference's fleet bench measured exactly
+    #: that as client-visible errors).  0 = delete immediately (unit-test mode).
+    drain_s: float = 0.0
+
+
+def _lane_hist_buckets(
+    families: Dict[str, dict], lane: str
+) -> Dict[float, float]:
+    """Cumulative {bucket edge: count} of one lane's request-latency
+    histogram from a parsed /metrics scrape."""
+    fam = families.get("edl_serving_request_ms")
+    out: Dict[float, float] = {}
+    if not fam:
+        return out
+    for s in fam["samples"]:
+        if not s["name"].endswith("_bucket"):
+            continue
+        if s["labels"].get("lane") != lane:
+            continue
+        le = s["labels"].get("le")
+        if le is None:
+            continue
+        edge = float("inf") if le == "+Inf" else float(le)
+        out[edge] = s["value"]
+    return out
+
+
+def _delta_quantile(
+    cur: Dict[float, float], prev: Optional[Dict[float, float]], q: float
+) -> Optional[float]:
+    """Quantile of the observations that landed BETWEEN two scrapes of a
+    cumulative-bucket histogram (the registry's own interpolating
+    estimator, applied to the bucket-wise difference).  None when the
+    window holds no observations — a silent replica must read as "no
+    signal", never as "p99 = 0"."""
+    edges = sorted(cur)
+    if not edges:
+        return None
+    deltas = [
+        (e, max(cur[e] - (prev.get(e, 0.0) if prev else 0.0), 0.0))
+        for e in edges
+    ]
+    total = deltas[-1][1]
+    if total <= 0:
+        return None
+    target = q * total
+    prev_edge, prev_cum = 0.0, 0.0
+    for edge, cum in deltas:
+        if cum >= target:
+            if edge == float("inf"):
+                return prev_edge
+            frac = (target - prev_cum) / max(cum - prev_cum, 1e-12)
+            return prev_edge + (edge - prev_edge) * frac
+        prev_edge, prev_cum = (
+            0.0 if edge == float("inf") else edge
+        ), cum
+    return prev_edge
+
+
+def _lane_counter(
+    families: Dict[str, dict], family: str, lane: str
+) -> float:
+    fam = families.get(family)
+    if not fam:
+        return 0.0
+    return sum(
+        s["value"] for s in fam["samples"] if s["labels"].get("lane") == lane
+    )
+
+
+class InProcessServingBackend(PodBackend):
+    """Serving replicas as ServingServer instances IN THIS PROCESS.
+
+    The CPU fleet tests' backend: subprocess replicas each pay the full
+    python + torch boot before their first answer.  ``server_factory(slot)``
+    builds and RETURNS A STARTED, WARMED server (torch stays inside the
+    factory — this module imports none); the backend maps pod lifecycle
+    onto it and reports real bound addresses, so the controller, the p2c
+    client, and the autoscaler run exactly the code they run over
+    subprocess fleets.
+
+    ``adopt_pod`` revives a still-running server by name, which makes the
+    controller-restart adoption path testable in-process: hand the SAME
+    backend to a second PodManager with the first one's registry and the
+    fleet is re-owned without a single server restart."""
+
+    def __init__(self, server_factory: Callable[[int], Any]):
+        self._factory = server_factory
+        self._lock = locksan.lock("InProcessServingBackend._lock", leaf=True)  # lock-order: leaf
+        self._servers: Dict[str, Any] = {}  # guarded-by: _lock
+
+    def start_pod(self, name: str, env: Dict[str, str]) -> None:
+        slot = int(env.get("ELASTICDL_WORKER_SLOT", "0"))
+        server = self._factory(slot)
+        with self._lock:
+            self._servers[name] = server
+        self._emit(name, PodPhase.RUNNING)
+
+    def adopt_pod(self, name: str, pid: int) -> None:
+        with self._lock:
+            if name not in self._servers:
+                raise RuntimeError(f"no live in-process replica {name!r} to adopt")
+        self._emit(name, PodPhase.RUNNING)
+
+    def pid(self, name: str) -> Optional[int]:
+        import os
+
+        with self._lock:
+            return os.getpid() if name in self._servers else None
+
+    def delete_pod(self, name: str) -> None:
+        with self._lock:
+            server = self._servers.pop(name, None)
+        if server is not None:
+            server.stop(grace=0.2)
+        self._emit(name, PodPhase.DELETED)
+
+    def serving_address(self, name: str) -> Optional[str]:
+        with self._lock:
+            server = self._servers.get(name)
+        return server.address if server is not None else None
+
+    def metrics_address(self, name: str) -> Optional[str]:
+        with self._lock:
+            server = self._servers.get(name)
+        return server.metrics_address if server is not None else None
+
+    def close(self) -> None:
+        with self._lock:
+            servers = list(self._servers.values())
+            self._servers.clear()
+        for server in servers:
+            server.stop(grace=0.2)
+
+
+class ServingFleetController:
+    """N serving replicas + the closed autoscaling loop over their gauges.
+
+    ``backend``: any PodBackend.  Backends that expose
+    ``serving_address(name)`` / ``metrics_address(name)`` (the in-process
+    one) are asked; otherwise addresses derive as
+    ``localhost:{base_port + slot}`` / ``localhost:{metrics_base_port +
+    slot}`` — the contract ``serving/main.py`` replicas bind by.
+
+    ``state_path`` enables the reattach registry: a controller restarted
+    over the same path adopts its live fleet on ``start()``.
+
+    ``scrape_fn(metrics_address) -> parsed families`` is injectable so the
+    control law is testable against synthetic signals without HTTP."""
+
+    def __init__(
+        self,
+        backend: PodBackend,
+        config: JobConfig,
+        *,
+        base_port: int = DEFAULT_BASE_PORT,
+        metrics_base_port: int = DEFAULT_METRICS_BASE_PORT,
+        worker_env: Optional[Dict[str, str]] = None,
+        name_prefix: Optional[str] = None,
+        state_path: Optional[str] = None,
+        autoscale: Optional[AutoscaleConfig] = None,
+        autoscale_enabled: bool = True,
+        gauges: Optional[gaugelib.Registry] = None,
+        scrape_fn: Optional[Callable[[str], Dict[str, dict]]] = None,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        self._backend = backend
+        self.auto = autoscale or AutoscaleConfig()
+        self._autoscale_enabled = autoscale_enabled
+        self._base_port = base_port
+        self._metrics_base_port = metrics_base_port
+        self._scrape = scrape_fn or (lambda addr: fetch(addr, timeout_s=2.0))
+        self._clock = clock
+        self.pods = PodManager(
+            backend,
+            config,
+            worker_env=worker_env,
+            name_prefix=name_prefix or f"{config.job_name}-serve",
+            state_path=state_path,
+        )
+        self.gauges = gauges if gauges is not None else gaugelib.default()
+        self._lock = locksan.lock("ServingFleetController._lock", leaf=True)  # lock-order: leaf
+        #: Scale-action audit trail [(t, from, to, reason)], the loop's
+        #: convergence evidence.  guarded-by: _lock
+        self.scale_events: List[dict] = []
+        # Control-loop state below is single-writer: the autoscale thread,
+        # or the caller driving poll_once() when the thread is off (the
+        # harness/test hook) — never both, poll_once is not reentrant.
+        self._prev_scrapes: Dict[str, Dict[str, dict]] = {}  # single-writer: thread:edl-serve-autoscale
+        self._up_streak = 0  # single-writer: thread:edl-serve-autoscale
+        self._down_streak = 0  # single-writer: thread:edl-serve-autoscale
+        self._cooldown = 0  # single-writer: thread:edl-serve-autoscale
+        #: Scale-down victims mid-retirement: name -> clock deadline at
+        #: which the pod actually gets deleted.  Written only by the
+        #: autoscale writer; read concurrently by replicas() (membership
+        #: refreshers) — per-key reads, no iteration over a mutating dict.
+        self._draining: Dict[str, float] = {}
+        self._stop_event = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # -- fleet membership --
+
+    def replicas(self) -> List[Tuple[str, str, str]]:
+        """Live replicas as (pod name, serving address, metrics address).
+        Backend-reported addresses win (in-process ephemeral ports);
+        slot-derived ports otherwise."""
+        out = []
+        for name in self.pods.live_pods():
+            if name in self._draining:
+                # Retiring: still serving its in-flight work, but no new
+                # picks — clients must stop routing here BEFORE the pod
+                # dies, or retirement races their next send.
+                continue
+            saddr = maddr = None
+            if hasattr(self._backend, "serving_address"):
+                saddr = self._backend.serving_address(name)
+                maddr = self._backend.metrics_address(name)
+            if saddr is None or maddr is None:
+                info = self.pods.pod_info(name)
+                if info is None:
+                    continue
+                saddr = saddr or f"localhost:{self._base_port + info.slot}"
+                maddr = (
+                    maddr
+                    or f"localhost:{self._metrics_base_port + info.slot}"
+                )
+            out.append((name, saddr, maddr))
+        return out
+
+    def ready_addresses(self, timeout_s: float = 1.0) -> List[str]:
+        """Serving addresses of replicas whose /healthz answers right now —
+        the readiness view the p2c client load-balances over."""
+        ready = []
+        for _name, saddr, maddr in self.replicas():
+            try:
+                if '"status"' in fetch_text(maddr, "/healthz", timeout_s):
+                    ready.append(saddr)
+            except OSError:
+                continue
+        return ready
+
+    def wait_ready(self, n: int, timeout_s: float = 120.0) -> List[str]:
+        """Block until ``n`` replicas probe ready (or raise)."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            ready = self.ready_addresses()
+            if len(ready) >= n:
+                return ready
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"only {len(ready)}/{n} serving replicas ready within "
+                    f"{timeout_s}s"
+                )
+            time.sleep(0.2)
+
+    # -- lifecycle --
+
+    def start(self, n: Optional[int] = None) -> "ServingFleetController":
+        """Scale to ``n`` (default min_replicas) — adopting any live
+        registry orphans first — and start the autoscale loop."""
+        target = max(
+            self.auto.min_replicas,
+            min(n if n is not None else self.auto.min_replicas,
+                self.auto.max_replicas),
+        )
+        self.pods.scale(target)
+        if self._autoscale_enabled:
+            self._thread = threading.Thread(
+                target=self._autoscale_loop,
+                name="edl-serve-autoscale",
+                daemon=True,
+            )
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        """Retire the fleet (registry removed — a clean stop owns its
+        teardown; crash-stop WITHOUT calling this to exercise adoption)."""
+        self._stop_event.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
+            self._thread = None
+        self.pods.stop()
+
+    # -- the closed loop --
+
+    def _autoscale_loop(self) -> None:
+        while not self._stop_event.wait(self.auto.poll_s):
+            try:
+                self.poll_once()
+            except Exception:
+                # The loop must survive any one poll: a scrape racing a
+                # replica retirement is routine, not fatal.
+                logger.exception("autoscale poll failed; continuing")
+
+    def poll_once(self) -> Dict[str, Any]:
+        """One control-loop iteration: scrape every replica, form the
+        windowed knee signal, apply the hysteresis law, maybe scale.
+        Returns the decision record (harnesses log these)."""
+        a = self.auto
+        self._finish_drains()
+        scrapes: Dict[str, Dict[str, dict]] = {}
+        unreachable = 0
+        for name, _saddr, maddr in self.replicas():
+            try:
+                scrapes[name] = self._scrape(maddr)
+            except OSError:
+                unreachable += 1
+        worst_p99: Optional[float] = None
+        shed_online = shed_total = 0.0
+        for name, fams in scrapes.items():
+            prev = self._prev_scrapes.get(name)
+            p99 = _delta_quantile(
+                _lane_hist_buckets(fams, "online"),
+                _lane_hist_buckets(prev, "online") if prev else None,
+                0.99,
+            )
+            if p99 is not None and (worst_p99 is None or p99 > worst_p99):
+                worst_p99 = p99
+            if prev is not None:
+                # First scrape of a replica is its baseline (an adopted
+                # replica arrives with history; counting it as a window
+                # delta would read old sheds as fresh pressure).
+                for lane in ("online", "bulk"):
+                    d = max(
+                        _lane_counter(fams, "edl_serving_shed_total", lane)
+                        - _lane_counter(prev, "edl_serving_shed_total", lane),
+                        0.0,
+                    )
+                    shed_total += d
+                    if lane == "online":
+                        shed_online += d
+        self._prev_scrapes = scrapes
+        slo = (
+            worst_p99 / a.target_p99_ms
+            if worst_p99 is not None and a.target_p99_ms
+            else None
+        )
+
+        pressure_up = (slo is not None and slo >= a.up_slo) or shed_online > 0
+        pressure_down = (slo is None or slo <= a.down_slo) and shed_total == 0
+        if pressure_up:
+            self._up_streak += 1
+            self._down_streak = 0
+        elif pressure_down:
+            self._down_streak += 1
+            self._up_streak = 0
+        else:
+            # Deadband: inside the hysteresis gap both streaks reset — a
+            # borderline signal must re-earn consecutive evidence.
+            self._up_streak = self._down_streak = 0
+
+        # Serving count, not pod count: a draining victim still has a
+        # live pod but left the membership — decisions must see the
+        # capacity clients can actually reach.
+        n = self.pods.desired() - len(self._draining)
+        action = ""
+        if self._cooldown > 0:
+            self._cooldown -= 1
+        elif self._up_streak >= a.up_consecutive and n < a.max_replicas:
+            action = "up"
+            self._record_scale(n, n + 1, slo, shed_online)
+            if self._draining:
+                # A still-warm draining victim beats a fresh spawn: cancel
+                # the newest retirement and fold it back into membership.
+                undrain = max(self._draining, key=self._draining.get)
+                self._draining.pop(undrain, None)
+            else:
+                self.pods.scale(self.pods.desired() + 1)
+            self._cooldown = a.cooldown_polls
+            self._up_streak = self._down_streak = 0
+        elif self._down_streak >= a.down_consecutive and n > a.min_replicas:
+            action = "down"
+            self._record_scale(n, n - 1, slo, shed_online)
+            self._retire_one()
+            self._cooldown = a.cooldown_polls
+            self._up_streak = self._down_streak = 0
+
+        counts = self.pods.counts()
+        g = self.gauges
+        g.gauge("edl_serving_fleet_replicas", "live serving replicas").set(
+            float(counts["live"])
+        )
+        g.gauge("edl_serving_fleet_desired", "desired serving replicas").set(
+            float(counts["desired"])
+        )
+        if slo is not None:
+            g.gauge(
+                "edl_serving_fleet_slo_ratio",
+                "worst replica's windowed online p99 / target",
+            ).set(slo)
+        g.counter(
+            "edl_serving_fleet_scale_events_total",
+            "autoscaler actions taken",
+        ).set_total(float(len(self.scale_events)))
+        decision = {
+            "slo": slo,
+            "worst_p99_ms": worst_p99,
+            "shed_online": shed_online,
+            "shed_total": shed_total,
+            "unreachable": unreachable,
+            "replicas": counts["live"],
+            "desired": counts["desired"],
+            "action": action,
+            "up_streak": self._up_streak,
+            "down_streak": self._down_streak,
+            "cooldown": self._cooldown,
+        }
+        return decision
+
+    def _retire_one(self) -> None:
+        """Scale down by one — gracefully when ``drain_s > 0``: the victim
+        (the highest live slot, matching PodManager.scale's removal order)
+        leaves the membership NOW, keeps draining its in-flight work, and
+        its pod is deleted only once the drain window elapses."""
+        a = self.auto
+        victim = None
+        victim_slot = -1
+        if a.drain_s > 0:
+            for name in self.pods.live_pods():
+                if name in self._draining:
+                    continue
+                info = self.pods.pod_info(name)
+                if info is not None and info.slot > victim_slot:
+                    victim, victim_slot = name, info.slot
+        if victim is None:
+            self.pods.scale(self.pods.desired() - 1)
+            return
+        self._draining[victim] = self._clock() + a.drain_s
+        logger.info(
+            "retiring %s (slot %d): out of membership now, pod deleted in "
+            "%.1fs", victim, victim_slot, a.drain_s,
+        )
+
+    def _finish_drains(self) -> None:
+        """Delete pods whose drain window has elapsed.  Safe against the
+        cooldown-covered window only: PodManager removes the HIGHEST slot
+        on scale-down, which is the victim precisely because no scale-up
+        spawned above it mid-drain (cooldown_polls x poll_s must cover
+        drain_s; the up branch un-drains rather than spawns regardless)."""
+        now = self._clock()
+        done = [nm for nm, dl in list(self._draining.items()) if dl <= now]
+        if not done:
+            return
+        for nm in done:
+            self._draining.pop(nm, None)
+            self._prev_scrapes.pop(nm, None)
+        self.pods.scale(self.pods.desired() - len(done))
+
+    def _record_scale(
+        self, old: int, new: int, slo: Optional[float], shed_online: float
+    ) -> None:
+        event = {
+            "t": self._clock(),
+            "from": old,
+            "to": new,
+            "slo": slo,
+            "shed_online": shed_online,
+        }
+        with self._lock:
+            self.scale_events.append(event)
+        trace.instant(
+            "serving:scale", cat="serving", frm=old, to=new, slo=slo,
+        )
+        logger.info(
+            "autoscale %d -> %d (slo=%s, online sheds in window=%.0f)",
+            old, new, "n/a" if slo is None else f"{slo:.2f}", shed_online,
+        )
+
+    def events(self) -> List[dict]:
+        with self._lock:
+            return list(self.scale_events)

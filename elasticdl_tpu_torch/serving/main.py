@@ -1,13 +1,17 @@
 """Serving replica entrypoint: ``python -m elasticdl_tpu_torch.serving.main``.
 
-Port of ``elasticdl_tpu/serving/main.py`` under the same environment
-contract:
+Port of ``elasticdl_tpu/serving/main.py``: the process the fleet
+controller (serving/fleet.py) spawns per slot through ProcessPodBackend.
+Configuration arrives entirely by environment (the pod-manager contract)
+and carries no identity but the slot:
 
 - ``ELASTICDL_SERVING_CONFIG``: one JSON blob (model zoo/def/params,
   batcher and bucket knobs, base ports, and ``device``: ``"cuda"`` unless
-  it says ``"cpu"``).  The same string for every slot.
+  it says ``"cpu"``).  The same string for every slot, so the spawn
+  env signature is uniform and one warm standby spare can serve any slot.
 - ``ELASTICDL_WORKER_SLOT``: this replica's slot N.  gRPC binds
-  ``base_port + N``, /metrics ``metrics_base_port + N``.
+  ``base_port + N``, /metrics ``metrics_base_port + N``: the addresses
+  the controller and the p2c client resolve by.
 - ``ELASTICDL_STANDBY_GO_FILE``: warm-standby mode: pre-pay the python,
   torch and framework imports, publish the ``.ready`` marker, park until
   the pod manager's go file names the replica this process becomes.
@@ -19,7 +23,8 @@ its first request at forward speed.  With ``checkpoint_dir`` the replica
 serves the newest published step and hot-reloads every later publish
 (polling every ``poll_interval_s``, default 0.5 s).
 
-Exit contract: SIGTERM drains within the grace window and exits 0.
+Exit contract: SIGTERM (PodManager delete_pod) drains within the grace
+window and exits 0.
 """
 
 from __future__ import annotations

@@ -588,3 +588,80 @@ def test_cuda_ring_and_tp_trainers_on_two_gloo_ranks(card, monkeypatch):
         assert all(np.array_equal(ranks[0][i]["host"][k], ranks[1][i]["host"][k])
                    for k in ranks[0][i]["host"])
         assert ranks[0][i]["matmul_bytes"] * (2 if i else 1) == weights
+
+
+def test_cuda_in_process_fleet_scales_up_and_back(card, tmp_path):
+    """Two replicas on the card behind the fleet controller: real traffic
+    through the p2c client blows a 1 ms target (one batcher deadline is
+    3 ms), the controller scales 2 -> 3, idle polls retire back to 2.
+    Every flush launches the forward kernel once a layer; every replica
+    answers the same tokens alike."""
+    import random
+
+    from elasticdl_tpu_torch.common import gauge
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.serving.client import FleetServingClient
+    from elasticdl_tpu_torch.serving.fleet import (
+        AutoscaleConfig,
+        InProcessServingBackend,
+        ServingFleetController,
+    )
+    from elasticdl_tpu_torch.serving.server import ServingServer
+
+    layers = 2
+    spec = tlm.model_spec(compute_dtype="bfloat16", vocab=256, dim=128, n_heads=2,
+                          n_layers=layers, max_seq=128, seq_len=128)
+    state = spec.init(seed=0, device="cuda")
+    servers = []
+
+    def factory(slot):
+        server = ServingServer(
+            spec, max_batch=2, max_delay_ms=3, batch_buckets=(1, 2),
+            gauges=gauge.Registry(), gauge_port=0, target_p99_ms=1.0,
+            state=copy.deepcopy(state), device="cuda",
+        )
+        server.warmup()
+        servers.append(server)
+        return server.start()
+
+    backend = InProcessServingBackend(factory)
+    ctl = ServingFleetController(
+        backend, JobConfig(job_name="fleet-cuda"),
+        state_path=str(tmp_path / "fleet-pods.json"),
+        autoscale=AutoscaleConfig(min_replicas=2, max_replicas=3, target_p99_ms=1.0,
+                                  up_consecutive=2, down_consecutive=3, cooldown_polls=1),
+        autoscale_enabled=False, gauges=gauge.Registry(),
+    )
+    toks = np.random.default_rng(0).integers(0, 256, (1, 128)).astype(np.int32)
+    fc = None
+    try:
+        ctl.start(2)
+        fc = FleetServingClient(ctl.wait_ready(2, timeout_s=120.0), rng=random.Random(0))
+
+        def flushes():
+            return sum(sum(s._batcher.stats()["flushes_by_bucket"].values()) for s in servers)
+
+        answers = []
+        for _ in range(2):
+            answers += [fc.predict_outputs({"tokens": toks}) for _ in range(10)]
+            ctl.poll_once()
+        assert [(e["from"], e["to"]) for e in ctl.events()] == [(2, 3)]
+        fc.set_replicas(ctl.wait_ready(3, timeout_s=120.0))
+        kernels.reset_counts()
+        f0 = flushes()
+        answers += [fc.predict_outputs({"tokens": toks}) for _ in range(12)]
+        assert kernels.counts().get(tfa.KERNEL, 0) == layers * (flushes() - f0)
+        assert all(s._requests > 0 for s in servers)  # p2c reached all three
+        assert all(np.array_equal(a, answers[0]) for a in answers)
+        assert answers[0].shape == (1, 128, 256) and np.isfinite(answers[0]).all()
+        for _ in range(6):
+            ctl.poll_once()
+        assert [(e["from"], e["to"]) for e in ctl.events()] == [(2, 3), (3, 2)]
+        assert ctl.pods.counts()["live"] == 2
+        fc.set_replicas(ctl.wait_ready(2, timeout_s=30.0))
+        assert np.array_equal(fc.predict_outputs({"tokens": toks}), answers[0])
+    finally:
+        if fc is not None:
+            fc.close()
+        ctl.stop()
+        backend.close()

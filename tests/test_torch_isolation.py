@@ -50,6 +50,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         # The model zoo with its codecs, layers and table reader.
         "models.mnist", "models.cifar10_resnet", "models.wide_deep", "models.common",
         "preprocessing", "preprocessing.layers", "data.table",
+        # The serving fleet.
+        "serving.fleet", "serving.client",
     ):
         assert f"elasticdl_tpu_torch.{name}" in mods, name
     code = (
@@ -75,12 +77,15 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     "elasticdl_tpu_torch.client.main",
     "elasticdl_tpu_torch.ps.service",
     "elasticdl_tpu_torch.ps.reshard",
+    "elasticdl_tpu_torch.serving.fleet",
+    "elasticdl_tpu_torch.serving.client",
 ])
 def test_master_and_client_import_no_torch(module):
     """The master is a control-plane process (the JAX package's master
     stays jax-free the same way): it and the CLI that runs it in-process
     import no torch, nor do the PS service tier (a PS shard is a host
-    process) and the offline reshard tool."""
+    process), the offline reshard tool, the serving fleet's controller and
+    its clients."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
@@ -95,6 +100,27 @@ def test_master_and_client_import_no_torch(module):
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+#: Reference modules the port has no counterpart of, on purpose: they lint
+#: the JAX package's sources or shim JAX and the TPU, and no path the port
+#: runs uses them.
+_NOT_PORTED = ("analysis/", "common/jitsan.py", "common/jax_compat.py", "common/platform.py")
+
+
+def test_every_reference_module_has_a_counterpart():
+    ref = os.path.join(_REPO, "elasticdl_tpu")
+
+    def files(root):
+        return {
+            os.path.relpath(os.path.join(d, n), root)
+            for d, _, names in os.walk(root) for n in names if n.endswith(".py")
+        }
+
+    missing = sorted(
+        f for f in files(ref) - files(_PKG) if not f.startswith(_NOT_PORTED)
+    )
+    assert missing == [], missing
 
 
 _IMPORT = re.compile(

@@ -148,7 +148,7 @@ def test_buckets_and_lanes_behave_as_in_the_reference(servers):
     assert d == {"buckets": {"2": 2, "4": 2}, "padded": 2, "lanes": {"online": 4, "bulk": 6}}
 
 
-def test_checkpoint_dir_is_not_ported_yet(tmp_path):
+def test_checkpoint_dir_and_ps_addresses_build_a_replica(tmp_path):
     """Checkpoint restore and hot reload are ported now (held by
     tests/test_torch_checkpoint.py): a checkpoint directory that holds no
     step yet serves fresh weights at step -1 under a watcher.  The PS host
