@@ -181,6 +181,30 @@ exits non-zero without its result line:
    adopts the live replicas: same addresses, nothing spawned, equal
    answers. (f) Per replica, flash forward launches = 12 x (flushes + warm
    forwards), flushes in buckets 1 and 2, requests answered.
+17. the fused task dispatch (``phase_fused``): ``train_scan`` and
+   ``eval_scan`` as captured CUDA graphs, one replay a task, for
+   ``transformer_lm`` at phase 4's width (B=16, remat on: all three flash
+   kernels inside the graph), ResNet-50 (B=512) and MNIST (B=4096) as in
+   phase 14, DeepFM as in phase 10 (B=8192, no host tier) and Wide&Deep
+   (B=8192) as in phase 14.  For each, one stacked batch of 8 steps (the
+   batch's rows permuted a step): a warm-up task (eager, the variant's
+   first) and the capture; then a replay under
+   ``torch.cuda.set_sync_debug_mode("error")`` against the per-step loop
+   from the same state (the losses, every parameter and optimizer slot:
+   bit for bit, or within ``FUSED_REL`` where the table gradients sum with
+   atomics; the launch counts equal); a restore, then a fused task (the
+   graph dropped and captured anew, training the restored state); the same
+   for ``eval_scan``.  These comparisons run ResNet-50 and MNIST with
+   cuDNN's deterministic algorithms; the rest runs cuDNN's default, the
+   worker's path, on a trainer of its own that restores the trained state
+   (its first task eager, its second captured): 2 tasks of each path in
+   turns (step ms, host enqueue ms) and one of each under torch.profiler
+   (device-busy ms and kernels a step); capture seconds and the graph
+   pool's bytes; a fifth batch variant raises ``ScanBudgetError``.
+
+Every single-process training and eval task of phases 7-10 and 14 runs
+fused by default (one ``train_scan`` a task plus a step for a ragged
+tail); the gangs and the host tier stay per step.
 
 Prints the card's name and power limit first, a ``{"kernels": [...]}``
 line before the last, and ``{"ok": true, "device": {...}}`` last.  The
@@ -952,27 +976,35 @@ def _check_job_launches(counts: dict, layers: int, train_steps: int, forwards: i
 
 def _step_end_events(trainer) -> list:
     """Record an event on the stream before ``trainer``'s first train step
-    and after each one: the step time as the device sees it, gaps between
-    steps included."""
+    or fused task and after each one, with the steps it ran (1, or a
+    ``train_scan``'s T): the step time as the device sees it, gaps between
+    steps included.  A scan runs its steps through the trainer's unwrapped
+    step, so it is one call here."""
     events = []
-    step = trainer.train_step
 
-    def timed_step(state, batch):
-        if not events:
-            events.append(torch.cuda.Event(enable_timing=True))
-            events[0].record()
-        result = step(state, batch)
-        events.append(torch.cuda.Event(enable_timing=True))
-        events[-1].record()
-        return result
+    def timed(fn, n_steps):
+        def run(state, batch):
+            if not events:
+                events.append((torch.cuda.Event(enable_timing=True), 0))
+                events[0][0].record()
+            result = fn(state, batch)
+            events.append((torch.cuda.Event(enable_timing=True), n_steps(batch)))
+            events[-1][0].record()
+            return result
 
-    trainer.train_step = timed_step
+        return run
+
+    trainer.train_step = timed(trainer.train_step, lambda batch: 1)
+    trainer.train_scan = timed(trainer.train_scan,
+                               lambda batch: int(next(iter(batch.values())).shape[0]))
     return events
 
 
 def _event_intervals_ms(events: list) -> list:
+    """Each step's time: an interval over n steps counts n times, at 1/n."""
     torch.cuda.synchronize()
-    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return [a.elapsed_time(b) / n for (a, _), (b, n) in zip(events, events[1:])
+            for _ in range(n)]
 
 
 def phase_job(card: str, train_p50_ms: float) -> dict:
@@ -4230,16 +4262,17 @@ FLEET_BUCKETS = [1, 2]
 # forward at the smallest bucket, then one warm-up forward a bucket.
 FLEET_WARM_FORWARDS = 1 + len(FLEET_BUCKETS)
 # (c) The offered load: one-sequence Predicts at FLEET_QPS a second, open
-# loop, FLEET_LOAD_S seconds at 2 and at 3 replicas: 100 requests a window,
-# so a window's p90 rests on ten samples (its p99 on the top two; longer
-# windows do not fit the script's time limit).  A Predict answers with
+# loop, FLEET_LOAD_S seconds at 2 and at 3 replicas: 50 requests a window,
+# so a window's p90 rests on five samples (its p99 on the top one; longer
+# windows do not fit the script's time limit on a slow host beside phase
+# 17).  A Predict answers with
 # ~12 MB of JSON that the replica encodes and one client process decodes
 # ((b) times both), so the rate sits below one answer a second a replica.
 # The retirement runs under bulk-lane traffic at FLEET_BULK_QPS (outside the
 # online p99 the law reads).  The SLO target is below one flush, so real
 # online traffic breaks it.  (d) offers FLEET_KILL_QPS, which the one
 # surviving replica carries while the spare comes up.
-FLEET_QPS, FLEET_LOAD_S, FLEET_BULK_QPS, FLEET_KILL_QPS = 2.0, 50.0, 1.0, 1.5
+FLEET_QPS, FLEET_LOAD_S, FLEET_BULK_QPS, FLEET_KILL_QPS = 2.0, 25.0, 1.0, 1.5
 FLEET_AUTOSCALE = dict(min_replicas=2, max_replicas=3, target_p99_ms=1.0, up_consecutive=2,
                        down_consecutive=2, cooldown_polls=1, drain_s=1.5)
 
@@ -4665,6 +4698,313 @@ def phase_fleet(card: str) -> dict:
     return report
 
 
+# ---- phase 17: the fused task dispatch ------------------------------------------
+
+#: Steps a fused task: one stacked batch of FUSED_T minibatches a model.
+FUSED_T = 8
+FUSED_TIMED_TASKS = 2
+#: The models at the widths of earlier phases: transformer_lm at phase 4's
+#: (remat on: all three flash kernels inside the graph), MNIST, ResNet-50
+#: and Wide&Deep at phase 14's, DeepFM at phase 10's (no host tier).
+FUSED_MODELS = ("transformer_lm", "resnet50", "mnist", "deepfm", "wide_deep")
+FUSED_BATCH = {"transformer_lm": TRAIN_BATCH, "resnet50": ZOO_BATCH["resnet50"],
+               "mnist": ZOO_BATCH["mnist"], "deepfm": DFM_BATCH,
+               "wide_deep": ZOO_BATCH["wide_deep"]}
+#: Fused against per-step: bit for bit, except where a step sums with
+#: atomics (the embedding backward's ``index_add_`` of DeepFM's and
+#: Wide&Deep's tables): there the largest difference of an array over its
+#: largest magnitude.  The convolutional models run these comparisons with
+#: cuDNN's deterministic algorithms (``FUSED_DETERMINISTIC``): its default
+#: convolution backward sums with atomics too, and MNIST's two eager runs
+#: then differ in the last bit.  The times are taken in the default mode.
+FUSED_REL = {"deepfm": 1e-6, "wide_deep": 1e-6}
+FUSED_DETERMINISTIC = ("resnet50", "mnist")
+FUSED_DEVICE = "cuda"
+
+
+def _fused_setup(name: str, out: str):
+    """(trainer, one host batch of the model's main-path feed)."""
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.data.reader import RecordIODataReader
+    from elasticdl_tpu_torch.data.synthetic import synthetic_criteo
+    from elasticdl_tpu_torch.models import deepfm, transformer_lm
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+
+    n = FUSED_BATCH[name]
+    if name == "transformer_lm":
+        spec = transformer_lm.model_spec(compute_dtype="bfloat16", remat=True, **TRAIN_WIDTH)
+        toks = _planted_sequences(np.random.default_rng(7), n, TRAIN_WIDTH["seq_len"],
+                                  TRAIN_WIDTH["vocab"])
+        return Trainer(spec, device=FUSED_DEVICE), {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if name == "deepfm":
+        spec = deepfm.model_spec(**DFM_WIDTH)
+        path = synthetic_criteo(os.path.join(out, "criteo.rio"), n, seed=13,
+                                container="recordio")
+        reader = RecordIODataReader(path)
+        batch = dict(spec.feed(reader.read_records_packed(reader.create_shards(n)[0])))
+        os.remove(path)
+        return Trainer(spec, device=FUSED_DEVICE), batch
+    spec = _zoo_module(name).model_spec(**ZOO_WIDTH[name])
+    [batch] = _zoo_batches(spec, _zoo_records(name, n, 4, out), n)
+    return Trainer(spec, device=FUSED_DEVICE,
+                   config=JobConfig(distribution_strategy=ZOO_STRATEGY[name])), dict(batch)
+
+
+def _device_timeline(fn) -> dict:
+    """One ``fn()`` under torch.profiler (the device alone): the kernels'
+    summed time and count, the span from the first kernel's start to the
+    last one's end, and the idle time between kernels in it, with the
+    largest gaps and the kernels before them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False) and "#" not in e.name)
+    busy = sum(end - start for start, end, _ in spans)
+    gaps, reach, before = [], spans[0][1] if spans else 0, spans[0][2] if spans else ""
+    for start, end, name in spans[1:]:
+        if start > reach:
+            gaps.append((start - reach, before[:60], name[:60]))
+        if end > reach:
+            reach, before = end, name
+    gaps.sort(reverse=True)
+    return {"device_ms": busy / 1e3, "kernels": len(spans),
+            "span_ms": (reach - spans[0][0]) / 1e3 if spans else 0.0,
+            "idle_ms": sum(g[0] for g in gaps) / 1e3, "gaps": len(gaps),
+            "largest_gaps_us": [[round(g[0], 1), g[1], g[2]] for g in gaps[:4]]}
+
+
+def _fused_diff(got: dict, want: dict) -> float:
+    """The largest difference of any array over its largest magnitude (0.0:
+    bit for bit)."""
+    worst = 0.0
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    for k, w in want.items():
+        g, w = np.asarray(got[k], np.float64), np.asarray(w, np.float64)
+        if not np.array_equal(g, w):
+            worst = max(worst, float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)))
+    return worst
+
+
+def _fused_checks(trainer, stacked: dict):
+    """(a)-(d) of phase 17 on one model: (readings, the launches of a
+    replayed task, the state trained by then, the seconds of the task that
+    captured)."""
+    from elasticdl_tpu_torch.ops import kernels
+
+    state = trainer.init_state(0)
+    placed = trainer.shard_stacked_batch(stacked)
+    steps = [{k: v[i] for k, v in placed.items()} for i in range(FUSED_T)]
+    readings = {}
+
+    # (a) The variant's first task runs eagerly (the optimizer makes its
+    # slots, the libraries their first-call work); the second captures the
+    # T steps and replays them.
+    state, _ = trainer.train_scan(state, placed)
+    capture_task_s, state = _timed_task(trainer, state, placed)
+    assert len(trainer.scan_graphs()) == 1
+    start = trainer.host_state(state)
+
+    # (b) A replay under sync debug mode "error" against the per-step loop
+    # from the same state: losses, parameters, optimizer slots, launches.
+    kernels.reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, fused = trainer.train_scan(state, placed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    fused_counts = kernels.counts()
+    fused_arrays = trainer.host_state(state)
+    state = trainer.adopt_restored(start, state)
+    kernels.reset_counts()
+    state, per_step = trainer.run_train_steps(state, steps, pre_sharded=True)
+    step_counts = kernels.counts()
+    step_arrays = trainer.host_state(state)
+    readings["train_losses"] = _fused_diff(
+        {"loss": fused["loss"].float().cpu().numpy()},
+        {"loss": torch.stack([m["loss"] for m in per_step]).float().cpu().numpy()})
+    readings["train_state"] = _fused_diff(fused_arrays, step_arrays)
+    assert fused_counts == step_counts, (fused_counts, step_counts)
+
+    # (c) Restore, then fused: the restore replaces the optimizer's slots, so
+    # the graph is dropped and captured anew on the live tensors; the task
+    # must train the restored state (a stale graph would step dead slots).
+    state = trainer.adopt_restored(start, state)
+    state, restored = trainer.train_scan(state, placed)
+    assert len(trainer.scan_graphs()) == 1
+    readings["restore_then_fused"] = _fused_diff(trainer.host_state(state), step_arrays)
+    readings["restore_then_fused_losses"] = _fused_diff(
+        {"loss": restored["loss"].float().cpu().numpy()},
+        {"loss": fused["loss"].float().cpu().numpy()})
+
+    # (d) eval_scan: eager, captured, then a replay under "error", against
+    # per-step eval on the same steps.
+    for _ in range(2):
+        trainer.eval_scan(state, placed)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ev = trainer.eval_scan(state, placed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ev_steps = [trainer.eval_step(state, b) for b in steps]
+    readings["eval"] = _fused_diff({k: v.float().cpu().numpy() for k, v in ev.items()},
+                                   {k: torch.stack([m[k] for m in ev_steps]).float().cpu().numpy()
+                                    for k in ev})
+    return readings, fused_counts, state, capture_task_s
+
+
+def _timed_task(trainer, state, placed) -> tuple:
+    """(seconds, state) of one ``train_scan`` task, the card settled on
+    both sides."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, _ = trainer.train_scan(state, placed)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t, state
+
+
+def _fused_model(name: str, out: str, card: str) -> dict:
+    from elasticdl_tpu_torch.parallel.trainer import ScanBudgetError, Trainer
+
+    t_model = time.perf_counter()
+    trainer, batch = _fused_setup(name, out)
+    rows = len(batch["labels"])
+    rng = np.random.default_rng(17)
+    perms = [rng.permutation(rows) for _ in range(FUSED_T)]
+    stacked = {k: np.stack([np.asarray(v)[p] for p in perms]) for k, v in batch.items()}
+    limit = FUSED_REL.get(name, 0.0)
+    # (a)-(d) compare bit for bit: cuDNN's deterministic algorithms for the
+    # convolutional models (``FUSED_DETERMINISTIC``), its default after.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = name in FUSED_DETERMINISTIC
+    try:
+        readings, fused_counts, state, capture_task_s = _fused_checks(trainer, stacked)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if name in FUSED_DETERMINISTIC:
+        # (e) and (f) in cuDNN's default mode, the worker's path, on a
+        # trainer of its own: the trained state restored, its first task
+        # eager, the second captured (its seconds kept).
+        spec, config, trained = trainer.spec, trainer.config, trainer.host_state(state)
+        del trainer, state
+        torch.cuda.empty_cache()
+        trainer = Trainer(spec, device=FUSED_DEVICE, config=config)
+        state = trainer.adopt_restored(trained)
+        placed = trainer.shard_stacked_batch(stacked)
+        state, _ = trainer.train_scan(state, placed)
+        capture_task_s, state = _timed_task(trainer, state, placed)
+        steps = [{k: v[i] for k, v in placed.items()} for i in range(FUSED_T)]
+        state, _ = trainer.run_train_steps(state, steps, pre_sharded=True)  # first-call work
+        for _ in range(2):  # eval: eager, then captured
+            trainer.eval_scan(state, placed)
+    placed = trainer.shard_stacked_batch(stacked)
+    steps = [{k: v[i] for k, v in placed.items()} for i in range(FUSED_T)]
+    graph = next(g for g in trainer.scan_graphs() if g["kind"] == "train_scan")
+    graphs = trainer.scan_graphs()
+
+    # (e) Time: per-step and fused tasks in turns; the task's device span
+    # (CUDA events) and its host enqueue, each over T; one task of each
+    # under torch.profiler for the device-busy ms and kernels a step.
+    def per_task():
+        return trainer.run_train_steps(holder[0], steps, pre_sharded=True)[0]
+
+    def fused_task():
+        return trainer.train_scan(holder[0], placed)[0]
+
+    holder = [state]
+    timing = {"per_step": [], "fused": []}
+    enqueue = {"per_step": [], "fused": []}
+    for _ in range(FUSED_TIMED_TASKS):
+        for arm, fn in (("per_step", per_task), ("fused", fused_task)):
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            a.record()
+            holder[0] = fn()
+            b.record()
+            enqueue[arm].append((time.perf_counter() - t) * 1e3 / FUSED_T)
+            torch.cuda.synchronize()
+            timing[arm].append(a.elapsed_time(b) / FUSED_T)
+    busy = {}
+    for arm, fn in (("per_step", per_task), ("fused", fused_task)):
+        def one(fn=fn):
+            holder[0] = fn()
+
+        line = _device_timeline(one)
+        busy[arm] = dict(line, **{k: line[k] / FUSED_T
+                                  for k in ("device_ms", "kernels", "span_ms", "idle_ms")})
+
+    # (f) The budget: three more step counts are variants 2-4 (each runs
+    # eagerly, as a variant's first task); a fifth raises before running.
+    state = holder[0]
+    for t_ in (1, 2, 3):
+        part = trainer.shard_stacked_batch({k: v[:t_] for k, v in stacked.items()})
+        state, _ = trainer.train_scan(state, part)
+    try:
+        trainer.train_scan(state, trainer.shard_stacked_batch({k: v[:4] for k, v in stacked.items()}))
+        raised = False
+    except ScanBudgetError:
+        raised = True
+    result = {
+        "batch": rows, "steps_a_task": FUSED_T, "readings": readings, "limit": limit,
+        "checks_cudnn_deterministic": name in FUSED_DETERMINISTIC,
+        "launches": fused_counts, "capture_s": graph["capture_s"],
+        "capture_task_s": capture_task_s, "graph_pool_bytes": sum(g["pool_bytes"] for g in graphs),
+        "graphs": [{k: g[k] for k in ("kind", "capture_s", "pool_bytes")} for g in graphs],
+        "step_ms": {arm: statistics.median(v) for arm, v in timing.items()},
+        "step_ms_all": timing, "enqueue_ms": {arm: statistics.median(v) for arm, v in enqueue.items()},
+        "busy": busy, "fifth_variant_raised": raised, "wall_s": time.perf_counter() - t_model,
+    }
+    log(f"[fused] {name} B={rows}, T={FUSED_T}: fused vs per step: losses "
+        f"{readings['train_losses']:.3g}, state {readings['train_state']:.3g}, restore-then-fused "
+        f"{readings['restore_then_fused']:.3g}, eval {readings['eval']:.3g} (0 = bit for bit; "
+        f"limit {limit}); launches a task {json.dumps(fused_counts)} on both paths")
+    log(f"[fused] {name}: step {result['step_ms']['per_step']:.3f} ms per step vs "
+        f"{result['step_ms']['fused']:.3f} ms fused (task span / T, CUDA events, p50 of "
+        f"{FUSED_TIMED_TASKS}); host enqueue {result['enqueue_ms']['per_step']:.3f} vs "
+        f"{result['enqueue_ms']['fused']:.3f} ms a step; device busy "
+        f"{busy['per_step']['device_ms']:.3f} vs {busy['fused']['device_ms']:.3f} ms a step in "
+        f"{busy['per_step']['kernels']:.0f} vs {busy['fused']['kernels']:.0f} kernels, idle "
+        f"between kernels {busy['per_step']['idle_ms']:.3f} vs {busy['fused']['idle_ms']:.3f} ms "
+        f"a step (profiled); capture "
+        f"{graph['capture_s']:.2f} s (its task {capture_task_s:.2f} s), graph pool "
+        f"{result['graph_pool_bytes'] / 2**20:.1f} MiB over {len(graphs)} graphs; fifth variant "
+        f"raised: {raised}; {result['wall_s']:.1f} s on {card}")
+    log(f"[fused] {name} largest idle gaps (us, kernel before, kernel after): fused "
+        + json.dumps(busy["fused"]["largest_gaps_us"]) + "; per step "
+        + json.dumps(busy["per_step"]["largest_gaps_us"]))
+    del trainer, state, holder, placed, steps
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_fused(card: str) -> dict:
+    """Phase 17: the fused task dispatch (module docstring)."""
+    import shutil
+
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    out = os.path.join(REPO, "chiprun_out", "fused")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    torch.cuda.empty_cache()
+    report = {name: _fused_model(name, out, card) for name in FUSED_MODELS}
+    bad = [(name, k, v) for name, r in report.items() for k, v in r["readings"].items()
+           if v > r["limit"]]
+    assert not bad, bad
+    assert all(r["fifth_variant_raised"] for r in report.values())
+    lm = report["transformer_lm"]["launches"]
+    layers = TRAIN_WIDTH["n_layers"]
+    # Remat: each layer's forward runs again in the backward.
+    assert lm == {fa.KERNEL: 2 * layers * FUSED_T, fa.DQ_KERNEL: layers * FUSED_T,
+                  fa.DKV_KERNEL: layers * FUSED_T}, lm
+    report["launches"] = lm
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA card",
@@ -4708,6 +5048,7 @@ def main() -> int:
     run("zoo", phase_zoo, card)
     run("ring_tp", phase_ring_tp, card)
     run("fleet", phase_fleet, card)
+    run("fused", phase_fused, card)
     report["wall_s"] = time.perf_counter() - t0
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -4716,13 +5057,14 @@ def main() -> int:
     bwd = report["kernel_bwd"]["train"]
     train_launches = report["train"]["launches"]
     job_launches = report["job"]["launches"]
-    # The process-level jobs' last worker processes, and the gang phases:
-    # the world-1 trainer's run, the re-formed pair's processes and the
-    # sharded optimizer's two ranks.
+    # The process-level jobs' last worker processes, the gang phases (the
+    # world-1 trainer's run, the re-formed pair's processes and the sharded
+    # optimizer's two ranks) and phase 17's replay of transformer_lm.
     proc_launches = {n: report["process_job"]["kernels"][n]
                      + report["process_job_standby"]["kernels"][n]
                      + report["gang1"]["launches"][n] + report["gang2"]["kernels"][n]
                      + report["opt_shard"]["launches"][n]
+                     + report["fused"]["launches"][n]
                      for n in (fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL)}
     source = "elasticdl_tpu_torch/csrc/"
     kernels_line = {"kernels": [

@@ -199,8 +199,7 @@ class CheckpointManager:
         if os.path.exists(final):
             # Re-saving a step: the new copy replaces the old one whole.
             shutil.rmtree(final)
-        os.replace(tmp, final)
-        _fsync_dir(self.directory)
+        durable.atomic_replace(tmp, final)
         self._prune()
 
     def _prune(self) -> None:

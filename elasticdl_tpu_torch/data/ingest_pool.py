@@ -81,7 +81,7 @@ class IngestPool:
 
     def __init__(self, threads: int = 0):
         self.threads = resolve_threads(threads)
-        self._pool = (
+        self._pool = (  # single-writer: main
             ThreadPoolExecutor(
                 max_workers=self.threads, thread_name_prefix="edl-ingest"
             )

@@ -214,7 +214,8 @@ class TransformerLM(nn.Module):
         (``.astype(compute_dtype)``); these casts are made once and kept
         while the parameters are unchanged: the cache is keyed on their
         version counters, which every in-place update (a load, an
-        optimizer step) bumps."""
+        optimizer step, a replayed training graph: ``Trainer.train_scan``)
+        bumps."""
         versions = tuple(p._version for p in self.parameters())
         if self._cast is None or self._cast[0] != versions:
             dt = self.compute_dtype
@@ -261,7 +262,10 @@ class TransformerLM(nn.Module):
                 f"{max_seq}; raise max_seq in the model spec"
             )
         grad = torch.is_grad_enabled()
-        cast = None if grad else self._weights()
+        # No kept casts under CUDA-graph capture: a graph replays its casts'
+        # kernels, never the check of the versions, so it must make them.
+        capturing = tokens.is_cuda and torch.cuda.is_current_stream_capturing()
+        cast = None if grad or capturing else self._weights()
         # Global positions of this rank's sequence chunk.
         offset = ctx.axis_index * l if ring else 0
         pos = offset + torch.arange(l, device=tokens.device)

@@ -13,7 +13,12 @@ package on machines with no ``nvcc``.
 Every wrapper that launches a kernel calls :func:`count` once per launch,
 and nowhere else, so a run can show that its main path went through the
 kernels (``chip_smoke.py`` zeroes the counts before the path and reads them
-after it).
+after it).  A launch under CUDA-graph capture does not run: while
+:func:`capturing` is open, a launch onto a capturing stream (the capturing
+thread's, or the autograd engine's thread running the captured backward)
+goes to the capture's own tally instead, and each replay of that graph
+adds the tally to the counts (:func:`add_counts`), so the counts stay the
+kernels' real runs.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Any, Dict, Tuple
+from contextlib import contextmanager
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
@@ -45,6 +51,8 @@ _build_locks: Dict[str, threading.Lock] = {}  # guarded-by: _lock
 _libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
 _build_info: Dict[str, Tuple[float, str]] = {}  # guarded-by: _lock
 _counts: Dict[str, int] = {}  # guarded-by: _lock
+# The open capture's tally (``capturing``), else None.
+_capture_tally: Optional[Dict[str, int]] = None  # guarded-by: _lock
 
 
 def nvcc_path() -> str:
@@ -95,6 +103,7 @@ def _build(source: str) -> Tuple[str, float, str]:
         raise RuntimeError(f"nvcc failed to build {source}:\n{log}")
     # Atomic publish: a concurrent process either sees no library or a
     # complete one.
+    # graftlint: allow[durable-write-discipline] a build product: a rename lost to a crash rebuilds it
     os.replace(tmp_path, lib_path)
     return lib_path, seconds, log
 
@@ -140,9 +149,45 @@ def build_info(source: str) -> Tuple[float, str]:
 
 def count(kernel: str) -> None:
     """One launch of ``kernel``: called by its wrapper right where it
-    launches, and nowhere else."""
+    launches, and nowhere else.  Onto a capturing stream while
+    :func:`capturing` is open, the launch is recorded into the graph, not
+    run: it goes to the capture's tally."""
     with _lock:
-        _counts[kernel] = _counts.get(kernel, 0) + 1
+        target = _counts
+        if _capture_tally is not None and _stream_capturing():
+            target = _capture_tally
+        target[kernel] = target.get(kernel, 0) + 1
+
+
+def _stream_capturing() -> bool:
+    import torch
+
+    return torch.cuda.is_current_stream_capturing()
+
+
+@contextmanager
+def capturing() -> Iterator[Dict[str, int]]:
+    """The launches recorded while a CUDA graph captures: yields the tally
+    ``{kernel: launches}`` that each replay of the graph adds with
+    :func:`add_counts`.  One capture at a time in a process."""
+    global _capture_tally
+    tally: Dict[str, int] = {}
+    with _lock:
+        if _capture_tally is not None:
+            raise RuntimeError("a capture is already open")
+        _capture_tally = tally
+    try:
+        yield tally
+    finally:
+        with _lock:
+            _capture_tally = None
+
+
+def add_counts(tally: Dict[str, int]) -> None:
+    """One replay of a captured graph: its recorded launches ran."""
+    with _lock:
+        for kernel, n in tally.items():
+            _counts[kernel] = _counts.get(kernel, 0) + n
 
 
 def counts() -> Dict[str, int]:

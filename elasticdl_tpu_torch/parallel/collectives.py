@@ -54,6 +54,7 @@ the previous position's, one ``isend``/``irecv`` pair a tensor.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -214,6 +215,9 @@ class Reducer:
     def __init__(self, mesh, topo: Optional[CollectiveTopology] = None):
         self.mesh = mesh
         self.topo = topo
+        # The counters are bumped by the task loop and by the checkpoint
+        # thread's snapshot gathers.
+        self._lock = threading.Lock()  # lock-order: leaf
         self.seconds = 0.0
         self.calls = 0
         self.by_op: Dict[str, float] = {}
@@ -231,10 +235,11 @@ class Reducer:
             where = "card" if tensors[0].is_cuda else "host"
             raise CollectiveFailed(f"{op} ({tag}) of {where} tensors failed: {e}") from e
         dt = time.perf_counter() - t0
-        self.seconds += dt
-        self.calls += 1
         key = f"{tag}:{op}"
-        self.by_op[key] = self.by_op.get(key, 0.0) + dt
+        with self._lock:
+            self.seconds += dt
+            self.calls += 1
+            self.by_op[key] = self.by_op.get(key, 0.0) + dt
 
     def all_reduce(self, buf: torch.Tensor, group, tag: str = "grads") -> torch.Tensor:
         import torch.distributed as dist

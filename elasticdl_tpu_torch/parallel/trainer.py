@@ -9,8 +9,10 @@ Port of ``elasticdl_tpu/parallel/trainer.py``: ``TrainState``,
 (``run_predict_step``, ``build_predict_step``) the serving tier runs, and
 the canonical state (``host_state``, ``snapshot_state``,
 ``adopt_restored``: the reference's ``host_state``, ``snapshot_state``,
-``restore_template`` and ``adopt_restored``), and the host half of the
-host tier (below).  The fused scan variants are a later slice of the port.
+``restore_template`` and ``adopt_restored``), the host half of the host
+tier (below), and the fused task dispatch (``shard_stacked_batch``,
+``train_scan``, ``eval_scan``: the reference's ``lax.scan`` over a task's
+T steps, here one captured CUDA graph a task; below).
 
 Data parallelism over a process group (``mesh``: ``parallel/mesh.py``):
 each rank owns one device and holds the whole state; every rank feeds the
@@ -105,6 +107,35 @@ or push fails the run through ``TrainLoopError``; it is never skipped.
 Host stores checkpoint beside the canonical state as
 ``host_stores/<step>/<key>.bin`` (native format), or, on a PS fleet, as each
 shard's own slice.
+
+**The fused task dispatch** (the reference's ``train_scan`` and
+``eval_scan``, one dispatch a task): ``shard_stacked_batch`` uploads a
+task's stacked ``[T, mb, ...]`` batch in one pinned copy a leaf into a
+device buffer kept per batch variant, and on the card ``train_scan`` runs
+the T steps as ONE ``torch.cuda.CUDAGraph``: the steps are captured once,
+each reading its ``stacked[i]`` view and writing ``metrics[i]``, and each
+later task of that variant is one replay.  The variant is the batch's keys,
+shapes and dtypes (T included); each scan has the reference's budget of 4,
+and a fifth variant raises ``ScanBudgetError`` (the reference's
+``JitSanViolation``).  A variant runs its first task eagerly, and so does
+a task whose optimizer slots are not laid out as the last eager task left
+them (a restore): the capture needs the optimizer's slots and the
+libraries' first-call work (cuBLAS and cuDNN workspaces, the kernels'
+shared-memory attributes) done.  On the card the trainer turns on
+``capturable`` in Adam(W), whatever the model's factory asked for, which
+keeps the step count on the card, so a replay advances it (SGD with
+momentum, the other optimizer the canonical state holds, updates on the
+card alone).  The Python ``TrainState.step`` advances by T once a call.  A graph points at
+the state's tensors, so every graph is dropped when the module, the
+optimizer or any parameter, buffer or slot tensor is replaced (a restore,
+a recovery): a stale graph would train tensors no one reads.  A failed
+capture or replay raises ``TrainLoopError(None, ...)`` (recover from the
+checkpoint; the reference's scan donates its state) and never falls back
+to eager steps.  On the CPU, which the caller must ask for, both scans run
+their steps eagerly, bit for bit the per-step loop.  Kernel launches under
+capture are counted at each replay (``ops/kernels.capturing``).  Neither
+scan runs with host-tier tables (as in the reference) nor, on the card, in
+a process group: gloo's collectives cannot be captured.
 """
 
 from __future__ import annotations
@@ -113,6 +144,7 @@ import dataclasses
 import inspect
 import os
 import shutil
+import time
 from collections import deque
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
@@ -125,8 +157,10 @@ from elasticdl_tpu_torch.common.device import resolve_device, set_matmul_precisi
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.metrics import HIST_PREFIX
 from elasticdl_tpu_torch.models.spec import EmbeddingTableSpec, ModelSpec, shard_parameters
+from elasticdl_tpu_torch.ops import kernels
 from elasticdl_tpu_torch.ops.embedding import (
     IMPL_AUTO,
+    IMPL_RAGGED,
     ParallelContext,
     pack_table,
     resolve_impl,
@@ -165,8 +199,46 @@ def optimizer_layout(optimizer: torch.optim.Optimizer) -> Tuple[Tuple[Tuple[str,
         f"the canonical state holds Adam(W) and SGD with momentum (no dampening), "
         f"not {type(optimizer).__name__} with {optimizer.defaults}")
 
+def make_capturable(optimizer: torch.optim.Optimizer) -> None:
+    """Turn on ``capturable`` where the optimizer has it (Adam(W): its step
+    count then lives on the card), whatever the model's factory asked
+    for: the trainer that captures the update owns the choice.  SGD with
+    momentum, the other optimizer ``optimizer_layout`` holds, has no host
+    work in its update to begin with."""
+    if "capturable" in optimizer.defaults:
+        optimizer.defaults["capturable"] = True
+        for group in optimizer.param_groups:
+            group["capturable"] = True
+
+
 #: ``--optimizer_sharding`` values.
 OPT_MODES = ("replicated", "sharded", "auto")
+
+#: The fused scans' variant budgets (the reference's ``jit_budgets``: full
+#: tasks share one T, the job's last task adds a second; headroom beyond).
+SCAN_BUDGETS = {"train_scan": 4, "eval_scan": 4}
+
+
+class ScanBudgetError(RuntimeError):
+    """A fused scan met more batch variants than its budget (the
+    reference's ``JitSanViolation``): something upstream feeds a shape the
+    job should not have."""
+
+
+class ScanMetrics(dict):
+    """A scan's metrics: ``{name: [T, ...] tensor}``, step i's in row i."""
+
+
+class _Graph:
+    """One captured scan: the graph, the stacked inputs it reads, the
+    outputs it writes (``{name: [T, ...]}``), the kernel launches one
+    replay runs, the capture's seconds and the bytes of its pool."""
+
+    __slots__ = ("graph", "inputs", "outputs", "tally", "capture_s", "pool_bytes")
+
+    def __init__(self, graph, inputs, outputs, tally, capture_s, pool_bytes):
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
+        self.tally, self.capture_s, self.pool_bytes = tally, capture_s, pool_bytes
 
 
 @dataclasses.dataclass
@@ -443,6 +515,16 @@ class Trainer:
         self._remote_ps = False
         if spec.host_io:
             self._host_stores = self._make_host_stores()
+        # The fused scans (task loop only): the variants each has met, the
+        # variants warmed on this process, the captured graphs with the
+        # state signature they point at, and the stacked batches' device
+        # buffers by variant.
+        self._scan_variants: Dict[str, set] = {k: set() for k in SCAN_BUDGETS}
+        self._scan_warm: set = set()
+        self._warm_slots: Optional[tuple] = None  # the optimizer's slots after an eager task
+        self._graphs: Dict[Tuple[str, tuple], _Graph] = {}
+        self._graph_sig: Optional[tuple] = None
+        self._stacked_bufs: Dict[tuple, Dict[str, torch.Tensor]] = {}
 
     def _make_host_stores(self) -> Dict[str, Any]:
         """The host-tier stores: one ``RemoteEmbeddingStore`` a table over
@@ -657,12 +739,15 @@ class Trainer:
                               tp_paths=self._tp_dims(model))
         self._opt_plan = plan if self._resolve_opt_sharding(plan, paths) else None
         if self._opt_plan is None:
-            return self.spec.optimizer(model.parameters())
-        leaves = [(path, p, plan[path]) for path, p in paths if plan[path] is not _OPT_KEEP]
-        zero = _ZeroShards(leaves, n, self.mesh.position(self.opt_axis))
-        kept = [p for path, p in paths if plan[path] is _OPT_KEEP]
-        optimizer = self.spec.optimizer(zero.params + kept)
-        optimizer._zero_shards = zero
+            optimizer = self.spec.optimizer(model.parameters())
+        else:
+            leaves = [(path, p, plan[path]) for path, p in paths if plan[path] is not _OPT_KEEP]
+            zero = _ZeroShards(leaves, n, self.mesh.position(self.opt_axis))
+            kept = [p for path, p in paths if plan[path] is _OPT_KEEP]
+            optimizer = self.spec.optimizer(zero.params + kept)
+            optimizer._zero_shards = zero
+        if self.device.type == "cuda":
+            make_capturable(optimizer)
         return optimizer
 
     def _resolve_opt_sharding(self, plan: Dict[str, Any], paths, mode: Optional[str] = None) -> bool:
@@ -740,6 +825,14 @@ class Trainer:
     # ---- training ----
 
     def train_step(
+        self, state: TrainState, batch: Dict[str, torch.Tensor]
+    ) -> Tuple[TrainState, Dict[str, torch.Tensor], Dict[str, HostGrad]]:
+        """One step on a device batch (``_train_step``).  The public name is
+        the one callers wrap (the worker's step clock): the fused scans run
+        ``_train_step`` itself, so a wrapper sees a scan as one call."""
+        return self._train_step(state, batch)
+
+    def _train_step(
         self, state: TrainState, batch: Dict[str, torch.Tensor]
     ) -> Tuple[TrainState, Dict[str, torch.Tensor], Dict[str, HostGrad]]:
         """One step on a device batch: the loss (weighted by ``__mask__``
@@ -935,6 +1028,12 @@ class Trainer:
                 raise ValueError("pre_sharded batches are incompatible with host-tier "
                                  "tables (the host pull needs the host batch)")
             return self._run_host_steps(state, batches, use_async)
+        return self._step_loop(state, batches, pre_sharded, self.train_step)
+
+    def _step_loop(self, state: TrainState, batches: Iterable[Dict[str, Any]],
+                   pre_sharded: bool, step) -> Tuple[TrainState, List[Dict[str, torch.Tensor]]]:
+        """``run_train_steps`` without host-tier tables, each batch through
+        ``step`` (``train_step``, or ``_train_step`` inside a scan)."""
         metrics_out = []
         last_good: Optional[TrainState] = None  # after the last completed step
         batches = iter(batches)
@@ -950,7 +1049,7 @@ class Trainer:
                 # is intact.
                 raise TrainLoopError(last_good, e) from e
             try:
-                state, metrics, _ = self.train_step(state, batch)
+                state, metrics, _ = step(state, batch)
             except CollectiveError as e:
                 # Before the update the state before the step is intact;
                 # the sharded optimizer's all-gather after it tears it.
@@ -959,6 +1058,246 @@ class Trainer:
                 raise TrainLoopError(None, e) from e
             metrics_out.append(metrics)
             last_good = state
+
+    # ---- the fused task dispatch ----
+
+    def scan_unsupported(self) -> Optional[str]:
+        """Why the fused scans cannot run on this trainer, or None: host-tier
+        tables (their pulls need each step's host batch; the reference
+        refuses them too), a process group on the card (gloo's collectives
+        cannot be captured), or the ragged lookup (its split sizes are a
+        host copy inside the step)."""
+        if self.spec.host_io:
+            return "host-tier tables pull and push around every step"
+        if self._group is not None and self.device.type == "cuda":
+            return "the gang's collectives run over gloo, which a CUDA graph cannot capture"
+        if self.sharded_embeddings and self.ctx.embedding_impl == IMPL_RAGGED:
+            return "the ragged lookup copies its split sizes to the host inside the step"
+        return None
+
+    @staticmethod
+    def _variant(stacked: Dict[str, Any]) -> tuple:
+        """A stacked batch's variant: its keys, shapes and dtypes."""
+        return tuple(sorted((k, tuple(v.shape), str(v.dtype)) for k, v in stacked.items()))
+
+    def shard_stacked_batch(self, stacked: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """A task's stacked HOST batch (``[T, mb, ...]`` a leaf: numpy
+        arrays, or host tensors, pinned ones best) on the device in one copy
+        a leaf, this rank's part of each step as ``shard_batch`` takes it.
+        On the card the copies go from pinned memory into a device buffer
+        kept for the batch's variant, so a captured scan reads them where
+        it was captured; the returned tensors are that buffer, valid until
+        the next call with the same variant."""
+        if self.num_contributors() > 1:
+            stacked = {k: v[:, self._contributor_slice(k, v.shape[1])]
+                       for k, v in stacked.items()}
+        if self.spec.batch_shard_dim == 1 and self.ctx.axis_size > 1:
+            stacked = {k: v[:, :, self._sequence_slice(k, v.shape[2])] if np.ndim(v) > 2 else v
+                       for k, v in stacked.items()}
+        host = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in stacked.items()}
+        if self.device.type != "cuda":
+            return {k: v.to(self.device) for k, v in host.items()}
+        variant = self._variant(host)
+        bufs = self._stacked_bufs.get(variant)
+        if bufs is None:
+            bufs = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
+                    for k, v in host.items()}
+            self._stacked_bufs[variant] = bufs
+        for k, v in host.items():
+            src = v.contiguous()
+            bufs[k].copy_(src if src.is_pinned() else src.pin_memory(), non_blocking=True)
+        return dict(bufs)
+
+    def pin_stacked(self, stacked: Dict[str, Any]) -> Dict[str, Any]:
+        """A stacked host batch in pinned host tensors when this trainer
+        runs on the card (as is on the CPU): the prep threads pin it, so
+        ``shard_stacked_batch`` on the task loop only enqueues the copy."""
+        if self.device.type != "cuda":
+            return stacked
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                for k, v in stacked.items()}
+
+    def train_scan(self, state: TrainState, stacked: Dict[str, torch.Tensor]
+                   ) -> Tuple[TrainState, ScanMetrics]:
+        """All T steps of a task (``stacked`` from ``shard_stacked_batch``):
+        (the state T steps on, ``{metric: [T] tensor}``).  On the card one
+        replay of the variant's captured graph (the module docstring);
+        eagerly on the CPU.  A failure raises ``TrainLoopError``."""
+        if self.spec.loss is None or state.optimizer is None:
+            raise ValueError(f"model {self.spec.name!r} declares no loss or optimizer: it cannot train")
+        n = self._scan_begin("train_scan", stacked)
+        if not self._graph_ready("train_scan", stacked, state):
+            state, per_step = self._step_loop(state, self._steps_of(stacked, n), True,
+                                              self._train_step)
+            self._warm_slots = self._slot_layout(state.optimizer)
+            return state, self._stack_metrics(per_step)
+
+        def body(views):
+            step_state, per_step = state, []
+            for batch in views:
+                step_state, metrics, _ = self._train_step(step_state, batch)
+                per_step.append(metrics)
+            return per_step
+
+        metrics = self._replay("train_scan", stacked, state, body)
+        # The replay updated the state in place behind autograd's back: its
+        # version counters (which caches key on) move as an eager step's.
+        torch.autograd.graph.increment_version(self._state_tensors(state))
+        return TrainState(state.step + n, state.model, state.optimizer), metrics
+
+    def eval_scan(self, state: TrainState, stacked: Dict[str, torch.Tensor]) -> ScanMetrics:
+        """The eval metrics of all T steps of a stacked device batch:
+        ``{metric: [T, ...] tensor}``, the AUC histograms included (the
+        caller weighs each step by its count).  On the card one replay of
+        the variant's captured graph; eagerly on the CPU."""
+        n = self._scan_begin("eval_scan", stacked)
+        if not self._graph_ready("eval_scan", stacked, state):
+            return self._stack_metrics([self._eval_step(state, b)
+                                        for b in self._steps_of(stacked, n)])
+        return self._replay("eval_scan", stacked, state,
+                            lambda views: [self._eval_step(state, b) for b in views])
+
+    @staticmethod
+    def _steps_of(stacked: Dict[str, torch.Tensor], n: int) -> List[Dict[str, torch.Tensor]]:
+        return [{k: v[i] for k, v in stacked.items()} for i in range(n)]
+
+    @staticmethod
+    def _stack_metrics(per_step: List[Dict[str, torch.Tensor]]) -> ScanMetrics:
+        return ScanMetrics({k: torch.stack([m[k] for m in per_step]) for k in per_step[0]})
+
+    def _scan_begin(self, kind: str, stacked: Dict[str, torch.Tensor]) -> int:
+        """Check that the scan may run and its variant fits the budget;
+        returns T."""
+        reason = self.scan_unsupported()
+        if reason is not None and (self.spec.host_io or self.device.type == "cuda"):
+            raise NotImplementedError(f"{kind}: {reason}")
+        sizes = {int(v.shape[0]) for v in stacked.values()}
+        if len(sizes) != 1 or 0 in sizes:
+            raise ValueError(f"{kind}: the stacked leaves need one leading step count >= 1, "
+                             f"got {sorted(sizes)}")
+        variant, seen = self._variant(stacked), self._scan_variants[kind]
+        if variant not in seen:
+            if len(seen) >= SCAN_BUDGETS[kind]:
+                raise ScanBudgetError(
+                    f"{kind}: batch variant {len(seen) + 1} past the budget of "
+                    f"{SCAN_BUDGETS[kind]}: {variant}")
+            seen.add(variant)
+        return sizes.pop()
+
+    @staticmethod
+    def _state_tensors(state: TrainState) -> List[torch.Tensor]:
+        """Every parameter, buffer and optimizer slot of ``state``."""
+        tensors = list(state.model.parameters()) + list(state.model.buffers())
+        if state.optimizer is not None:
+            for st in state.optimizer.state.values():
+                tensors += [v for v in st.values() if isinstance(v, torch.Tensor)]
+        return tensors
+
+    def _state_signature(self, state: TrainState) -> tuple:
+        """What a captured graph points at: the module and the optimizer,
+        and the storage of every parameter, buffer and optimizer slot."""
+        return (id(state.model), id(state.optimizer),
+                tuple(t.data_ptr() for t in self._state_tensors(state)))
+
+    @staticmethod
+    def _slot_layout(optimizer: torch.optim.Optimizer) -> tuple:
+        """The names of the slots the optimizer holds for each of its
+        parameters (None: none yet)."""
+        layout = []
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                st = optimizer.state.get(p)
+                layout.append(None if st is None else tuple(sorted(st)))
+        return tuple(layout)
+
+    def _graph_ready(self, kind: str, stacked: Dict[str, torch.Tensor], state: TrainState) -> bool:
+        """Whether this call replays a graph (captured now if need be) or
+        runs its steps eagerly: always eagerly on the CPU; on the card for
+        a variant's first call on this process (the libraries' first-call
+        work, the optimizer's lazy slots), and for a training call whose
+        optimizer slots are not laid out as the last eager task left them
+        (a restore cleared or added some: a capture would record their
+        making, and every replay would make them anew).  The eager task
+        lays them out, so each of these runs once.  A parameter that takes
+        no gradient has no slots and needs none.  Drops every graph when
+        the state's tensors changed."""
+        if self.device.type != "cuda":
+            return False
+        sig = self._state_signature(state)
+        if sig != self._graph_sig:
+            if self._graphs:
+                logger.info("state replaced: dropping %d captured graph(s)", len(self._graphs))
+            self._graphs.clear()
+            self._graph_sig = sig
+        key = (kind, self._variant(stacked))
+        if key in self._graphs:
+            return True
+        why = None
+        if key not in self._scan_warm:
+            self._scan_warm.add(key)
+            why = "the variant's first task on this process"
+        elif kind == "train_scan" and self._slot_layout(state.optimizer) != self._warm_slots:
+            why = "the optimizer's slots changed since its last eager task (a restore)"
+        if why is not None:
+            logger.info("%s runs its %s steps eagerly: %s", kind, key[1], why)
+        return why is None
+
+    def _replay(self, kind: str, stacked: Dict[str, torch.Tensor], state: TrainState,
+                body) -> ScanMetrics:
+        """Replay the variant's graph (capturing it first when missing) on
+        ``stacked`` and return fresh copies of its outputs."""
+        key = (kind, self._variant(stacked))
+        entry = self._graphs.get(key)
+        try:
+            if entry is None:
+                entry = self._capture(kind, stacked, body)
+                self._graphs[key] = entry
+                # The capture itself read nothing: the tensors it touched
+                # are the same, but the signature covers the slots it may
+                # have made.
+                self._graph_sig = self._state_signature(state)
+            for k, v in stacked.items():
+                if v.data_ptr() != entry.inputs[k].data_ptr():
+                    entry.inputs[k].copy_(v, non_blocking=True)
+            entry.graph.replay()
+            kernels.add_counts(entry.tally)
+            # Copies, so the next replay cannot overwrite what the caller
+            # holds.
+            return ScanMetrics({k: v.clone() for k, v in entry.outputs.items()})
+        except Exception as e:
+            self._graphs.pop(key, None)
+            raise TrainLoopError(None, e) from e
+
+    def _capture(self, kind: str, stacked: Dict[str, torch.Tensor], body) -> _Graph:
+        """Capture ``body`` over the T step views of ``stacked`` into one
+        graph, in a memory pool of its own: nothing runs; the module's
+        Python state stays as it was."""
+        inputs = dict(stacked)
+        views = self._steps_of(inputs, int(next(iter(inputs.values())).shape[0]))
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        # thread_local: the prep and checkpoint threads may pin host memory
+        # or wait on their own streams while this thread captures.
+        with kernels.capturing() as tally, torch.cuda.graph(
+                graph, capture_error_mode="thread_local"):
+            outputs = self._stack_metrics(body(views))
+        capture_s = time.perf_counter() - t0
+        pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        logger.info("%s: captured %d steps of %s in %.2f s (%d launches counted a replay, "
+                    "graph pool +%d bytes)", kind, len(views), self._variant(stacked),
+                    capture_s, sum(tally.values()), pool_bytes)
+        return _Graph(graph, inputs, outputs, dict(tally), capture_s, pool_bytes)
+
+    def scan_graphs(self) -> List[Dict[str, Any]]:
+        """The captured graphs: kind, variant, capture seconds, the bytes
+        of the graph's pool, launches counted a replay."""
+        return [{"kind": kind, "variant": variant, "capture_s": g.capture_s,
+                 "pool_bytes": g.pool_bytes, "launches": dict(g.tally)}
+                for (kind, variant), g in self._graphs.items()]
 
     # ---- the host tier (spec.host_io) ----
 
@@ -1144,6 +1483,13 @@ class Trainer:
     # ---- evaluation ----
 
     def eval_step(
+        self, state: TrainState, batch: Dict[str, torch.Tensor]
+    ) -> Dict[str, torch.Tensor]:
+        """Metrics of the module on a device batch (``_eval_step``; the
+        public name is the one callers wrap, as ``train_step``'s)."""
+        return self._eval_step(state, batch)
+
+    def _eval_step(
         self, state: TrainState, batch: Dict[str, torch.Tensor]
     ) -> Dict[str, torch.Tensor]:
         """Metrics of the module on a device batch, without gradients and
@@ -1427,13 +1773,17 @@ class Trainer:
                 # Adam's slots mean something once it has counted a step;
                 # SGD's trace once the state has taken one.
                 count = int(np.asarray(arrays[COUNT_KEY if self._opt_count else STEP_KEY]))
+                capturable = any(g.get("capturable") for g in optimizer.param_groups)
                 optimizer.state.clear()
                 if count > 0:
                     def entry(slots, like):
                         st = {name: moment(a, like)
                               for (name, _), a in zip(self._opt_slots, slots)}
                         if self._opt_count:
-                            st["step"] = torch.tensor(float(count), dtype=torch.float32)
+                            # A capturable Adam keeps it on the card.
+                            st["step"] = torch.tensor(
+                                float(count), dtype=torch.float32,
+                                device=like.device if capturable else "cpu")
                         return st
 
                     shards = {}

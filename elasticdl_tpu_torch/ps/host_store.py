@@ -83,6 +83,7 @@ def _build(lib_path: str) -> None:
             raise RuntimeError(
                 f"{cxx} failed to build {SOURCE}:\n{proc.stdout}{proc.stderr}"
             )
+        # graftlint: allow[durable-write-discipline] a build product: a rename lost to a crash rebuilds it
         os.replace(tmp, lib_path)
 
 
@@ -191,7 +192,7 @@ class HostEmbeddingStore:
             learning_rate, momentum, beta1, beta2, eps, init_scale,
         )
 
-    def _live(self):
+    def _live(self):  # guarded-by: _lock
         if not self._ptr:
             raise RuntimeError("the host embedding store is closed")
         return self._ptr
@@ -213,12 +214,15 @@ class HostEmbeddingStore:
         """Read-only gather: (rows, number of missing ids), the missing
         ids' rows left as allocated.  It never mutates the store and takes
         no lock: any number of threads may call it while no writer (pull,
-        push_grad, load) runs, the PS service's shared-lock fast path."""
+        push_grad, load) and no ``close`` runs, the PS service's
+        shared-lock fast path."""
         ids = np.ascontiguousarray(ids, np.int64)
         out = np.empty((ids.size, self.dim), np.float32)
-        missing = int(
-            self._lib.edl_store_try_pull(self._live(), ids.ravel(), ids.size, out)
-        )
+        # graftlint: allow[lock-discipline] the lock-free reader: its caller's reader-writer lock (the PS service's per-table lock) keeps writers and close() out
+        ptr = self._ptr
+        if not ptr:
+            raise RuntimeError("the host embedding store is closed")
+        missing = int(self._lib.edl_store_try_pull(ptr, ids.ravel(), ids.size, out))
         return out.reshape(ids.shape + (self.dim,)), missing
 
     def push_grad(self, ids: np.ndarray, grads: np.ndarray) -> None:

@@ -36,18 +36,10 @@ import sys
 import threading
 import time
 
+from elasticdl_tpu_torch.common import durable
 from elasticdl_tpu_torch.common.log_utils import get_logger
 
 logger = get_logger("serving.main")
-
-
-def _atomic_write(path: str, text: str) -> None:
-    tmp = f"{path}.{os.getpid()}.tmp"
-    with open(tmp, "w") as f:
-        f.write(text)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
 
 
 def _park_as_standby(go_file: str) -> str:
@@ -70,7 +62,7 @@ def _park_as_standby(go_file: str) -> str:
     logger.info(
         "serving standby warmed (pid %d); parking on %s", os.getpid(), go_file
     )
-    _atomic_write(go_file + ".ready", str(os.getpid()))
+    durable.atomic_publish(go_file + ".ready", str(os.getpid()))
     parent0 = os.getppid()
     while not os.path.exists(go_file):
         if os.getppid() != parent0:

@@ -298,9 +298,12 @@ class _StepClock:
     """What the event lines report of this process's steps: the wall time
     its first training step finished on the device (one synchronisation,
     once), the losses of its first ``FIRST_STEPS`` steps (one more), an
-    event on the stream after every step (the last ``STEP_WINDOW``), and
-    the eval steps with their seconds inside collectives.  Wraps the
-    trainer's ``train_step`` and ``eval_step``."""
+    event on the stream after every step or fused task (the last
+    ``STEP_WINDOW``), and the eval steps with their seconds inside
+    collectives.  Wraps the trainer's ``train_step``, ``train_scan``,
+    ``eval_step`` and ``eval_scan`` (a scan runs its steps through the
+    trainer's unwrapped ones, so it is one call here, its T steps counted
+    when it returns)."""
 
     def __init__(self, trainer):
         import torch
@@ -310,49 +313,81 @@ class _StepClock:
         self.eval_steps = 0
         self.eval_collective_s = 0.0  # the eval steps' share of the collectives
         self.eval_by_op: dict = {}  # ... by tag and op (``Reducer.by_op``)
+        # (event before a fused task or None, event after the step or task,
+        # its steps)
         self._events: collections.deque = collections.deque(maxlen=STEP_WINDOW)
         losses = []
         train_step, eval_step = trainer.train_step, trainer.eval_step
+        train_scan, eval_scan = trainer.train_scan, trainer.eval_scan
+
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        def took(state, step_losses, start) -> None:
+            """``len(step_losses)`` steps ended, the last leaving ``state``."""
+            for loss in step_losses:
+                self.steps += 1
+                if self.steps == 1:
+                    if self._cuda:
+                        torch.cuda.synchronize(trainer.device)
+                    _event("first_step", at=time.time(), step=state.step - len(step_losses) + 1,
+                           loss=float(loss))
+                if self.steps <= FIRST_STEPS:
+                    losses.append(loss.detach())
+                    if self.steps == FIRST_STEPS:
+                        _event("first_steps", step=state.step - len(step_losses) + len(losses),
+                               losses=[float(x) for x in losses])
+            if self._cuda:
+                self._events.append((start, event(), len(step_losses)))
 
         def timed_train_step(state, batch):
             result = train_step(state, batch)
-            self.steps += 1
-            if self.steps == 1:
-                if self._cuda:
-                    torch.cuda.synchronize(trainer.device)
-                _event("first_step", at=time.time(), step=result[0].step,
-                       loss=float(result[1]["loss"]))
-            if self.steps <= FIRST_STEPS:
-                losses.append(result[1]["loss"].detach())
-                if self.steps == FIRST_STEPS:
-                    _event("first_steps", step=result[0].step,
-                           losses=[float(x) for x in losses])
-            if self._cuda:
-                event = torch.cuda.Event(enable_timing=True)
-                event.record()
-                self._events.append(event)
+            took(result[0], [result[1]["loss"]], None)
             return result
 
-        def counted_eval_step(state, batch):
-            self.eval_steps += 1
-            before, by_op = trainer.reducer.seconds, dict(trainer.reducer.by_op)
-            try:
-                return eval_step(state, batch)
-            finally:
-                self.eval_collective_s += trainer.reducer.seconds - before
-                for k, v in trainer.reducer.by_op.items():
-                    self.eval_by_op[k] = self.eval_by_op.get(k, 0.0) + v - by_op.get(k, 0.0)
+        def timed_train_scan(state, stacked):
+            start = event() if self._cuda else None
+            state, metrics = train_scan(state, stacked)
+            took(state, list(metrics["loss"]), start)
+            return state, metrics
+
+        def counted_eval(fn, n_steps):
+            def run(state, batch):
+                self.eval_steps += n_steps(batch)
+                before, by_op = trainer.reducer.seconds, dict(trainer.reducer.by_op)
+                try:
+                    return fn(state, batch)
+                finally:
+                    self.eval_collective_s += trainer.reducer.seconds - before
+                    for k, v in trainer.reducer.by_op.items():
+                        self.eval_by_op[k] = self.eval_by_op.get(k, 0.0) + v - by_op.get(k, 0.0)
+
+            return run
 
         trainer.train_step = timed_train_step
-        trainer.eval_step = counted_eval_step
+        trainer.train_scan = timed_train_scan
+        trainer.eval_step = counted_eval(eval_step, lambda batch: 1)
+        trainer.eval_scan = counted_eval(eval_scan,
+                                         lambda batch: int(next(iter(batch.values())).shape[0]))
 
     def step_ms(self) -> List[float]:
-        """Device time between consecutive step ends (gaps included)."""
+        """Device time between consecutive step ends (gaps included).  A
+        fused task's n steps end evenly over its span: n - 1 intervals of
+        span / n, and the one into its first step end from the previous
+        end."""
         if not self._events:
             return []
-        self._events[-1].synchronize()
-        events = list(self._events)
-        return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        self._events[-1][1].synchronize()
+        out, prev = [], None
+        for start, end, n in list(self._events):
+            span = start.elapsed_time(end) / n if start is not None else 0.0
+            if prev is not None:
+                out.append(prev.elapsed_time(end) - (n - 1) * span)
+            out += [span] * (n - 1)
+            prev = end
+        return out
 
 
 def main(argv: Optional[List[str]] = None) -> int:

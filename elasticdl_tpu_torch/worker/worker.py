@@ -2,10 +2,10 @@
 or in a gang of processes.
 
 Port of ``elasticdl_tpu/worker/worker.py`` for a single process on one
-device: lease a task from the master -> read its shard -> feed its
-minibatches through ``Trainer.run_train_steps`` (the counterpart of the
-fused ``train_scan``) -> report; evaluation and prediction tasks between
-them; a background checkpoint every ``checkpoint_steps`` that the serving
+device: lease a task from the master -> read its shard -> run its full
+minibatches as one ``Trainer.train_scan`` (one CUDA-graph replay a task on
+the card) and its wrap-padded tail as one more step -> report; evaluation
+and prediction tasks between them (evaluation fused too, ``eval_scan``); a background checkpoint every ``checkpoint_steps`` that the serving
 tier picks up from the published manifest; restore from the newest
 checkpoint at start, and after a failed step the newest live state
 (``TrainLoopError.state``) or else the newest checkpoint.
@@ -110,6 +110,7 @@ from elasticdl_tpu_torch.parallel.mesh import Mesh, mesh_shape
 from elasticdl_tpu_torch.parallel.trainer import (
     MASK_KEY,
     CollectiveError,
+    ScanMetrics,
     Trainer,
     TrainLoopError,
     outputs_to_numpy,
@@ -445,6 +446,8 @@ class Worker:
         )
         # Python-side step counter mirroring state.step.
         self._steps_dispatched = 0  # single-writer: main
+        # The dispatch path last logged: (fused, why not).
+        self._dispatch_logged: Optional[tuple] = None
         self.gauges = gauges if gauges is not None else gaugelib.Registry()
         self._g_examples = self.gauges.counter(
             gaugelib.EXAMPLES_TRAINED, "examples trained (records dispatched)"
@@ -1114,6 +1117,30 @@ class Worker:
             for k, v in dict(big).items()
         }
 
+    def _fused_eligible(self) -> Optional[str]:
+        """Why a task's full minibatches cannot run as one fused scan
+        (``Trainer.train_scan``/``eval_scan``), or None: the flag off, gang
+        mode, or a trainer that cannot scan (host-tier tables, the ragged
+        lookup)."""
+        if not self.config.fused_task_scan:
+            return "--fused_task_scan=False"
+        if self._group_mode:
+            return "gang mode: the steps' collectives run over gloo, which a CUDA graph cannot capture"
+        return self.trainer.scan_unsupported()
+
+    def _fused_path(self) -> bool:
+        """Whether this task runs fused; the path and the reason for it are
+        logged once (again only if they change)."""
+        why = self._fused_eligible()
+        if self._dispatch_logged != (why is None, why):
+            self._dispatch_logged = (why is None, why)
+            if why is None:
+                logger.info("task dispatch: fused, one train_scan / eval_scan a task (%s) "
+                            "plus one step for a ragged tail", self.trainer.device.type)
+            else:
+                logger.info("task dispatch: per step (%s)", why)
+        return why is None
+
     def _train_feed(self, chunk, true_count: int) -> dict:
         """Feed a training chunk; a wrap-padded tail gets the ``__mask__``
         that gives its duplicated examples zero gradient."""
@@ -1172,6 +1199,10 @@ class Worker:
             stacked = {k: np.concatenate([st[k] for st in stacks]) for k in stacks[0]}
         else:
             stacked = stacks[0] if stacks else None
+        if stacked is not None and self._fused_eligible() is None:
+            # Pinned here, off the task loop: its dispatch only enqueues
+            # the copy.
+            stacked = self.trainer.pin_stacked(stacked)
         # plan_chunks puts the ragged tail on the LAST chunk.
         rest = parts[-1][3]
         tail = None
@@ -1182,16 +1213,19 @@ class Worker:
     def _dispatch_training_task(
         self, task: Task, prep: Optional[HostPrep] = None
     ) -> tuple:
-        """Dispatch every step of a training task through
-        ``Trainer.run_train_steps``; returns (the started metrics fetch,
-        n_steps).  On the card the steps are enqueued without waiting for
-        them (the metrics fetch in ``_finalize_training_metrics`` is the
-        wait).
+        """Dispatch every step of a training task; returns (the started
+        metrics fetch, n_steps).  On the card the steps are enqueued
+        without waiting for them (the metrics fetch in
+        ``_finalize_training_metrics`` is the wait).
 
         With ``fused_task_scan`` (the default) the task's host half is a
         ``HostPrep``: ``prep`` when prep-ahead made it on a prep thread,
-        else made here.  Without it each minibatch is fed on the prefetch
-        thread as the steps consume them.  A failed step's task is reported
+        else made here.  On the fused path (``_fused_path``) its full
+        minibatches go up in one copy a leaf (``shard_stacked_batch``) and
+        run as ONE ``train_scan``, the tail as one more step; otherwise
+        (gang mode, host-tier tables) every minibatch runs through
+        ``Trainer.run_train_steps``.  Without ``fused_task_scan`` each
+        minibatch is fed on the prefetch thread as the steps consume them.  A failed step's task is reported
         failed and requeued either way; the state goes on from
         ``TrainLoopError.state`` when the failure came before a step
         touched the module and the optimizer, else from the newest
@@ -1216,9 +1250,10 @@ class Worker:
             if prep is None and self.config.fused_task_scan:
                 with self.phases.phase("prep_wait"):
                     prep = self._prep_fused_host(task)
+            fused = prep is not None and prep.n_full > 0 and self._fused_path()
             if prep is not None:
                 total, n_full, stacked, tail = prep
-                batches = [
+                batches = [] if fused else [
                     {k: v[i] for k, v in stacked.items()} for i in range(n_full)
                 ]
                 if tail is not None:
@@ -1234,11 +1269,17 @@ class Worker:
                     name=f"prefetch:{task.task_id}",
                 )
             with self.phases.phase("dispatch"):
+                head = []
+                if fused:
+                    self.state, scan = self.trainer.train_scan(
+                        self.state, self.trainer.shard_stacked_batch(stacked))
+                    head = [scan]
                 # With host-tier tables the pulls and pushes run here too
                 # (--use_async pipelines the pulls against the device steps).
                 self.state, metrics_list = self.trainer.run_train_steps(
                     self.state, batches, use_async=self.config.use_async
                 )
+                metrics_list = head + metrics_list
             self._task_start = None  # every step of the task is in the state
         except TrainLoopError as e:
             # The reference's recovery: the newest live state when no step
@@ -1284,14 +1325,19 @@ class Worker:
         every step queued by then — the next task's too — and leave the
         card idle while the loop reports and leases.  A metric may be a
         vector (the AUC histograms): each step's metrics flatten into one
-        row, so a task is one copy.  Returns (keys, shapes, host tensor
-        [steps, row], event or None)."""
+        row, so a task is one copy.  An entry is one step's metrics or a
+        scan's (``ScanMetrics``: ``[T, ...]`` each, T rows).  Returns
+        (keys, shapes, host tensor [steps, row], event or None)."""
         keys = list(metrics_list[0]) if metrics_list else []
         if not keys:
             return keys, [], torch.zeros((0, 0)), None
-        shapes = [tuple(metrics_list[0][k].shape) for k in keys]
-        rows = torch.stack([
-            torch.cat([m[k].detach().float().reshape(-1) for k in keys])
+        first = metrics_list[0]
+        stacked = isinstance(first, ScanMetrics)
+        shapes = [tuple(first[k].shape[1:] if stacked else first[k].shape) for k in keys]
+        rows = torch.cat([
+            torch.cat([m[k].detach().float().reshape(len(m[keys[0]]), -1) for k in keys], dim=1)
+            if isinstance(m, ScanMetrics)
+            else torch.cat([m[k].detach().float().reshape(-1) for k in keys])[None]
             for m in metrics_list
         ])
         if rows.device.type != "cuda":
@@ -1667,6 +1713,16 @@ class Worker:
         aggregation stays exact."""
         records = self._read_records(task.shard)
         mb = self.config.minibatch_size
+        steps, counts = [], []
+        n_full = len(records) // mb
+        if n_full and self._fused_path():
+            # The reference's fused eval: every full chunk in one decode,
+            # one copy and one eval_scan; the tail as one masked step.
+            stacked = self._stack_full_minibatches(records, mb, n_full)
+            steps.append(self.trainer.eval_scan(
+                self.state, self.trainer.shard_stacked_batch(stacked)))
+            counts += [mb] * n_full
+            records = records[n_full * mb:]
 
         def _batches():
             for chunk, true_count in _minibatches(records, mb, False):
@@ -1674,7 +1730,6 @@ class Worker:
                 batch[MASK_KEY] = _real_mask(mb, true_count)
                 yield batch, true_count
 
-        steps, counts = [], []
         for batch, true_count in prefetch(
             _batches(), self.config.prefetch_depth,
             name=f"prefetch:{task.task_id}",

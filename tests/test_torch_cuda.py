@@ -16,6 +16,7 @@ its largest element.
 """
 
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -665,3 +666,276 @@ def test_cuda_in_process_fleet_scales_up_and_back(card, tmp_path):
             fc.close()
         ctl.stop()
         backend.close()
+
+
+# ---- the fused task dispatch (train_scan / eval_scan as CUDA graphs) -------------
+
+_SCAN_T = 3
+
+
+def _scan_case(name):
+    """(trainer, stacked host batch of T steps) at a small width."""
+    from elasticdl_tpu_torch.common.config import JobConfig
+
+    if name == "transformer_lm":
+        spec = tlm.model_spec(compute_dtype="bfloat16", vocab=512, dim=128, n_heads=2,
+                              n_layers=2, max_seq=256, seq_len=256, remat=True)
+        toks = np.random.default_rng(5).integers(0, 512, (_SCAN_T, 4, 257)).astype(np.int32)
+        stacked = {"tokens": toks[:, :, :-1], "labels": toks[:, :, 1:]}
+        return Trainer(spec, device="cuda"), stacked
+    mod, kw = _ZOO[name]
+    strategy = "ParameterServer" if name == "wide_deep" else "AllReduce"
+    batches = _zoo_batches(name, n=_SCAN_T)
+    stacked = {k: np.stack([b[k] for b in batches]) for k in batches[0] if k != "__mask__"}
+    trainer = Trainer(mod.model_spec(compute_dtype="float32", **kw), device="cuda",
+                      config=JobConfig(distribution_strategy=strategy))
+    return trainer, stacked
+
+
+def _scan_steps(stacked):
+    return [{k: v[i] for k, v in stacked.items()} for i in range(_SCAN_T)]
+
+
+def _assert_states(got, want, rel):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        if rel == 0:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        else:
+            err = np.abs(got[k].astype(np.float64) - want[k]).max()
+            assert err <= rel * max(np.abs(want[k]).max(), 1e-30), k
+
+
+@pytest.mark.parametrize("name", ["transformer_lm", "mnist", "resnet14", "wide_deep"])
+def test_cuda_train_scan_replays_one_graph_equal_to_the_eager_loop(card, name):
+    """A warm-up task (eager), then ``train_scan`` captures the T steps and
+    replays them under ``set_sync_debug_mode("error")``; the per-step loop
+    from the same state on the same batch gives the same losses, parameters
+    and optimizer slots (bit for bit; Wide&Deep's table gradients sum with
+    atomics: 1e-6 relative) and the same kernel launch counts."""
+    deterministic = torch.backends.cudnn.deterministic
+    # cuDNN's default convolution backward sums with atomics (two eager
+    # runs of MNIST differ in the last bit); its deterministic algorithms
+    # make the convolutional models comparable bit for bit.
+    torch.backends.cudnn.deterministic = True
+    try:
+        _train_scan_against_the_eager_loop(name)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _train_scan_against_the_eager_loop(name):
+    trainer, stacked = _scan_case(name)
+    state = trainer.init_state(0)
+    state, _ = trainer.train_scan(state, trainer.shard_stacked_batch(stacked))  # eager
+    assert trainer.scan_graphs() == []
+    start = trainer.host_state(state)
+    kernels.reset_counts()
+    placed = trainer.shard_stacked_batch(stacked)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, fused = trainer.train_scan(state, placed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    fused_counts = kernels.counts()
+    (graph,) = trainer.scan_graphs()
+    assert graph["kind"] == "train_scan" and graph["pool_bytes"] >= 0
+    assert state.step == 2 * _SCAN_T
+    fused_state = trainer.host_state(state)
+    state = trainer.adopt_restored(start, state)
+    kernels.reset_counts()
+    state, per_step = trainer.run_train_steps(state, _scan_steps(stacked))
+    assert kernels.counts() == fused_counts
+    if name == "transformer_lm":
+        assert fused_counts[tfa.KERNEL] == 2 * 2 * _SCAN_T  # remat: two forwards a layer
+    rel = 1e-6 if name == "wide_deep" else 0
+    want = torch.stack([m["loss"] for m in per_step]).cpu().numpy()
+    _assert_states({"loss": fused["loss"].cpu().numpy()}, {"loss": want}, rel)
+    _assert_states(fused_state, trainer.host_state(state), rel)
+
+
+def test_cuda_restore_drops_the_graphs_and_the_next_scan_trains_the_restored_state(card):
+    trainer, stacked = _scan_case("transformer_lm")
+    state = trainer.init_state(0)
+    for _ in range(2):  # eager, then captured
+        state, _ = trainer.train_scan(state, trainer.shard_stacked_batch(stacked))
+    assert len(trainer.scan_graphs()) == 1
+    saved = trainer.host_state(state)
+    state, _ = trainer.train_scan(state, trainer.shard_stacked_batch(stacked))
+    # A restore replaces the optimizer's slots: the graph points at dead
+    # tensors and must go; the next scan captures anew on the live ones.
+    state = trainer.adopt_restored(saved, state)
+    state, fused = trainer.train_scan(state, trainer.shard_stacked_batch(stacked))
+    assert len(trainer.scan_graphs()) == 1
+    got = trainer.host_state(state)
+    state = trainer.adopt_restored(saved, state)
+    state, per_step = trainer.run_train_steps(state, _scan_steps(stacked))
+    _assert_states(got, trainer.host_state(state), 0)
+    assert torch.equal(fused["loss"], torch.stack([m["loss"] for m in per_step]))
+
+
+def test_cuda_eval_scan_replays_equal_to_per_step_eval(card):
+    trainer, stacked = _scan_case("wide_deep")
+    state = trainer.init_state(0)
+    for _ in range(2):
+        got = trainer.eval_scan(state, trainer.shard_stacked_batch(stacked))
+    assert [g["kind"] for g in trainer.scan_graphs()] == ["eval_scan"]
+    per_step = [trainer.eval_step(state, trainer.shard_batch(b)) for b in _scan_steps(stacked)]
+    for k in got:
+        assert torch.equal(got[k], torch.stack([m[k] for m in per_step])), k
+
+
+def test_cuda_a_fifth_scan_variant_raises(card):
+    from elasticdl_tpu_torch.parallel.trainer import ScanBudgetError
+
+    trainer, stacked = _scan_case("mnist")
+    state = trainer.init_state(0)
+    for t in (1, 2, 3, 1, 2, 3):  # each variant eager, then captured
+        part = {k: v[:t] for k, v in stacked.items()}
+        state, _ = trainer.train_scan(state, trainer.shard_stacked_batch(part))
+    twice = {k: np.concatenate([v, v]) for k, v in stacked.items()}
+    state, _ = trainer.train_scan(state, trainer.shard_stacked_batch(twice))
+    with pytest.raises(ScanBudgetError):
+        trainer.train_scan(state, trainer.shard_stacked_batch(
+            {k: np.concatenate([v, v, v]) for k, v in stacked.items()}))
+    assert len(trainer.scan_graphs()) == 3
+
+
+def test_cuda_a_step_that_syncs_fails_the_capture_without_falling_back(card):
+    from elasticdl_tpu_torch.parallel.trainer import TrainLoopError
+
+    trainer, stacked = _scan_case("mnist")
+    state = trainer.init_state(0)
+    state, _ = trainer.train_scan(state, trainer.shard_stacked_batch(stacked))  # eager
+    step = trainer._train_step  # the step a scan runs
+
+    def syncing(state, batch):
+        out = step(state, batch)
+        float(out[1]["loss"])  # a host sync: illegal under capture
+        return out
+
+    trainer._train_step = syncing
+    with pytest.raises(TrainLoopError) as info:
+        trainer.train_scan(state, trainer.shard_stacked_batch(stacked))
+    assert info.value.state is None and trainer.scan_graphs() == []
+
+
+def test_cuda_eval_and_predict_after_a_replay_see_the_trained_weights(card):
+    """A replayed training graph updates the weights behind autograd's
+    back: the model's kept bf16 casts (keyed on version counters) must not
+    serve the old weights, and a captured eval must cast afresh."""
+    trainer, stacked = _scan_case("transformer_lm")
+    state = trainer.init_state(0)
+    placed = trainer.shard_stacked_batch(stacked)
+    for _ in range(2):  # eager, then captured: train and eval in turns
+        state, _ = trainer.train_scan(state, placed)
+        trainer.eval_scan(state, placed)
+    state, _ = trainer.train_scan(state, placed)  # a replay
+    got = trainer.eval_scan(state, placed)  # a replay
+    per_step = [trainer.eval_step(state, b) for b in _scan_steps(placed)]
+    for k in got:
+        assert torch.equal(got[k], torch.stack([m[k] for m in per_step])), k
+    toks = {"tokens": stacked["tokens"][0]}
+    live = trainer.run_predict_step(state.model, toks)
+    fresh = trainer.adopt_restored(trainer.host_state(state)).model
+    assert torch.equal(live, trainer.run_predict_step(fresh, toks))
+
+
+def test_cuda_an_unused_parameter_does_not_hold_the_capture_back(card):
+    """A parameter that takes no gradient gets no optimizer slots: the
+    second task still captures, and a restore (which gives it slots) costs
+    one eager task before the next capture, never the per-step loop for
+    good.  Each path trains as the eager loop does (cuDNN deterministic, as
+    ``test_cuda_train_scan_replays_one_graph_equal_to_the_eager_loop``)."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _unused_parameter_case()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _unused_parameter_case():
+    trainer, stacked = _scan_case("mnist")
+    init = trainer.spec.init
+
+    def with_unused_head(seed, device):
+        model = init(seed=seed, device=device)
+        model.register_parameter("unused_head", torch.nn.Parameter(torch.zeros(4, 2, device=device)))
+        return model
+
+    trainer.spec = dataclasses.replace(trainer.spec, init=with_unused_head)
+    state = trainer.init_state(0)
+    placed = trainer.shard_stacked_batch(stacked)
+    state, _ = trainer.train_scan(state, placed)  # eager
+    state, _ = trainer.train_scan(state, placed)  # captured
+    assert [g["kind"] for g in trainer.scan_graphs()] == ["train_scan"]
+    saved = trainer.host_state(state)
+    state = trainer.adopt_restored(saved, state)
+    state, _ = trainer.train_scan(state, placed)  # eager: the restore added slots
+    state, fused = trainer.train_scan(state, placed)  # captured again
+    assert len(trainer.scan_graphs()) == 1 and state.step == 4 * _SCAN_T
+    got = trainer.host_state(state)
+    state = trainer.adopt_restored(saved, state)
+    state, _ = trainer.run_train_steps(state, _scan_steps(stacked))
+    state, per_step = trainer.run_train_steps(state, _scan_steps(stacked))
+    _assert_states(got, trainer.host_state(state), 0)
+    assert torch.equal(fused["loss"], torch.stack([m["loss"] for m in per_step]))
+
+
+def test_cuda_zoo_template_trains_through_the_worker_on_the_fused_path(card, tmp_path,
+                                                                     monkeypatch):
+    """The ``zoo init`` template (a plain ``torch.optim.Adam``) through the
+    worker's default path on the card: its first task eager, the next
+    captured and then replayed, each task one ``train_scan``; the trainer
+    made the optimizer capturable; the state equals the per-step path's."""
+    import sys
+
+    from elasticdl_tpu_torch.client import zoo
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.data.reader import Shard, create_data_reader
+    from elasticdl_tpu_torch.data.synthetic import generate
+    from elasticdl_tpu_torch.master.task_dispatcher import Task
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    zoo.zoo_init(str(tmp_path / "cuda_zoo"))
+    monkeypatch.syspath_prepend(str(tmp_path))
+    try:
+        spec = load_model_spec("cuda_zoo", "template.model_spec")
+    finally:
+        for name in [m for m in sys.modules if m.split(".")[0] == "cuda_zoo"]:
+            del sys.modules[name]
+    spec = dataclasses.replace(spec, feed=mnist.model_spec().feed)
+    mb, tasks = 16, 3
+    path = str(tmp_path / "mnist.rio")
+    generate("mnist", path, tasks * 2 * mb, seed=3)
+
+    def run(**cfg):
+        config = JobConfig(model_def="template.model_spec", training_data=path,
+                           minibatch_size=mb, task_pipelining=False, **cfg)
+        worker = Worker(config, master=None, reader=create_data_reader(path), spec=spec)
+        assert worker.trainer.device.type == "cuda"
+        worker.state = worker.trainer.init_state(0)
+        scans = []
+        scan = worker.trainer.train_scan
+
+        def counted(state, stacked):
+            scans.append(int(next(iter(stacked.values())).shape[0]))
+            return scan(state, stacked)
+
+        worker.trainer.train_scan = counted
+        for i in range(tasks):
+            worker._run_training_task(
+                Task(task_id=i, shard=Shard(name=path, start=2 * mb * i, end=2 * mb * (i + 1))))
+        return worker, scans
+
+    fused, scans = run()
+    assert scans == [2] * tasks and fused.state.step == 2 * tasks
+    assert all(g["capturable"] for g in fused.state.optimizer.param_groups)
+    assert [g["kind"] for g in fused.trainer.scan_graphs()] == ["train_scan"]
+    per_step, none = run(fused_task_scan=False)
+    assert none == [] and per_step.state.step == 2 * tasks
+    _assert_states(fused.trainer.host_state(fused.state),
+                   per_step.trainer.host_state(per_step.state), 0)

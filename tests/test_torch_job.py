@@ -339,7 +339,8 @@ def test_failed_step_recovers_from_the_newest_checkpoint(tmp_path, monkeypatch):
     reported failed and requeued, and the job completes."""
     train, val = _data(tmp_path)
     ckpt = str(tmp_path / "ckpt")
-    orig = ttrainer.Trainer.train_step
+    # The step every path runs (``train_step`` and the fused scans alike).
+    orig = ttrainer.Trainer._train_step
     calls = {"n": 0}
 
     def flaky(self, state, batch):
@@ -349,7 +350,7 @@ def test_failed_step_recovers_from_the_newest_checkpoint(tmp_path, monkeypatch):
             raise RuntimeError("injected step failure")
         return result
 
-    monkeypatch.setattr(ttrainer.Trainer, "train_step", flaky)
+    monkeypatch.setattr(ttrainer.Trainer, "_train_step", flaky)
     recovered = []
     orig_recover = Worker._recover_state
 
