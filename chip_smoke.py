@@ -71,13 +71,27 @@ exits non-zero without its result line:
    tail after a two-epoch job, whose AUC must exceed 0.5 on the planted
    rule;
 11. gang mode: (a) a ``Trainer`` over a one-rank NCCL process group at
-   phase 4's width and batch against the bare ``Trainer`` from the same
-   seeded state (twice, to show the step repeats): the states must be equal
-   bit for bit; its step p50, the bare one's and the NCCL kernels' device
-   time; (b) two NCCL ranks on the one card (the installed NCCL refuses
-   them; its error is logged), then two worker processes on the card
-   through the CLI's local mode (``--multihost --dcn_data_parallelism=2``,
-   the gloo backend on card tensors, 8 of each 16 examples a rank) over
+   phase 4's width and batch (remat on) against the bare ``Trainer`` from
+   the same seeded state (twice, to show the step repeats): the states must
+   be equal bit for bit; its step p50, the bare one's and the NCCL kernels'
+   device time.  Then its fused dispatch: ``train_scan`` of T=4 steps, a
+   warm (eager) task, then the capture with the all-reduces inside the
+   graph; a replay under ``torch.cuda.set_sync_debug_mode("error")``
+   against the per-step loop over the same group from the same state (the
+   losses, every parameter and optimizer slot bit for bit, the flash
+   launches 24/12/12 a step on both); the collective calls the capture
+   recorded, which a replay adds, equal to an eager task's; the NCCL
+   kernels of one profiled replay against one eager task's (none in either:
+   NCCL returns at once from a one-rank in-place all-reduce); the
+   contributor mask set to all-zero between the capture and a replay (the
+   replay equals the eager loop under that mask and differs from the
+   all-ones replay); ``eval_scan`` likewise; the step ms both ways, the
+   capture seconds and the graph pool bytes.  (b) two NCCL ranks on the
+   one card (the installed NCCL refuses them; its error is logged), then
+   two worker processes on the card through the CLI's local mode
+   (``--multihost --dcn_data_parallelism=2``, the gloo backend on card
+   tensors, 8 of each 16 examples a rank, each task one ``train_scan`` run
+   eagerly: gloo's calls cannot be captured) over
    phase 7's files with eval rounds: rank 1 is SIGKILLed at a task boundary
    past step 20, rank 0's collective fails, it snapshots and exits 3, the
    pod manager relaunches both, the gang re-forms from the snapshot and
@@ -202,9 +216,12 @@ exits non-zero without its result line:
    (device-busy ms and kernels a step); capture seconds and the graph
    pool's bytes; a fifth batch variant raises ``ScanBudgetError``.
 
-Every single-process training and eval task of phases 7-10 and 14 runs
+Every training and eval task of the jobs of phases 7-12, 14 and 15 runs
 fused by default (one ``train_scan`` a task plus a step for a ragged
-tail); the gangs and the host tier stay per step.
+tail): captured alone on the card, eagerly in the gloo gangs of phases
+11 (b), 12 and 15 (d), the ragged lookup's job included.  Only the host
+tier (phase 13) stays per step: its pulls and pushes run around every
+step.
 
 Prints the card's name and power limit first, a ``{"kernels": [...]}``
 line before the last, and ``{"ok": true, "device": {...}}`` last.  The
@@ -2034,10 +2051,14 @@ def phase_deepfm(card: str) -> dict:
 
 
 # Phase 11 (a): a world of one over NCCL, in this process, at phase 4's
-# width and batch: GANG_STEPS steps through a Trainer over the process group
-# and through a bare Trainer from the same seeded state, twice for the bare
-# one (the premise: the step is deterministic on the card).
+# width and batch (remat on): GANG_STEPS steps through a Trainer over the
+# process group and through a bare Trainer from the same seeded state,
+# twice for the bare one (the premise: the step is deterministic on the
+# card); then that Trainer's fused dispatch over tasks of GANG_SCAN_T
+# steps, GANG_TIMED_TASKS of each path timed in turns.
 GANG_STEPS = 8
+GANG_SCAN_T = 4
+GANG_TIMED_TASKS = 2
 # Phase 11 (b): two worker processes on the one card through the CLI's
 # local mode, the gloo backend on card tensors, phase 7's files (one epoch:
 # 8 tasks of 4 minibatches of 16, 32 steps), a checkpoint every 8 steps,
@@ -2083,7 +2104,8 @@ def phase_gang_world1(card: str, train_p50_ms: float) -> dict:
     the bare ``Trainer`` at the same width, from the same seeded state on
     the same batches: the states must be equal bit for bit (a sum over one
     rank divided by one is exact).  Step p50 against phase 4's; the
-    all-reduce's device time from a profile of one step."""
+    all-reduce's device time from a profile of one step.  Then the same
+    trainer's fused dispatch (``_gang_scan``)."""
     import datetime
 
     import torch.distributed as dist
@@ -2098,7 +2120,7 @@ def phase_gang_world1(card: str, train_p50_ms: float) -> dict:
 
     names = (fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL)
     layers = TRAIN_WIDTH["n_layers"]
-    spec = transformer_lm.model_spec(compute_dtype="bfloat16", remat=False, **TRAIN_WIDTH)
+    spec = transformer_lm.model_spec(compute_dtype="bfloat16", remat=True, **TRAIN_WIDTH)
     rng = np.random.default_rng(11)
     toks = _planted_sequences(rng, TRAIN_BATCH * (GANG_STEPS + 1), TRAIN_WIDTH["seq_len"],
                               TRAIN_WIDTH["vocab"])
@@ -2165,7 +2187,10 @@ def phase_gang_world1(card: str, train_p50_ms: float) -> dict:
         nccl_ms = sum(ms for k, ms in by_kernel.items() if "nccl" in k.lower())
         device_ms = sum(by_kernel.values())
         reduced = sum(p.numel() for p in state.model.parameters()) + len(metrics[0])
-        del gang, state, holder
+        del state, holder
+        torch.cuda.empty_cache()
+        scan = _gang_scan(gang, batches, card)
+        del gang
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
@@ -2188,13 +2213,155 @@ def phase_gang_world1(card: str, train_p50_ms: float) -> dict:
         + json.dumps(counts) + f" on {card}")
     assert not same_bare, f"two bare runs differ in {same_bare[:5]}: the step does not repeat"
     assert not diff, f"the world-1 gang state differs from the bare Trainer's in {diff[:5]}"
-    assert counts == {n: layers * GANG_STEPS for n in names}, counts
+    # remat: two forwards a layer a step.
+    assert counts == {n: (2 if n == fa.KERNEL else 1) * layers * GANG_STEPS
+                      for n in names}, counts
     return {"steps": GANG_STEPS, "step_ms": step_ms, "p50_step_ms": p50,
             "bare_step_ms": bare_ms, "bare_p50_step_ms": bare_p50,
             "phase4_p50_ms": train_p50_ms, "nccl_allreduce_ms": nccl_ms,
             "step_device_ms": device_ms, "reduced_bytes": reduced * 4,
-            "losses": [float(m["loss"]) for m in metrics], "launches": counts,
-            "arrays_equal": len(got) - len(diff)}
+            "losses": [float(m["loss"]) for m in metrics],
+            # The per-step run's launches and the scan's replayed task's.
+            "launches": {n: counts[n] + scan["launches"][n] for n in names},
+            "per_step_launches": counts, "arrays_equal": len(got) - len(diff), "scan": scan}
+
+
+def _force_mask(trainer, mask) -> None:
+    """Set the contributor mask, the all-zero one included, which
+    ``set_active_contributors`` refuses (an empty subgroup has no mean) and
+    which is the only other mask of a world of one: the step then weighs
+    every example by 0."""
+    trainer._active_np = np.asarray(mask, np.float32)
+    trainer._write_weight()
+
+
+def _nccl_kernels(fn) -> dict:
+    """The NCCL kernels one ``fn()`` runs on the device (torch.profiler):
+    their count, device ms and names, and the kernels in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ran = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    nccl = [(name, us) for name, us in ran if "nccl" in name.lower()]
+    return {"count": len(nccl), "ms": sum(us for _, us in nccl) / 1e3,
+            "names": sorted({name[:80] for name, _ in nccl}), "kernels": len(ran)}
+
+
+def _gang_scan(gang, batches: list, card: str) -> dict:
+    """Phase 11 (a)'s fused half, on the one-rank NCCL ``gang`` trainer (its
+    deterministic kernels on): phase 17's checks (``_fused_checks``: a warm
+    eager task, the capture, a replay under sync-debug "error" against the
+    per-step loop bit for bit with equal launch counts, a restore then a
+    fused task, ``eval_scan``); a replay's collective calls against an
+    eager task's; the NCCL kernels of one profiled replay against an eager
+    task's; the mask read at replay; the step ms of both paths in turns."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    names = (fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL)
+    layers, t = TRAIN_WIDTH["n_layers"], GANG_SCAN_T
+    stacked = {k: np.stack([np.asarray(b[k]) for b in batches[:t]]) for k in batches[0]}
+    readings, fused_counts, state, capture_task_s = _fused_checks(gang, stacked)
+    assert all(v == 0.0 for v in readings.values()), readings
+    assert fused_counts == {n: (2 if n == fa.KERNEL else 1) * layers * t
+                            for n in names}, fused_counts
+    graphs = gang.scan_graphs()
+    graph = next(g for g in graphs if g["kind"] == "train_scan")
+    placed = gang.shard_stacked_batch(stacked)
+    steps = [{k: v[i] for k, v in placed.items()} for i in range(t)]
+    red = gang.reducer
+
+    # The collective calls a replayed task adds against an eager task's.
+    before = red.calls
+    state, _ = gang.train_scan(state, placed)
+    replay_calls = red.calls - before
+    before = red.calls
+    state, _ = gang.run_train_steps(state, steps, pre_sharded=True)
+    eager_calls = red.calls - before
+    assert replay_calls == eager_calls == sum(graph["collectives"].values()) > 0, (
+        replay_calls, eager_calls, graph["collectives"])
+
+    # The NCCL kernels of one profiled replay against one eager task's.  A
+    # one-rank in-place all-reduce launches none in either (NCCL returns
+    # at once for one rank): the calls captured are the Reducer's tally.
+    holder = [state]
+
+    def replay():
+        holder[0] = gang.train_scan(holder[0], placed)[0]
+
+    def eager():
+        holder[0] = gang.run_train_steps(holder[0], steps, pre_sharded=True)[0]
+
+    nccl = {"replay": _nccl_kernels(replay), "eager": _nccl_kernels(eager)}
+    state = holder[0]
+    assert nccl["replay"]["count"] == nccl["eager"]["count"], nccl
+
+    # The mask read at replay: all-zero between the capture and a replay.
+    start = gang.host_state(state)
+    _force_mask(gang, [0.0])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, zero = gang.train_scan(state, placed)  # the graph captured under all-ones
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _force_mask(gang, [1.0])
+    zero_state = gang.host_state(state)
+    state = gang.adopt_restored(start, state)
+    _force_mask(gang, [0.0])
+    state, per_step = gang.run_train_steps(state, steps, pre_sharded=True)
+    _force_mask(gang, [1.0])
+    mask_readings = {
+        "zero_replay_vs_loop_state": _fused_diff(zero_state, gang.host_state(state)),
+        "zero_replay_vs_loop_losses": _fused_diff(
+            {"loss": zero["loss"].float().cpu().numpy()},
+            {"loss": torch.stack([m["loss"] for m in per_step]).float().cpu().numpy()}),
+    }
+    state = gang.adopt_restored(start, state)
+    state, ones = gang.train_scan(state, placed)  # captured anew, all-ones
+    ones_state = gang.host_state(state)
+    differ = [k for k in ones_state if k.startswith("params/")
+              and not np.array_equal(ones_state[k], zero_state[k])]
+    zero_loss = float(zero["loss"].abs().sum())
+    assert all(v == 0.0 for v in mask_readings.values()), mask_readings
+    assert zero_loss == 0.0 and differ, (zero_loss, len(differ))
+    del start, zero_state, ones_state
+
+    # Times: per-step and fused tasks in turns (CUDA events), over T.
+    timing = {"per_step": [], "fused": []}
+    holder = [state]
+    for _ in range(GANG_TIMED_TASKS):
+        for arm in ("per_step", "fused"):
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            if arm == "fused":
+                holder[0] = gang.train_scan(holder[0], placed)[0]
+            else:
+                holder[0] = gang.run_train_steps(holder[0], steps, pre_sharded=True)[0]
+            b.record()
+            torch.cuda.synchronize()
+            timing[arm].append(a.elapsed_time(b) / t)
+    step_ms = {arm: statistics.median(v) for arm, v in timing.items()}
+    graphs = gang.scan_graphs()
+    log(f"[gang1] fused over NCCL, T={t}: replay = per-step loop bit for bit "
+        + json.dumps(readings) + f"; launches a task {json.dumps(fused_counts)} on both paths; "
+        f"{replay_calls} collective calls a replayed task, {eager_calls} an eager one; NCCL "
+        f"kernels, replay and eager task {json.dumps(nccl)}; mask all-zero at replay: equal to the "
+        f"eager loop under it {json.dumps(mask_readings)}, {len(differ)} parameters differ "
+        f"from the all-ones replay; step ms per step {step_ms['per_step']:.3f}, fused "
+        f"{step_ms['fused']:.3f} ({timing}); capture {graph['capture_s']:.2f} s (the task "
+        f"that captured {capture_task_s:.2f} s), graph pools "
+        + json.dumps({g["kind"]: g["pool_bytes"] for g in graphs}) + f" bytes; on {card}")
+    del state, holder
+    return {"t": t, "readings": readings, "mask_readings": mask_readings,
+            "launches": fused_counts, "replay_collective_calls": replay_calls,
+            "eager_collective_calls": eager_calls, "collectives": graph["collectives"],
+            "nccl_kernels": nccl, "params_differ_zero_vs_ones": len(differ),
+            "step_ms": step_ms, "step_ms_all": timing, "capture_s": graph["capture_s"],
+            "capture_task_s": capture_task_s,
+            "graphs": [{k: g[k] for k in ("kind", "capture_s", "pool_bytes")} for g in graphs]}
 
 
 def _nccl_pair_on_one_card() -> str:
@@ -2217,6 +2384,15 @@ def _nccl_pair_on_one_card() -> str:
     lines = [x.strip() for x in text.splitlines()
              if "Error" in x or "error" in x or "Duplicate" in x or "invalid" in x.lower()]
     return "refused (rcs %s): %s" % ([p.returncode for p in procs], " | ".join(lines[-3:])[:600])
+
+
+def _assert_fused_gang(logs: dict) -> None:
+    """Every gang worker's log says its tasks ran as one ``train_scan`` each,
+    the steps eagerly (gloo)."""
+    for name, text in logs.items():
+        if text:
+            assert "task dispatch: fused" in text, f"{name} did not take the fused path"
+            assert "scans: the steps eagerly" in text, f"{name}'s scans did not run eagerly"
 
 
 def phase_gang_pair(card: str) -> dict:
@@ -2295,6 +2471,7 @@ def phase_gang_pair(card: str) -> dict:
                     digests[n][e["step"]] = e["digest"]
 
     # The job: every task done once; the exit codes; the worlds formed.
+    _assert_fused_gang(logs)
     assert status["finished"] and status["done"] == n_tasks, status
     assert status["abandoned"] == 0 and status["duplicate_done"] == 0, status
     assert np.isfinite(status["eval_metrics"]["loss"]), status
@@ -2634,6 +2811,7 @@ def _ps_job(card: str, route: str, train: str, out: str, epochs: int, kill: bool
                 if e["event"] == "checkpoint":
                     digests[n][e["step"]] = e["digest"]
     n_tasks = epochs * PS_EPOCH_STEPS // PS_MB_PER_TASK
+    _assert_fused_gang(logs)
     assert status["finished"] and status["done"] == n_tasks, status
     assert status["abandoned"] == 0 and status["duplicate_done"] == 0, status
     for n in (w0, w1):
@@ -4080,6 +4258,7 @@ def _rt_cli(card: str) -> dict:
     per_task = GANG_FLAGS["minibatch_size"] * GANG_FLAGS["num_minibatches_per_task"]
     n_tasks = RT_CLI_TRAIN // per_task
     epoch_steps = n_tasks * GANG_FLAGS["num_minibatches_per_task"]
+    _assert_fused_gang(logs)
     assert status["finished"] and status["done"] == n_tasks, status
     assert status["abandoned"] == 0 and status["duplicate_done"] == 0, status
     assert status["eval_rounds"] >= 1 and np.isfinite(status["eval_metrics"]["loss"]), status
@@ -4262,17 +4441,17 @@ FLEET_BUCKETS = [1, 2]
 # forward at the smallest bucket, then one warm-up forward a bucket.
 FLEET_WARM_FORWARDS = 1 + len(FLEET_BUCKETS)
 # (c) The offered load: one-sequence Predicts at FLEET_QPS a second, open
-# loop, FLEET_LOAD_S seconds at 2 and at 3 replicas: 50 requests a window,
-# so a window's p90 rests on five samples (its p99 on the top one; longer
-# windows do not fit the script's time limit on a slow host beside phase
-# 17).  A Predict answers with
+# loop, FLEET_LOAD_S seconds at 2 and at 3 replicas: 40 requests a window,
+# so a window's p90 rests on four samples (its p99 on the top one; longer
+# windows do not fit the script's time limit on a slow host beside phases
+# 11 (a) and 17).  A Predict answers with
 # ~12 MB of JSON that the replica encodes and one client process decodes
 # ((b) times both), so the rate sits below one answer a second a replica.
 # The retirement runs under bulk-lane traffic at FLEET_BULK_QPS (outside the
 # online p99 the law reads).  The SLO target is below one flush, so real
 # online traffic breaks it.  (d) offers FLEET_KILL_QPS, which the one
 # surviving replica carries while the spare comes up.
-FLEET_QPS, FLEET_LOAD_S, FLEET_BULK_QPS, FLEET_KILL_QPS = 2.0, 25.0, 1.0, 1.5
+FLEET_QPS, FLEET_LOAD_S, FLEET_BULK_QPS, FLEET_KILL_QPS = 2.0, 20.0, 1.0, 1.5
 FLEET_AUTOSCALE = dict(min_replicas=2, max_replicas=3, target_p99_ms=1.0, up_consecutive=2,
                        down_consecutive=2, cooldown_polls=1, drain_s=1.5)
 
@@ -4797,7 +4976,7 @@ def _fused_checks(trainer, stacked: dict):
 
     state = trainer.init_state(0)
     placed = trainer.shard_stacked_batch(stacked)
-    steps = [{k: v[i] for k, v in placed.items()} for i in range(FUSED_T)]
+    steps = [{k: v[i] for k, v in placed.items()} for i in range(len(placed["labels"]))]
     readings = {}
 
     # (a) The variant's first task runs eagerly (the optimizer makes its

@@ -56,7 +56,8 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from contextlib import contextmanager
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -210,7 +211,11 @@ class Reducer:
     state).  Under gloo the call returns once the reduction is done; on card
     tensors the stream's earlier work is waited for first, outside the
     clock, so ``seconds`` is the collective's own.  Under NCCL the call
-    only enqueues, and ``seconds`` is the host's enqueue time."""
+    only enqueues, and ``seconds`` is the host's enqueue time.  A call
+    onto a stream that a CUDA graph captures (``capturing``) is recorded,
+    not run: it goes to the capture's tally, and each replay of the graph
+    adds the tally's calls and their enqueue seconds (``add_replay``), so
+    the counters read as they would after the same steps run eagerly."""
 
     def __init__(self, mesh, topo: Optional[CollectiveTopology] = None):
         self.mesh = mesh
@@ -221,6 +226,32 @@ class Reducer:
         self.seconds = 0.0
         self.calls = 0
         self.by_op: Dict[str, float] = {}
+        self._capture_tally: Optional[Dict[str, List]] = None
+
+    @contextmanager
+    def capturing(self) -> Iterator[Dict[str, List]]:
+        """The calls recorded while a CUDA graph captures: yields the tally
+        ``{"<tag>:<op>": [calls, seconds]}`` that each replay adds with
+        ``add_replay``.  Only calls onto a capturing stream go there (the
+        checkpoint thread's gathers run as ever).  One capture at a time."""
+        with self._lock:
+            if self._capture_tally is not None:
+                raise RuntimeError("a capture is already open")
+            tally: Dict[str, List] = {}
+            self._capture_tally = tally
+        try:
+            yield tally
+        finally:
+            with self._lock:
+                self._capture_tally = None
+
+    def add_replay(self, tally: Dict[str, List]) -> None:
+        """One replay of a captured graph: its recorded calls ran."""
+        with self._lock:
+            for key, (n, dt) in tally.items():
+                self.calls += n
+                self.seconds += dt
+                self.by_op[key] = self.by_op.get(key, 0.0) + dt
 
     def _collective(self, fn, group, tensors: List[torch.Tensor], op: str = "all_reduce",
                     tag: str = "grads") -> None:
@@ -237,6 +268,12 @@ class Reducer:
         dt = time.perf_counter() - t0
         key = f"{tag}:{op}"
         with self._lock:
+            if (self._capture_tally is not None and tensors[0].is_cuda
+                    and torch.cuda.is_current_stream_capturing()):
+                entry = self._capture_tally.setdefault(key, [0, 0.0])
+                entry[0] += 1
+                entry[1] += dt
+                return
             self.seconds += dt
             self.calls += 1
             self.by_op[key] = self.by_op.get(key, 0.0) + dt

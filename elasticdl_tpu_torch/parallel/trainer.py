@@ -132,10 +132,22 @@ a recovery): a stale graph would train tensors no one reads.  A failed
 capture or replay raises ``TrainLoopError(None, ...)`` (recover from the
 checkpoint; the reference's scan donates its state) and never falls back
 to eager steps.  On the CPU, which the caller must ask for, both scans run
-their steps eagerly, bit for bit the per-step loop.  Kernel launches under
-capture are counted at each replay (``ops/kernels.capturing``).  Neither
-scan runs with host-tier tables (as in the reference) nor, on the card, in
-a process group: gloo's collectives cannot be captured.
+their steps eagerly, bit for bit the per-step loop.  Kernel launches and
+collective calls under capture are counted at each replay
+(``ops/kernels.capturing``, ``Reducer.capturing``).  Neither scan runs
+with host-tier tables (as in the reference).
+
+In a process group (a gang) the backend decides (``_scan_captures``,
+logged once): over NCCL the steps' collectives are enqueued on the
+capturing stream and recorded into the graph with the kernels, so a task
+is one replay as alone; over gloo, whose calls wait for the stream on the
+host (``Reducer._collective``), the scans run their steps eagerly, one
+call a task, on the card as on the CPU.  Neither is a fallback of the
+other.  The contributor weights are 0-d device tensors
+(``_weight``, the reference's ``_active_device``) that
+``set_active_contributors`` writes in place, so a replay reads the mask
+set before it.  Where the scan would capture, the ragged lookup is refused
+(``scan_unsupported``): its split sizes are a host copy inside the step.
 """
 
 from __future__ import annotations
@@ -231,14 +243,17 @@ class ScanMetrics(dict):
 
 class _Graph:
     """One captured scan: the graph, the stacked inputs it reads, the
-    outputs it writes (``{name: [T, ...]}``), the kernel launches one
-    replay runs, the capture's seconds and the bytes of its pool."""
+    outputs it writes (``{name: [T, ...]}``), the kernel launches and the
+    collective calls one replay runs, the capture's seconds and the bytes
+    of its pool."""
 
-    __slots__ = ("graph", "inputs", "outputs", "tally", "capture_s", "pool_bytes")
+    __slots__ = ("graph", "inputs", "outputs", "tally", "collectives", "capture_s",
+                 "pool_bytes")
 
-    def __init__(self, graph, inputs, outputs, tally, capture_s, pool_bytes):
+    def __init__(self, graph, inputs, outputs, tally, collectives, capture_s, pool_bytes):
         self.graph, self.inputs, self.outputs = graph, inputs, outputs
-        self.tally, self.capture_s, self.pool_bytes = tally, capture_s, pool_bytes
+        self.tally, self.collectives = tally, collectives
+        self.capture_s, self.pool_bytes = capture_s, pool_bytes
 
 
 @dataclasses.dataclass
@@ -525,6 +540,7 @@ class Trainer:
         self._graphs: Dict[Tuple[str, tuple], _Graph] = {}
         self._graph_sig: Optional[tuple] = None
         self._stacked_bufs: Dict[tuple, Dict[str, torch.Tensor]] = {}
+        self._scan_mode_logged = False  # gil-atomic (a log-once flag: a race logs twice)
 
     def _make_host_stores(self) -> Dict[str, Any]:
         """The host-tier stores: one ``RemoteEmbeddingStore`` a table over
@@ -613,6 +629,11 @@ class Trainer:
         # the mask's sum times this.
         self._ranks_per_contributor = (
             coll.contributor_count(mesh, self.reduce_axes) // self.num_contributors())
+        # This rank's contributor weight and the weights' psum, on the
+        # device (``_weight``): made once, written in place.
+        self._w_dev = torch.empty((), dtype=torch.float32, device=self.device)
+        self._n_active_dev = torch.empty((), dtype=torch.float32, device=self.device)
+        self._write_weight()
         self.axis_name = names[-1]  # the embedding and sequence axis
         tables = self.spec.embedding_tables
         self.sharded_embeddings = (
@@ -666,16 +687,25 @@ class Trainer:
             if not mask.any():
                 raise ValueError("cannot exclude every contributor")
         self._active_np = mask
+        self._write_weight()
 
-    def _weight(self) -> Tuple[float, float]:
-        """This rank's contributor weight and the psum of the weights over
-        the reduce axes (the reference's ``n_active``: the mask's sum |G'|
-        times the ranks a contributor spans).  The mask is replicated, so
-        the sum is known here without a collective; a sum of 0/1 floats is
-        exact."""
+    def _write_weight(self) -> None:
+        """Write this rank's contributor weight and the psum of the weights
+        over the reduce axes (the reference's ``n_active``: the mask's sum
+        |G'| times the ranks a contributor spans) into their device tensors,
+        in place, on the current stream: the next step, or the next replay
+        of a captured one, reads them.  The mask is replicated, so the sum
+        is known here without a collective; a sum of 0/1 floats is exact."""
         w = (coll.contributor_weight(self._active_np, self.mesh, self.contributor_axes)
              if self.contributor_axes else float(self._active_np[0]))
-        return w, max(float(self._active_np.sum()) * self._ranks_per_contributor, 1.0)
+        self._w_dev.fill_(w)
+        self._n_active_dev.fill_(
+            max(float(self._active_np.sum()) * self._ranks_per_contributor, 1.0))
+
+    def _weight(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(this rank's contributor weight, the weights' psum): 0-d f32
+        tensors on the device (the reference's ``_active_device``)."""
+        return self._w_dev, self._n_active_dev
 
     def _psum(self, tree: Dict[str, torch.Tensor], skip=(), skip_axes=()) -> Dict[str, torch.Tensor]:
         """``tree`` summed over the reduce axes (the keys in ``skip`` over
@@ -1064,16 +1094,43 @@ class Trainer:
     def scan_unsupported(self) -> Optional[str]:
         """Why the fused scans cannot run on this trainer, or None: host-tier
         tables (their pulls need each step's host batch; the reference
-        refuses them too), a process group on the card (gloo's collectives
-        cannot be captured), or the ragged lookup (its split sizes are a
-        host copy inside the step)."""
+        refuses them too), or, where the scan would capture, the ragged
+        lookup (its split sizes are a host copy inside the step,
+        ``ops/embedding.py``, ``_RaggedLookup.forward``).  Eagerly (the CPU,
+        a gloo group) that copy is legal and the ragged route scans."""
         if self.spec.host_io:
             return "host-tier tables pull and push around every step"
-        if self._group is not None and self.device.type == "cuda":
-            return "the gang's collectives run over gloo, which a CUDA graph cannot capture"
-        if self.sharded_embeddings and self.ctx.embedding_impl == IMPL_RAGGED:
-            return "the ragged lookup copies its split sizes to the host inside the step"
+        if (self.sharded_embeddings and self.ctx.embedding_impl == IMPL_RAGGED
+                and self._scan_captures()):
+            return ("the ragged lookup copies its split sizes to the host inside the step "
+                    "(ops/embedding.py, _RaggedLookup.forward), which a CUDA graph cannot "
+                    "capture")
         return None
+
+    def _scan_captures(self) -> bool:
+        """Whether the scans capture CUDA graphs: on the card, alone or when
+        every process group of the mesh is NCCL's (its collectives only
+        enqueue on the stream, so the graph records them).  Every group
+        counts, not only the reduction's: a tp or table line runs its
+        collectives inside the step too.  Over gloo, whose calls wait for
+        the stream on the host (``Reducer._collective``), and on the CPU,
+        the scans run their steps eagerly.  The choice is logged once."""
+        groups = [g for g in self.mesh.groups.values() if g is not None]
+        if self.device.type != "cuda":
+            captures, why = False, "on the CPU"
+        elif not groups:
+            captures, why = True, "alone on the card"
+        else:
+            import torch.distributed as dist
+
+            backends = sorted({dist.get_backend(g) for g in groups})
+            captures = backends == ["nccl"]
+            why = f"process groups over {'+'.join(backends)} on the card"
+        if not self._scan_mode_logged:
+            self._scan_mode_logged = True
+            logger.info("scans: %s, %s", "one captured CUDA graph a task" if captures
+                        else "the steps eagerly, one call a task", why)
+        return captures
 
     @staticmethod
     def _variant(stacked: Dict[str, Any]) -> tuple:
@@ -1121,9 +1178,10 @@ class Trainer:
     def train_scan(self, state: TrainState, stacked: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, ScanMetrics]:
         """All T steps of a task (``stacked`` from ``shard_stacked_batch``):
-        (the state T steps on, ``{metric: [T] tensor}``).  On the card one
-        replay of the variant's captured graph (the module docstring);
-        eagerly on the CPU.  A failure raises ``TrainLoopError``."""
+        (the state T steps on, ``{metric: [T] tensor}``).  On the card, alone
+        or over NCCL, one replay of the variant's captured graph (the module
+        docstring); eagerly on the CPU and over gloo.  A failure raises
+        ``TrainLoopError``."""
         if self.spec.loss is None or state.optimizer is None:
             raise ValueError(f"model {self.spec.name!r} declares no loss or optimizer: it cannot train")
         n = self._scan_begin("train_scan", stacked)
@@ -1149,8 +1207,9 @@ class Trainer:
     def eval_scan(self, state: TrainState, stacked: Dict[str, torch.Tensor]) -> ScanMetrics:
         """The eval metrics of all T steps of a stacked device batch:
         ``{metric: [T, ...] tensor}``, the AUC histograms included (the
-        caller weighs each step by its count).  On the card one replay of
-        the variant's captured graph; eagerly on the CPU."""
+        caller weighs each step by its count).  On the card, alone or over
+        NCCL, one replay of the variant's captured graph; eagerly on the
+        CPU and over gloo."""
         n = self._scan_begin("eval_scan", stacked)
         if not self._graph_ready("eval_scan", stacked, state):
             return self._stack_metrics([self._eval_step(state, b)
@@ -1170,7 +1229,7 @@ class Trainer:
         """Check that the scan may run and its variant fits the budget;
         returns T."""
         reason = self.scan_unsupported()
-        if reason is not None and (self.spec.host_io or self.device.type == "cuda"):
+        if reason is not None:
             raise NotImplementedError(f"{kind}: {reason}")
         sizes = {int(v.shape[0]) for v in stacked.values()}
         if len(sizes) != 1 or 0 in sizes:
@@ -1213,16 +1272,18 @@ class Trainer:
 
     def _graph_ready(self, kind: str, stacked: Dict[str, torch.Tensor], state: TrainState) -> bool:
         """Whether this call replays a graph (captured now if need be) or
-        runs its steps eagerly: always eagerly on the CPU; on the card for
-        a variant's first call on this process (the libraries' first-call
-        work, the optimizer's lazy slots), and for a training call whose
-        optimizer slots are not laid out as the last eager task left them
-        (a restore cleared or added some: a capture would record their
-        making, and every replay would make them anew).  The eager task
-        lays them out, so each of these runs once.  A parameter that takes
-        no gradient has no slots and needs none.  Drops every graph when
-        the state's tensors changed."""
-        if self.device.type != "cuda":
+        runs its steps eagerly: always eagerly where the scans do not
+        capture (``_scan_captures``: the CPU, a gloo group); where they do,
+        for a variant's first call on this process (the libraries'
+        first-call work, the optimizer's lazy slots, an NCCL group's
+        communicator, which its first collective makes), and for a training
+        call whose optimizer slots are not laid out as the last eager task
+        left them (a restore cleared or added some: a capture would record
+        their making, and every replay would make them anew).  The eager
+        task lays them out, so each of these runs once.  A parameter that
+        takes no gradient has no slots and needs none.  Drops every graph
+        when the state's tensors changed."""
+        if not self._scan_captures():
             return False
         sig = self._state_signature(state)
         if sig != self._graph_sig:
@@ -1262,6 +1323,7 @@ class Trainer:
                     entry.inputs[k].copy_(v, non_blocking=True)
             entry.graph.replay()
             kernels.add_counts(entry.tally)
+            self.reducer.add_replay(entry.collectives)
             # Copies, so the next replay cannot overwrite what the caller
             # holds.
             return ScanMetrics({k: v.clone() for k, v in entry.outputs.items()})
@@ -1282,21 +1344,25 @@ class Trainer:
         t0 = time.perf_counter()
         # thread_local: the prep and checkpoint threads may pin host memory
         # or wait on their own streams while this thread captures.
-        with kernels.capturing() as tally, torch.cuda.graph(
+        # (c10d's watchdog thread queries an NCCL group's events meanwhile.)
+        with kernels.capturing() as tally, self.reducer.capturing() as calls, torch.cuda.graph(
                 graph, capture_error_mode="thread_local"):
             outputs = self._stack_metrics(body(views))
         capture_s = time.perf_counter() - t0
         pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        logger.info("%s: captured %d steps of %s in %.2f s (%d launches counted a replay, "
-                    "graph pool +%d bytes)", kind, len(views), self._variant(stacked),
-                    capture_s, sum(tally.values()), pool_bytes)
-        return _Graph(graph, inputs, outputs, dict(tally), capture_s, pool_bytes)
+        logger.info("%s: captured %d steps of %s in %.2f s (%d launches and %d collective "
+                    "calls counted a replay, graph pool +%d bytes)", kind, len(views),
+                    self._variant(stacked), capture_s, sum(tally.values()),
+                    sum(n for n, _ in calls.values()), pool_bytes)
+        return _Graph(graph, inputs, outputs, dict(tally), dict(calls), capture_s, pool_bytes)
 
     def scan_graphs(self) -> List[Dict[str, Any]]:
         """The captured graphs: kind, variant, capture seconds, the bytes
-        of the graph's pool, launches counted a replay."""
+        of the graph's pool, launches and collective calls (by tag and op)
+        counted a replay."""
         return [{"kind": kind, "variant": variant, "capture_s": g.capture_s,
-                 "pool_bytes": g.pool_bytes, "launches": dict(g.tally)}
+                 "pool_bytes": g.pool_bytes, "launches": dict(g.tally),
+                 "collectives": {k: n for k, (n, _) in g.collectives.items()}}
                 for (kind, variant), g in self._graphs.items()]
 
     # ---- the host tier (spec.host_io) ----

@@ -30,7 +30,9 @@ Gang mode (``multihost``): the worker processes of one membership form a
 (``worker/main.py``), each on one device, and train one model in lockstep:
 every rank walks the master's group task log (``GetGroupTask``) in the
 same order, takes its slice of each global batch and sums the gradients
-over the group (``parallel/trainer.py``); only rank 0 reports tasks and
+over the group (``parallel/trainer.py``), a task's full minibatches as one
+``train_scan`` as alone (one replay over NCCL, the steps eagerly over
+gloo); only rank 0 reports tasks and
 writes checkpoints.  Under the ParameterServer strategy or the sharded
 optimizer no rank holds the whole state (``Trainer.sharded_state``): every
 rank takes part in each checkpoint's snapshot, whose gathers are
@@ -1119,13 +1121,14 @@ class Worker:
 
     def _fused_eligible(self) -> Optional[str]:
         """Why a task's full minibatches cannot run as one fused scan
-        (``Trainer.train_scan``/``eval_scan``), or None: the flag off, gang
-        mode, or a trainer that cannot scan (host-tier tables, the ragged
-        lookup)."""
+        (``Trainer.train_scan``/``eval_scan``), or None: the flag off, or a
+        trainer that cannot scan (host-tier tables; the ragged lookup where
+        the scan captures).  Gang mode scans too (captured over NCCL, eager
+        over gloo: the trainer's choice); every rank of a gang picks the
+        same path, since the answer depends only on the replicated config
+        and the trainer's capability."""
         if not self.config.fused_task_scan:
             return "--fused_task_scan=False"
-        if self._group_mode:
-            return "gang mode: the steps' collectives run over gloo, which a CUDA graph cannot capture"
         return self.trainer.scan_unsupported()
 
     def _fused_path(self) -> bool:
@@ -1223,7 +1226,7 @@ class Worker:
         else made here.  On the fused path (``_fused_path``) its full
         minibatches go up in one copy a leaf (``shard_stacked_batch``) and
         run as ONE ``train_scan``, the tail as one more step; otherwise
-        (gang mode, host-tier tables) every minibatch runs through
+        (host-tier tables, the flag off) every minibatch runs through
         ``Trainer.run_train_steps``.  Without ``fused_task_scan`` each
         minibatch is fed on the prefetch thread as the steps consume them.  A failed step's task is reported
         failed and requeued either way; the state goes on from

@@ -465,3 +465,121 @@ def lm_mesh_runs(rank, world, runs, device="cpu"):
             "by_op": dict(trainer.reducer.by_op),
         })
     return results
+
+
+# ---- the fused dispatch in a gang -------------------------------------------------
+
+
+def _model_module(kind):
+    if kind == "transformer_lm":
+        from elasticdl_tpu_torch.models import transformer_lm as mod
+    else:
+        from elasticdl_tpu_torch.models import deepfm as mod
+    return mod
+
+
+def _run_plan(trainer, state, plan, fused):
+    """Walk ``plan`` on ``trainer``: ``("scan", stacked)`` (a stacked GLOBAL
+    host batch: one ``train_scan`` when ``fused``, else the per-step loop
+    over its steps), ``("step", batch)`` (one ``run_train_step``) and
+    ``("mask", active)`` (``set_active_contributors``).  Returns the state
+    and each scan's or step's metrics as numpy, ``{name: [n_steps]}``."""
+    import numpy as np
+    import torch
+
+    out = []
+    for kind, value in plan:
+        if kind == "mask":
+            trainer.set_active_contributors(value)
+            continue
+        if kind == "step":
+            state, m = trainer.run_train_step(state, value)
+            m = {k: v[None] for k, v in m.items()}
+        elif fused:
+            state, m = trainer.train_scan(state, trainer.shard_stacked_batch(value))
+        else:
+            n = next(iter(value.values())).shape[0]
+            state, per_step = trainer.run_train_steps(
+                state, [{k: v[i] for k, v in value.items()} for i in range(n)])
+            m = {k: torch.stack([s[k] for s in per_step]) for k in per_step[0]}
+        out.append({k: np.asarray(v.detach().cpu()).copy() for k, v in m.items()})
+    return state, out
+
+
+def gang_scans(rank, world, kind, model_kw, jax_params, plan):
+    """``kind`` over a ``(dp=world, ep=1)`` mesh from the carried JAX
+    weights through the fused dispatch (``_run_plan``): each scan's or
+    step's metrics, and the parameters after as the JAX tree."""
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+
+    mod = _model_module(kind)
+    trainer = Trainer(mod.model_spec(**model_kw), device="cpu",
+                      mesh=create_mesh(dcn_parallelism=world))
+    state = trainer.init_state(0)
+    state.model.load_jax_params(jax_params)
+    state, metrics = _run_plan(trainer, state, plan, fused=True)
+    return {"metrics": metrics, "params": mod.params_to_jax(state.model),
+            "captures": trainer._scan_captures(), "unsupported": trainer.scan_unsupported()}
+
+
+def gang_scan_against_loop(rank, world, kind, model_kw, dcn, config_kw, plan):
+    """Two trainers of ``kind`` over ``create_mesh(dcn_parallelism=dcn)``
+    with ``JobConfig(**config_kw)``, from one seed: one walks ``plan``
+    through ``train_scan``, the other through the per-step loop, in turns
+    (every rank in the same order).  Returns both runs' metrics and
+    canonical states, and the first trainer's sharded-state facts."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+
+    mesh = create_mesh(dcn_parallelism=dcn)
+    spec = _model_module(kind).model_spec(**model_kw)
+    out = {}
+    for fused in (True, False):
+        trainer = Trainer(spec, device="cpu", mesh=mesh, config=JobConfig(**config_kw))
+        state, metrics = _run_plan(trainer, trainer.init_state(0), plan, fused)
+        out["fused" if fused else "per_step"] = {
+            "metrics": metrics, "step": state.step,
+            "state": {k: np.asarray(v).copy() for k, v in trainer.host_state(state).items()},
+        }
+        out["facts"] = {"impl": trainer.ctx.embedding_impl, "axis_size": trainer.ctx.axis_size,
+                        "sharded_opt": trainer._opt_plan is not None,
+                        "unsupported": trainer.scan_unsupported()}
+    return out
+
+
+def _host_float_weight(trainer):
+    """The contributor weights as host floats, as the step read them
+    before they moved to the device (``Trainer._weight``)."""
+    from elasticdl_tpu_torch.parallel import collectives as coll
+
+    active = trainer._active_np
+    w = (coll.contributor_weight(active, trainer.mesh, trainer.contributor_axes)
+         if trainer.contributor_axes else float(active[0]))
+    return w, max(float(active.sum()) * trainer._ranks_per_contributor, 1.0)
+
+
+def gang_steps_device_and_host_weights(rank, world, kind, model_kw, plan):
+    """``plan`` (``_run_plan``, per step) on two trainers of ``kind`` over
+    ``(dp=world, ep=1)`` from one seed: one with the device weights, one
+    whose step reads the host floats (``_host_float_weight``).  Returns
+    both runs' metrics and canonical states."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+
+    mesh = create_mesh(dcn_parallelism=world)
+    spec = _model_module(kind).model_spec(**model_kw)
+    out = {}
+    for name in ("device", "host"):
+        trainer = Trainer(spec, device="cpu", mesh=mesh)
+        if name == "host":
+            trainer._weight = lambda t=trainer: _host_float_weight(t)
+        state, metrics = _run_plan(trainer, trainer.init_state(0), plan, fused=False)
+        out[name] = {"metrics": metrics, "state": {
+            k: np.asarray(v).copy() for k, v in trainer.host_state(state).items()}}
+    return out

@@ -15,6 +15,7 @@ largest error over the largest element, and delta's largest error over
 its largest element.
 """
 
+import contextlib
 import copy
 import dataclasses
 
@@ -939,3 +940,125 @@ def test_cuda_zoo_template_trains_through_the_worker_on_the_fused_path(card, tmp
     assert none == [] and per_step.state.step == 2 * tasks
     _assert_states(fused.trainer.host_state(fused.state),
                    per_step.trainer.host_state(per_step.state), 0)
+
+
+# ---- the fused dispatch in a one-rank NCCL world (a gang's captured scan) ---------
+
+
+@contextlib.contextmanager
+def _nccl_world_of_one(monkeypatch):
+    """A one-rank NCCL process group on this card, with deterministic
+    kernels where PyTorch has a choice (the comparisons are bit for bit):
+    ``(trainer over the group, stacked host batch of T steps)``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from _torch_gloo_ranks import free_port
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t = datetime.timedelta(seconds=60)
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True, timeout=t)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1, timeout=t,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        trainer = Trainer(tlm.model_spec(**dict(_GANG_MODEL, remat=True)), device="cuda",
+                          mesh=create_mesh())
+        assert dist.get_backend(trainer._group) == "nccl" and trainer._scan_captures()
+        batches = [{k: v for k, v in b.items() if k != "__mask__"} for b in _gang_batches()]
+        yield trainer, {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+
+
+def _zero_mask(trainer):
+    """The all-zero contributor mask, which ``set_active_contributors``
+    refuses (an empty subgroup has no mean) and which is the only other
+    mask of a world of one: the step then weighs every example by 0."""
+    trainer._active_np = np.zeros(trainer.num_contributors(), np.float32)
+    trainer._write_weight()
+
+
+def _warm_and_capture(trainer, stacked):
+    """(state, placed, the state after the variant's eager task): the next
+    ``train_scan`` captures and replays."""
+    state = trainer.init_state(0)
+    placed = trainer.shard_stacked_batch(stacked)
+    state, _ = trainer.train_scan(state, placed)  # eager: the communicator, the slots
+    assert trainer.scan_graphs() == []
+    return state, placed, trainer.host_state(state)
+
+
+def test_cuda_nccl_world_of_one_replays_the_scan_equal_to_the_loop(card, monkeypatch):
+    """Over a one-rank NCCL group ``train_scan`` captures the T steps with
+    their all-reduces and replays them under ``set_sync_debug_mode("error")``;
+    the per-step loop over the same group from the same state gives the
+    same losses, parameters and optimizer slots bit for bit, and the same
+    flash launches (remat: two forwards a layer)."""
+    with _nccl_world_of_one(monkeypatch) as (trainer, stacked):
+        state, placed, start = _warm_and_capture(trainer, stacked)
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, fused = trainer.train_scan(state, placed)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        fused_counts = kernels.counts()
+        (graph,) = trainer.scan_graphs()
+        assert graph["collectives"].get("grads:all_reduce", 0) >= _SCAN_T
+        got = trainer.host_state(state)
+        state = trainer.adopt_restored(start, state)
+        kernels.reset_counts()
+        state, per_step = trainer.run_train_steps(state, _scan_steps(placed), pre_sharded=True)
+        assert kernels.counts() == fused_counts
+        assert fused_counts[tfa.KERNEL] == 2 * 2 * _SCAN_T
+        assert torch.equal(fused["loss"], torch.stack([m["loss"] for m in per_step]))
+        _assert_states(got, trainer.host_state(state), 0)
+
+
+def test_cuda_nccl_world_of_one_replay_reads_the_mask_set_before_it(card, monkeypatch):
+    """The contributor weights are device tensors the graph reads: a replay
+    after the mask changed trains with the new mask (the eager loop's
+    result under it), not the mask of the capture."""
+    with _nccl_world_of_one(monkeypatch) as (trainer, stacked):
+        state, placed, start = _warm_and_capture(trainer, stacked)
+        state, ones = trainer.train_scan(state, placed)  # captured with the mask all ones
+        ones_state = trainer.host_state(state)
+        state = trainer.adopt_restored(start, state)
+        state, _ = trainer.train_scan(state, placed)  # the graph anew, on the restored tensors
+        start = trainer.host_state(state)
+        _zero_mask(trainer)
+        state, zero = trainer.train_scan(state, placed)  # a replay
+        assert len(trainer.scan_graphs()) == 1
+        got = trainer.host_state(state)
+        state = trainer.adopt_restored(start, state)
+        state, per_step = trainer.run_train_steps(state, _scan_steps(placed), pre_sharded=True)
+        trainer.set_active_contributors(None)
+        assert float(zero["loss"].abs().sum()) == 0.0 and float(ones["loss"].min()) > 0
+        assert torch.equal(zero["loss"], torch.stack([m["loss"] for m in per_step]))
+        _assert_states(got, trainer.host_state(state), 0)
+        assert any(not np.array_equal(got[k], ones_state[k]) for k in got if "params/" in k)
+
+
+def test_cuda_a_replay_adds_its_collective_calls_as_an_eager_task_does(card, monkeypatch):
+    """``Reducer.calls`` and ``by_op`` after a replayed task grow by what the
+    same task adds eagerly (the capture itself adds nothing)."""
+    with _nccl_world_of_one(monkeypatch) as (trainer, stacked):
+        state, placed, _ = _warm_and_capture(trainer, stacked)
+        red = trainer.reducer
+        before, keys = red.calls, dict(red.by_op)
+        state, _ = trainer.train_scan(state, placed)  # capture, then one replay
+        replayed = red.calls - before
+        assert set(red.by_op) == set(keys)
+        before = red.calls
+        state, _ = trainer.train_scan(state, placed)  # one more replay
+        assert red.calls - before == replayed
+        before = red.calls
+        state, _ = trainer.run_train_steps(state, _scan_steps(placed), pre_sharded=True)
+        assert red.calls - before == replayed > 0
+        (graph,) = trainer.scan_graphs()
+        assert sum(graph["collectives"].values()) == replayed

@@ -383,13 +383,23 @@ def test_worker_keeps_the_per_step_path_with_host_tier_tables(tmp_path):
     assert calls["train_scan"] == [] and len(calls["train_step"]) == 3
 
 
-def test_worker_keeps_the_per_step_path_in_gang_mode_and_without_the_flag(tmp_path):
+def test_worker_takes_the_fused_path_in_gang_mode(tmp_path):
+    """Gang mode scans as alone: the choice reads only the flag and the
+    trainer (the gang's process tests run it: tests/test_torch_gang.py)."""
     path = _lm_file(tmp_path, MB)
     worker = _worker(path)
     assert worker._fused_eligible() is None and worker._fused_path()
     worker._group_mode = True
-    assert "gang mode" in worker._fused_eligible() and not worker._fused_path()
-    assert _worker(path, fused_task_scan=False)._fused_eligible() == "--fused_task_scan=False"
+    assert worker._fused_eligible() is None and worker._fused_path()
+
+
+def test_worker_keeps_the_per_step_path_without_the_flag(tmp_path):
+    path = _lm_file(tmp_path, MB)
+    for group_mode in (False, True):
+        worker = _worker(path, fused_task_scan=False)
+        worker._group_mode = group_mode
+        assert worker._fused_eligible() == "--fused_task_scan=False"
+        assert not worker._fused_path()
 
 
 # ---- the optimizer a graph replays -----------------------------------------------

@@ -460,7 +460,8 @@ def test_the_survivors_snapshot_holds_what_the_master_counted(tmp_path, name):
         settled = settle(1)
         cause = CollectiveError("the peer is gone")
     else:
-        step_of, done = worker.trainer.train_step, worker.state.step
+        # The step both dispatch paths run (a fused task's scan included).
+        step_of, done = worker.trainer._train_step, worker.state.step
         ran = 0 if fail == "first_step" else 1
 
         def failing_step(state, batch):
@@ -468,7 +469,7 @@ def test_the_survivors_snapshot_holds_what_the_master_counted(tmp_path, name):
                 raise CollectiveError("the peer is gone")
             return step_of(state, batch)
 
-        worker.trainer.train_step = failing_step
+        worker.trainer._train_step = failing_step
         with pytest.raises(TrainLoopError) as failed:
             worker._dispatch_training_task(Task(1, shards[1]))
         assert worker.state.step == done + ran
@@ -518,7 +519,8 @@ def cpu_gang(monkeypatch):
     monkeypatch.delenv("ELASTICDL_TORCH_DIST_BACKEND", raising=False)
 
 
-def test_two_worker_processes_walk_one_group_log(tmp_path, cpu_gang):
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "per_step"])
+def test_two_worker_processes_walk_one_group_log(tmp_path, cpu_gang, fused):
     train = str(tmp_path / "train.rio")
     generate("lm", train, 96, seed=0, seq_len=64, vocab=512)
     reader = create_data_reader(train)
@@ -529,7 +531,8 @@ def test_two_worker_processes_walk_one_group_log(tmp_path, cpu_gang):
     config = JobConfig(model_def="transformer_lm.model_spec", model_params=MODEL_PARAMS,
                        training_data=train, minibatch_size=8, checkpoint_dir=str(tmp_path / "ck"),
                        checkpoint_steps=4, master_addr=server.address, multihost=True,
-                       dcn_data_parallelism=2, coordinator_port=free_port())
+                       dcn_data_parallelism=2, coordinator_port=free_port(),
+                       fused_task_scan=fused)
     logs, procs = {}, {}
     try:
         for w in ("w-a", "w-b"):
@@ -546,6 +549,8 @@ def test_two_worker_processes_walk_one_group_log(tmp_path, cpu_gang):
         server.stop()
     text = {w: open(path).read() for w, path in logs.items()}
     assert rcs == {"w-a": 0, "w-b": 0}, text
+    # One train_scan a task, or (without the flag) one step a minibatch.
+    assert all(("task dispatch: fused" in t) is fused for t in text.values()), text
     summaries = {w: _by_kind(text[w], "summary")[0] for w in text}
     gang = {w: _by_kind(text[w], "gang")[0] for w in text}
     assert sorted(g["rank"] for g in gang.values()) == [0, 1]
@@ -604,6 +609,8 @@ def test_sigkill_of_a_rank_reforms_the_gang_from_the_survivors_snapshot(tmp_path
                    f"pod {w0}-r1 exited rc=0 -> Succeeded",
                    f"pod {w1}-r1 exited rc=0 -> Succeeded"):
         assert needle in cli, needle
+    # Every world ran its tasks as one train_scan each.
+    assert all("task dispatch: fused" in t for t in logs.values()), logs
     # Rank 0 survived and snapshotted the state of the tasks it reported;
     # both relaunches joined from it.
     assert _by_kind(logs[w0], "gang")[0]["rank"] == 0

@@ -42,6 +42,8 @@ from elasticdl_tpu_torch.models import deepfm
 from elasticdl_tpu_torch.parallel.trainer import Trainer, TrainLoopError
 from elasticdl_tpu_torch.ps import host_store
 
+from _torch_reference_native import reference_native  # noqa: F401  (a fixture)
+
 WIDTH = dict(buckets_per_feature=512, embedding_dim=4, hidden=(16,), compute_dtype="float32")
 KEY = deepfm.HOST_FM_KEY
 B, STEPS = 64, 4
@@ -74,6 +76,7 @@ def _ids(spec, batches):
 # ---- the store ----
 
 @pytest.mark.parametrize("optimizer", ["sgd", "momentum", "adam", "adagrad"])
+@pytest.mark.usefixtures("reference_native")
 def test_store_matches_the_reference_store_and_files_cross(tmp_path, optimizer):
     """The same pushes into both packages' stores give the same rows, bit for
     bit, and a file saved by either loads into the other."""
@@ -210,6 +213,7 @@ def _run_both(tmp_path, use_async, depth, learning_rate, batches):
 
 @pytest.mark.parametrize("use_async,depth", [(False, 1), (True, 1), (True, 2)],
                          ids=["sync", "async1", "async2"])
+@pytest.mark.usefixtures("reference_native")
 def test_host_tier_training_matches_jax(tmp_path, use_async, depth):
     jl, tl, jrows, rows, state = _run_both(tmp_path, use_async, depth, 1e-4, _batches())
     assert state.step == STEPS
@@ -217,6 +221,7 @@ def test_host_tier_training_matches_jax(tmp_path, use_async, depth):
     np.testing.assert_allclose(rows, jrows, rtol=0, atol=ROW_ATOL)
 
 
+@pytest.mark.usefixtures("reference_native")
 def test_host_tier_training_matches_jax_at_the_default_learning_rate(tmp_path):
     jl, tl, jrows, rows, _ = _run_both(tmp_path, True, 2, 1e-3, _batches())
     np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
@@ -288,6 +293,7 @@ def test_failed_pull_and_push_fail_the_loop(monkeypatch):
 
 # ---- checkpoints ----
 
+@pytest.mark.usefixtures("reference_native")
 def test_host_store_checkpoint_roundtrip_retention_and_torn_steps(tmp_path):
     _, spec = _specs()
     trainer = Trainer(spec, device="cpu", config=JobConfig())

@@ -35,6 +35,7 @@ import pytest
 
 import elasticdl_tpu.parallel  # noqa: F401  (the JAX package's own import order)
 from _torch_gloo_ranks import host_tier_steps, run_ranks
+from _torch_reference_native import reference_native  # noqa: F401  (a fixture)
 from elasticdl_tpu.ps import host_store as jhost_store
 from elasticdl_tpu.ps import reshard as jreshard
 from elasticdl_tpu.ps import service as jservice
@@ -119,6 +120,7 @@ def test_meta_validation_matches_the_reference(method, meta):
 # ---- the wire, across the packages ----
 
 @pytest.mark.parametrize("client,server", [("port", "jax"), ("jax", "port")])
+@pytest.mark.usefixtures("reference_native")
 def test_remote_store_works_across_the_packages(tmp_path, client, server):
     """Pull, push, stats, save and load through one package's client
     against the other's shards: the rows a local store gives, bit for bit."""
@@ -167,6 +169,7 @@ def test_remote_store_works_across_the_packages(tmp_path, client, server):
         _stop(servers)
 
 
+@pytest.mark.usefixtures("reference_native")
 def test_a_snapshot_of_either_package_restores_into_the_other(tmp_path):
     jax_fleet = _fleet("jax", {"t": IO}, 2)
     remote = jservice.RemoteEmbeddingStore("t", IO.dim, [s.address for s in jax_fleet])
@@ -191,6 +194,7 @@ def test_a_snapshot_of_either_package_restores_into_the_other(tmp_path):
 # ---- reshard ----
 
 @pytest.mark.parametrize("old,new", [(2, 3), (3, 2)])
+@pytest.mark.usefixtures("reference_native")
 def test_reshard_matches_the_reference(tmp_path, old, new):
     """The port's reshard of a snapshot the reference's shards wrote equals
     the reference's, file for file (rows and optimizer slots), and loads
@@ -429,6 +433,7 @@ def _carry(state, params):
     return state
 
 
+@pytest.mark.usefixtures("reference_native")
 def test_port_job_on_a_fleet_matches_the_jax_job(tmp_path):
     from elasticdl_tpu.models import deepfm as jdeepfm
     from elasticdl_tpu_torch.data.synthetic import synthetic_criteo

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 import elasticdl_tpu.parallel.trainer  # noqa: F401  (resolves the ops <-> parallel import cycle)
+from _torch_reference_native import reference_native  # noqa: F401  (a fixture)
 from elasticdl_tpu.models import transformer_lm as jlm
 from elasticdl_tpu.serving.server import ServingServer as JaxServingServer
 from elasticdl_tpu_torch.common import rpc as trpc
@@ -223,6 +224,7 @@ _DFM_HOST = dict(buckets_per_feature=128, embedding_dim=4, hidden=(8,), host_tie
 
 
 @pytest.mark.parametrize("capacity", [1 << 20, 40], ids=["roomy", "evicting"])
+@pytest.mark.usefixtures("reference_native")
 def test_hot_id_cache_matches_the_reference_cache(capacity):
     """The same pulls through both packages' caches (over stores of each
     package) give the same rows and the same LRU book-keeping: hits,
