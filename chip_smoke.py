@@ -8,7 +8,10 @@ exits non-zero without its result line:
 1. build every kernel source from ``elasticdl_tpu_torch/csrc`` at once (one
    nvcc each, into ``elasticdl_tpu_torch/csrc/build/``, at first use) and
    report each bf16 kernel's registers, shared memory, spills and blocks
-   per SM (forward, dq, dkv; D=64 and D=128);
+   per SM (forward, dq, dkv; D=64 and D=128).  The build starts first and
+   runs in threads beside phases 10 and 14, which run before every other
+   phase because they launch no hand-written kernel; the script then waits
+   for what is left of it;
 2. hold the flash forward against its plain PyTorch version on the card at
    the serving and training paths' shapes and layout (q, k, v as views into
    the fused qkv projection) and others (D=128; D=36, which the wrapper
@@ -86,7 +89,16 @@ exits non-zero without its result line:
    contributor mask set to all-zero between the capture and a replay (the
    replay equals the eager loop under that mask and differs from the
    all-ones replay); ``eval_scan`` likewise; the step ms both ways, the
-   capture seconds and the graph pool bytes.  (b) two NCCL ranks on the
+   capture seconds and the graph pool bytes.  In the same world, DeepFM at
+   phase 10's width (batch 8192, Adam, nothing cut) with its table
+   row-sharded over the group (ParameterServer) and an explicit ``ragged``
+   lookup, whose equal-split all-to-alls run over the one-rank group:
+   phase 17's checks on a task of T=8 (bit for bit under sync-debug
+   "error"), a replay adding the eager task's calls (24 ``lookup:
+   all_to_all``, no ``lookup:all_gather``), the NCCL kernels and device
+   copies of one replay, one eager task and one lookup forward alone
+   (reported, not held), the step ms both ways in turns, the capture
+   seconds and pool bytes.  (b) two NCCL ranks on the
    one card (the installed NCCL refuses them; its error is logged), then
    two worker processes on the card through the CLI's local mode
    (``--multihost --dcn_data_parallelism=2``, the gloo backend on card
@@ -113,7 +125,8 @@ exits non-zero without its result line:
    one: no survivor's snapshot, both relaunches resume from the periodic
    checkpoint, the final step is that checkpoint's plus the steps of the
    tasks the master had not counted; per rank the table and optimizer
-   bytes, the lookup's collective ms a step by op, step p50; the last
+   bytes, the lookup's collective ms a step by op (in the loss world too),
+   step p50; the last
    checkpoint restored into a world of one equals the gathered live state
    bit for bit and takes a step.  (b) ``transformer_lm`` at phase 4's width
    under ``--optimizer_sharding=sharded`` over two spawned ranks, batch 8 a
@@ -218,8 +231,9 @@ exits non-zero without its result line:
 
 Every training and eval task of the jobs of phases 7-12, 14 and 15 runs
 fused by default (one ``train_scan`` a task plus a step for a ragged
-tail): captured alone on the card, eagerly in the gloo gangs of phases
-11 (b), 12 and 15 (d), the ragged lookup's job included.  Only the host
+tail): captured alone on the card and over NCCL (phase 11 (a), the ragged
+lookup included), eagerly in the gloo gangs of phases 11 (b), 12 and
+15 (d), the ragged lookup's job included.  Only the host
 tier (phase 13) stays per step: its pulls and pushes run around every
 step.
 
@@ -363,21 +377,37 @@ def kernel_info() -> dict:
     return report
 
 
-def phase_build() -> dict:
-    """Build every kernel source at once (one nvcc per source, each in its
-    own thread: the builds hold per-source locks) and log each source's
-    nvcc seconds, registers and spills, and the bf16 kernels' shared
-    memory and blocks per SM."""
+def start_build():
+    """Start building every kernel source at once (one nvcc per source, each
+    in its own thread: the builds hold per-source locks); ``phase_build``
+    waits for them.  Nothing but nvcc runs in those threads."""
     from concurrent.futures import ThreadPoolExecutor
 
     from elasticdl_tpu_torch.ops import flash_attention, kernels
 
     sources = (flash_attention.SOURCE, flash_attention.BWD_SOURCE)
+    pool = ThreadPoolExecutor(len(sources))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(kernels.load, sources))
-    wall = time.perf_counter() - t0
-    report = {"wall_s": wall, "sources": {}}
+
+    def build(source):
+        kernels.load(source)
+        return time.perf_counter() - t0
+
+    return sources, [pool.submit(build, source) for source in sources], pool
+
+
+def phase_build(pending=None) -> dict:
+    """Wait for the build ``start_build`` started (or start it, for a
+    script that runs single phases) and log each source's nvcc seconds,
+    registers and spills, and the bf16 kernels' shared memory and blocks
+    per SM."""
+    from elasticdl_tpu_torch.ops import kernels
+
+    sources, futures, pool = pending or start_build()
+    t0 = time.perf_counter()
+    wall = max(f.result() for f in futures)
+    pool.shutdown()
+    report = {"wall_s": wall, "wait_s": time.perf_counter() - t0, "sources": {}}
     for source in sources:
         seconds, build_log = kernels.build_info(source)
         log(f"[build] {source}: nvcc {seconds:.2f}s")
@@ -385,7 +415,8 @@ def phase_build() -> dict:
             if "Compiling entry" in line or "registers" in line or "spill" in line or "error" in line:
                 log(f"[build]   {line.strip()}")
         report["sources"][source] = {"nvcc_s": seconds}
-    log(f"[build] {len(sources)} sources built concurrently in {wall:.2f}s")
+    log(f"[build] {len(sources)} sources built concurrently in {wall:.2f}s, beside phases 10 "
+        f"and 14; waited {report['wait_s']:.2f}s for them after those")
     report["kernels"] = kernel_info()
     return report
 
@@ -2059,6 +2090,11 @@ def phase_deepfm(card: str) -> dict:
 GANG_STEPS = 8
 GANG_SCAN_T = 4
 GANG_TIMED_TASKS = 2
+# Phase 11 (a)'s DeepFM part: phase 10's width and batch (DFM_WIDTH,
+# DFM_BATCH), the table row-sharded over the one-rank group with an
+# explicit ragged lookup, tasks of GANG_RAGGED_T steps (the batch's rows
+# permuted a step).
+GANG_RAGGED_T = 8
 # Phase 11 (b): two worker processes on the one card through the CLI's
 # local mode, the gloo backend on card tensors, phase 7's files (one epoch:
 # 8 tasks of 4 minibatches of 16, 32 steps), a checkpoint every 8 steps,
@@ -2192,6 +2228,7 @@ def phase_gang_world1(card: str, train_p50_ms: float) -> dict:
         scan = _gang_scan(gang, batches, card)
         del gang
         torch.cuda.empty_cache()
+        ragged = _gang_scan_ragged(card)
     finally:
         dist.destroy_process_group()
         torch.use_deterministic_algorithms(False)
@@ -2223,7 +2260,8 @@ def phase_gang_world1(card: str, train_p50_ms: float) -> dict:
             "losses": [float(m["loss"]) for m in metrics],
             # The per-step run's launches and the scan's replayed task's.
             "launches": {n: counts[n] + scan["launches"][n] for n in names},
-            "per_step_launches": counts, "arrays_equal": len(got) - len(diff), "scan": scan}
+            "per_step_launches": counts, "arrays_equal": len(got) - len(diff), "scan": scan,
+            "ragged_deepfm": ragged}
 
 
 def _force_mask(trainer, mask) -> None:
@@ -2237,7 +2275,9 @@ def _force_mask(trainer, mask) -> None:
 
 def _nccl_kernels(fn) -> dict:
     """The NCCL kernels one ``fn()`` runs on the device (torch.profiler):
-    their count, device ms and names, and the kernels in all."""
+    their count, device ms and names, the kernels in all, and the
+    device-to-device copies (count and ms), where a one-rank NCCL exchange
+    may move its bytes without a kernel of its own."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2246,8 +2286,51 @@ def _nccl_kernels(fn) -> dict:
     ran = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     nccl = [(name, us) for name, us in ran if "nccl" in name.lower()]
+    dtod = [us for name, us in ran if "DtoD" in name]
     return {"count": len(nccl), "ms": sum(us for _, us in nccl) / 1e3,
-            "names": sorted({name[:80] for name, _ in nccl}), "kernels": len(ran)}
+            "names": sorted({name[:80] for name, _ in nccl}), "kernels": len(ran),
+            "dtod_copies": len(dtod), "dtod_ms": sum(dtod) / 1e3}
+
+
+def _replay_vs_eager(trainer, state, placed: dict, steps: list, extra=None):
+    """A captured task against the same task run eagerly, on ``trainer``
+    after ``_fused_checks``: the collective calls by ``"<tag>:<op>"`` that
+    one replay adds and one eager task adds (held equal, and equal to the
+    graph's recorded calls); the NCCL kernels of one profiled replay, one
+    eager task and each of ``extra`` (``{name: fn}``); the step ms of both
+    paths in turns (CUDA events, GANG_TIMED_TASKS tasks each, over the
+    task's steps).  Returns the state and the readings."""
+    red = trainer.reducer
+    graph = next(g for g in trainer.scan_graphs() if g["kind"] == "train_scan")
+    holder = [state]
+
+    def replay():
+        holder[0] = trainer.train_scan(holder[0], placed)[0]
+
+    def eager():
+        holder[0] = trainer.run_train_steps(holder[0], steps, pre_sharded=True)[0]
+
+    calls = {}
+    for arm, fn in (("replay", replay), ("eager", eager)):
+        before = red.calls_by_op
+        fn()
+        calls[arm] = {k: n - before.get(k, 0) for k, n in red.calls_by_op.items()
+                      if n != before.get(k, 0)}
+    assert calls["replay"] == calls["eager"] == graph["collectives"], (calls, graph)
+    nccl = {"replay": _nccl_kernels(replay), "eager": _nccl_kernels(eager)}
+    nccl.update({name: _nccl_kernels(fn) for name, fn in (extra or {}).items()})
+    timing = {"per_step": [], "fused": []}
+    for _ in range(GANG_TIMED_TASKS):
+        for arm, fn in (("per_step", eager), ("fused", replay)):
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            timing[arm].append(a.elapsed_time(b) / len(steps))
+    step_ms = {arm: statistics.median(v) for arm, v in timing.items()}
+    return holder[0], {"calls": calls, "nccl": nccl, "step_ms": step_ms, "timing": timing}
 
 
 def _gang_scan(gang, batches: list, card: str) -> dict:
@@ -2255,9 +2338,9 @@ def _gang_scan(gang, batches: list, card: str) -> dict:
     deterministic kernels on): phase 17's checks (``_fused_checks``: a warm
     eager task, the capture, a replay under sync-debug "error" against the
     per-step loop bit for bit with equal launch counts, a restore then a
-    fused task, ``eval_scan``); a replay's collective calls against an
-    eager task's; the NCCL kernels of one profiled replay against an eager
-    task's; the mask read at replay; the step ms of both paths in turns."""
+    fused task, ``eval_scan``); ``_replay_vs_eager`` (a replay's
+    collective calls against an eager task's, the NCCL kernels of each,
+    the step ms of both); the mask read at replay."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
 
     names = (fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL)
@@ -2267,36 +2350,16 @@ def _gang_scan(gang, batches: list, card: str) -> dict:
     assert all(v == 0.0 for v in readings.values()), readings
     assert fused_counts == {n: (2 if n == fa.KERNEL else 1) * layers * t
                             for n in names}, fused_counts
-    graphs = gang.scan_graphs()
-    graph = next(g for g in graphs if g["kind"] == "train_scan")
+    graph = next(g for g in gang.scan_graphs() if g["kind"] == "train_scan")
     placed = gang.shard_stacked_batch(stacked)
     steps = [{k: v[i] for k, v in placed.items()} for i in range(t)]
-    red = gang.reducer
-
-    # The collective calls a replayed task adds against an eager task's.
-    before = red.calls
-    state, _ = gang.train_scan(state, placed)
-    replay_calls = red.calls - before
-    before = red.calls
-    state, _ = gang.run_train_steps(state, steps, pre_sharded=True)
-    eager_calls = red.calls - before
-    assert replay_calls == eager_calls == sum(graph["collectives"].values()) > 0, (
-        replay_calls, eager_calls, graph["collectives"])
-
-    # The NCCL kernels of one profiled replay against one eager task's.  A
-    # one-rank in-place all-reduce launches none in either (NCCL returns
-    # at once for one rank): the calls captured are the Reducer's tally.
-    holder = [state]
-
-    def replay():
-        holder[0] = gang.train_scan(holder[0], placed)[0]
-
-    def eager():
-        holder[0] = gang.run_train_steps(holder[0], steps, pre_sharded=True)[0]
-
-    nccl = {"replay": _nccl_kernels(replay), "eager": _nccl_kernels(eager)}
-    state = holder[0]
-    assert nccl["replay"]["count"] == nccl["eager"]["count"], nccl
+    state, vs = _replay_vs_eager(gang, state, placed, steps)
+    replay_calls, eager_calls = (sum(vs["calls"][arm].values()) for arm in ("replay", "eager"))
+    # A one-rank in-place all-reduce launches no NCCL kernel in either
+    # (NCCL returns at once for one rank): the calls captured are the
+    # Reducer's tally.
+    nccl = vs["nccl"]
+    assert replay_calls > 0 and nccl["replay"]["count"] == nccl["eager"]["count"], (vs, graph)
 
     # The mask read at replay: all-zero between the capture and a replay.
     start = gang.host_state(state)
@@ -2328,22 +2391,7 @@ def _gang_scan(gang, batches: list, card: str) -> dict:
     assert zero_loss == 0.0 and differ, (zero_loss, len(differ))
     del start, zero_state, ones_state
 
-    # Times: per-step and fused tasks in turns (CUDA events), over T.
-    timing = {"per_step": [], "fused": []}
-    holder = [state]
-    for _ in range(GANG_TIMED_TASKS):
-        for arm in ("per_step", "fused"):
-            torch.cuda.synchronize()
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            if arm == "fused":
-                holder[0] = gang.train_scan(holder[0], placed)[0]
-            else:
-                holder[0] = gang.run_train_steps(holder[0], steps, pre_sharded=True)[0]
-            b.record()
-            torch.cuda.synchronize()
-            timing[arm].append(a.elapsed_time(b) / t)
-    step_ms = {arm: statistics.median(v) for arm, v in timing.items()}
+    step_ms, timing = vs["step_ms"], vs["timing"]
     graphs = gang.scan_graphs()
     log(f"[gang1] fused over NCCL, T={t}: replay = per-step loop bit for bit "
         + json.dumps(readings) + f"; launches a task {json.dumps(fused_counts)} on both paths; "
@@ -2354,7 +2402,7 @@ def _gang_scan(gang, batches: list, card: str) -> dict:
         f"{step_ms['fused']:.3f} ({timing}); capture {graph['capture_s']:.2f} s (the task "
         f"that captured {capture_task_s:.2f} s), graph pools "
         + json.dumps({g["kind"]: g["pool_bytes"] for g in graphs}) + f" bytes; on {card}")
-    del state, holder
+    del state
     return {"t": t, "readings": readings, "mask_readings": mask_readings,
             "launches": fused_counts, "replay_collective_calls": replay_calls,
             "eager_collective_calls": eager_calls, "collectives": graph["collectives"],
@@ -2362,6 +2410,80 @@ def _gang_scan(gang, batches: list, card: str) -> dict:
             "step_ms": step_ms, "step_ms_all": timing, "capture_s": graph["capture_s"],
             "capture_task_s": capture_task_s,
             "graphs": [{k: g[k] for k in ("kind", "capture_s", "pool_bytes")} for g in graphs]}
+
+
+def _gang_scan_ragged(card: str) -> dict:
+    """Phase 11 (a)'s DeepFM part, in the one-rank NCCL world of the phase
+    (its deterministic kernels on): DeepFM at phase 10's width under the
+    ParameterServer strategy with an explicit ``ragged`` lookup, so the
+    route's equal-split all-to-alls run over the group.  Phase 17's checks
+    (``_fused_checks``) on a task of GANG_RAGGED_T steps;
+    ``_replay_vs_eager``, with the NCCL kernels and device copies of one
+    lookup forward alone besides; a replay's calls hold the route's 3 a
+    step and no all-gather."""
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.data.reader import RecordIODataReader
+    from elasticdl_tpu_torch.data.synthetic import synthetic_criteo
+    from elasticdl_tpu_torch.models import deepfm
+    from elasticdl_tpu_torch.ops.embedding import embedding_lookup
+    from elasticdl_tpu_torch.parallel.mesh import create_mesh
+    from elasticdl_tpu_torch.parallel.trainer import Trainer
+
+    t_part, t = time.perf_counter(), GANG_RAGGED_T
+    spec = deepfm.model_spec(**DFM_WIDTH)
+    path = synthetic_criteo(os.path.join(REPO, "chiprun_out", "gang1_criteo.rio"), DFM_BATCH,
+                            seed=13, container="recordio")
+    reader = RecordIODataReader(path)
+    batch = dict(spec.feed(reader.read_records_packed(reader.create_shards(DFM_BATCH)[0])))
+    os.remove(path)
+    rng = np.random.default_rng(17)
+    perms = [rng.permutation(DFM_BATCH) for _ in range(t)]
+    stacked = {k: np.stack([np.asarray(v)[p] for p in perms]) for k, v in batch.items()}
+    trainer = Trainer(spec, device="cuda", mesh=create_mesh(), config=JobConfig(
+        distribution_strategy="ParameterServer", embedding_lookup_impl="ragged"))
+    ctx = trainer.ctx
+    assert (trainer.sharded_embeddings and ctx.embedding_impl == "ragged"
+            and ctx.axis_size == 1 and ctx.group is not None and trainer._scan_captures())
+    assert trainer.scan_unsupported() is None
+    readings, fused_counts, state, capture_task_s = _fused_checks(trainer, stacked)
+    assert all(v == 0.0 for v in readings.values()), readings
+    graph = next(g for g in trainer.scan_graphs() if g["kind"] == "train_scan")
+    placed = trainer.shard_stacked_batch(stacked)
+    steps = [{k: v[i] for k, v in placed.items()} for i in range(t)]
+
+    # One eager forward of the lookup alone, at the step's shape: its two
+    # exchanges are the only copies in it, so its reading is what a
+    # one-rank NCCL all-to-all runs on the device.
+    table = state.model.fm_table.detach()
+    ids = torch.randint(0, 26 * DFM_WIDTH["buckets_per_feature"], (DFM_BATCH, 26),
+                        device="cuda", generator=torch.Generator(device="cuda").manual_seed(3))
+
+    def lookup():
+        embedding_lookup(table, ids, ctx, dim=DFM_WIDTH["embedding_dim"] + 1)
+
+    state, vs = _replay_vs_eager(trainer, state, placed, steps, {"lookup_forward": lookup})
+    del table, ids
+    replay_calls, eager_calls = vs["calls"]["replay"], vs["calls"]["eager"]
+    # Reported, not held: the NCCL kernels and device copies.
+    nccl, step_ms, timing = vs["nccl"], vs["step_ms"], vs["timing"]
+    assert replay_calls.get("lookup:all_to_all") == 3 * t, replay_calls
+    assert "lookup:all_gather" not in replay_calls, replay_calls
+    pools = {g["kind"]: g["pool_bytes"] for g in trainer.scan_graphs()}
+    wall_s = time.perf_counter() - t_part
+    log(f"[gang1] DeepFM B={DFM_BATCH}, table row-sharded over the NCCL world of 1, explicit "
+        f"ragged lookup, T={t}: replay = per-step loop bit for bit " + json.dumps(readings)
+        + f"; calls a replayed task {json.dumps(replay_calls)}, an eager one "
+        f"{json.dumps(eager_calls)}; NCCL kernels, replay and eager task {json.dumps(nccl)}; "
+        f"step ms per step {step_ms['per_step']:.3f}, fused {step_ms['fused']:.3f} ({timing}); "
+        f"capture {graph['capture_s']:.2f} s (the task that captured {capture_task_s:.2f} s), "
+        f"graph pools {json.dumps(pools)} bytes; {wall_s:.1f} s on {card}")
+    del trainer, state, placed, steps
+    torch.cuda.empty_cache()
+    return {"t": t, "batch": DFM_BATCH, "readings": readings, "launches": fused_counts,
+            "replay_calls": replay_calls, "eager_calls": eager_calls,
+            "collectives": graph["collectives"], "nccl_kernels": nccl, "step_ms": step_ms,
+            "step_ms_all": timing, "capture_s": graph["capture_s"],
+            "capture_task_s": capture_task_s, "pool_bytes": pools, "wall_s": wall_s}
 
 
 def _nccl_pair_on_one_card() -> str:
@@ -2696,12 +2818,13 @@ def _probe_collectives(mesh) -> dict:
         "reduce_scatter": lambda: torch.equal(
             red.reduce_scatter(torch.arange(2.0 * n, device="cuda"), group).cpu(),
             n * torch.arange(2.0 * n).view(n, 2)[rank]),
-        # Rank r sends r + 1 rows to each rank: uneven splits.
+        # Equal splits, as the ragged lookup sends: rank r's chunk j holds
+        # 10 r + j, so chunk j of what it receives holds 10 j + r.
         "all_to_all": lambda: torch.equal(
-            red.all_to_all(torch.empty(sum(r + 1 for r in range(n)), 2, device="cuda"),
-                           torch.full(((rank + 1) * n, 2), float(rank), device="cuda"),
-                           [r + 1 for r in range(n)], [rank + 1] * n, group)[:, 0].cpu(),
-            torch.cat([torch.full((r + 1,), float(r)) for r in range(n)])),
+            red.all_to_all(torch.empty(2 * n, 2, device="cuda"),
+                           (10.0 * rank + torch.arange(n, device="cuda")).repeat_interleave(2)
+                           [:, None].expand(2 * n, 2).contiguous(), group)[:, 0].cpu(),
+            (10.0 * torch.arange(n) + rank).repeat_interleave(2)),
     }
     out = {}
     for name, fn in probes.items():
@@ -2744,6 +2867,14 @@ def _ps_loss_rank(rank, world, batches, routes):
             if variant == "gang":
                 out[(route, "rows")] = int(state.model.fm_table.shape[0])
                 out[(route, "impl")] = trainer.ctx.embedding_impl
+                # The lookup's collective ms a step (the first step's setup in).
+                red = trainer.reducer
+                out[(route, "lookup_ms")] = {
+                    k.split(":", 1)[1]: red.by_op[k] * 1e3 / len(batches)
+                    for k in red.by_op if k.startswith("lookup:")}
+                out[(route, "lookup_calls")] = {
+                    k.split(":", 1)[1]: n for k, n in red.calls_by_op.items()
+                    if k.startswith("lookup:")}
             del trainer, state
             torch.cuda.empty_cache()
     return out
@@ -2949,7 +3080,13 @@ def phase_ps(card: str) -> dict:
             + "; summed again over the table axis "
             + ", ".join(f"{x:.2e}" for x in diffs[(route, 'summed')])
             + "; doubled " + ", ".join(f"{x:.2e}" for x in diffs[(route, 'doubled')])
-            + f"; {rows[route]} table rows a rank")
+            + f"; {rows[route]} table rows a rank; lookup collectives a step (ms, rank 0) "
+            + json.dumps({k: round(v, 3) for k, v in world[0][(route, "lookup_ms")].items()})
+            + ", calls over the steps " + json.dumps(world[0][(route, "lookup_calls")]))
+    # The static ragged route: three equal-split all-to-alls a step, no
+    # count all-gather.
+    assert world[0][("ragged", "lookup_calls")] == {"all_to_all": 3 * PS_LOSS_STEPS}, (
+        world[0][("ragged", "lookup_calls")])
     for route in routes:
         assert max(diffs[(route, "gang")]) <= PS_LOSS_ABS, (route, diffs[(route, "gang")])
         for wrong in ("dropped", "summed"):
@@ -2993,6 +3130,7 @@ def phase_ps(card: str) -> dict:
     os.remove(train)
     return {"probe": [r["probe"] for r in world], "single_losses": single_losses,
             "world_s": world_s,
+            "lookup_ms": {route: [r[(route, "lookup_ms")] for r in world] for route in routes},
             "loss_diffs": {f"{r}/{v}": d for (r, v), d in diffs.items()},
             "table_rows": rows, "jobs": jobs, "replicated_bytes": replicated,
             "restore_s": restore_s}
@@ -5207,7 +5345,13 @@ def main() -> int:
         log(f"[wall] {key}: {report['phase_wall_s'][key]:.1f} s")
         return report[key]
 
-    run("build", phase_build)
+    # The nvcc build (~70-100 s) runs beside phases 10 and 14, which launch
+    # no hand-written kernel (each asserts it), so the script waits only
+    # for what is left of it when they end.
+    build = start_build()
+    run("deepfm", phase_deepfm, card)
+    run("zoo", phase_zoo, card)
+    run("build", phase_build, build)
     run("kernel", phase_kernel_check)
     run("kernel_bwd", phase_kernel_check_bwd)
     run("train", phase_train_full_width, card)
@@ -5217,14 +5361,12 @@ def main() -> int:
     run("process_job", phase_process_job, card, report["job"]["p50_step_ms"])
     run("process_job_standby", phase_process_job_standby, card,
         report["process_job"]["kill"]["recover_s"])
-    run("deepfm", phase_deepfm, card)
     run("gang1", phase_gang_world1, card, report["train"]["p50_step_ms"])
     run("gang2", phase_gang_pair, card)
     log(card)
     run("ps", phase_ps, card)
     run("opt_shard", phase_opt_shard, card)
     run("host_tier", phase_host_tier, card)
-    run("zoo", phase_zoo, card)
     run("ring_tp", phase_ring_tp, card)
     run("fleet", phase_fleet, card)
     run("fused", phase_fused, card)

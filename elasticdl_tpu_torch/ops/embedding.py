@@ -35,18 +35,34 @@ dim)``).  The lookup is collective, as in the reference:
   each rank gets its own ``L`` rows summed over the shards (one nonzero
   each, so the sum is exact).  Its backward is the transpose: all-gather
   the cotangents, scatter-add the owned ones into the local shard.
-- ``ragged``: sort the ids by owner, exchange the ``[n]`` send counts
-  (``all_gather`` into ``[n, n]``), ``all_to_all_single`` the ids to their
-  owners, gather locally, ``all_to_all_single`` the vectors back, unsort.
-  Its backward replays the same plan, requester to owner, then
-  ``index_add_``s into a zeroed local-shard gradient.
+- ``ragged``: the reference's statically shaped route.  Sort the ``L``
+  ids by owner and lay them out in an ``[n * L]`` send buffer, chunk ``j``
+  the ids owned by rank ``j`` and then ``-1`` padding; one equal-split
+  ``all_to_all_single`` takes chunk ``j`` to rank ``j``, gather locally,
+  one equal-split ``all_to_all_single`` of the ``[n * L, dim]`` vectors
+  back, and each requester picks its ``L`` rows.  Its backward sends the
+  cotangents the same way, requester to owner, and ``index_add_``s them
+  into a zeroed local-shard gradient.  The plan (owners, the stable sort,
+  each owner's chunk bounds by ``searchsorted``) is made on the device and
+  every buffer is built by gathers, so neither direction reads anything
+  back to the host and the route captures in a CUDA graph.  The reference
+  sizes its receive buffers ``n * L`` too, but its
+  ``lax.ragged_all_to_all`` takes the split sizes on the device and puts
+  only the ``L`` real ids, rows and cotangents on the wire.
+  ``all_to_all_single`` has no such form: its splits are host integers or
+  equal chunks.  So here the padding crosses the wire as well, and each
+  rank sends and receives ``n * L`` ids, rows and cotangents: ``n`` times
+  the reference's bytes, the dense route's volume.
 
 Ids that no shard owns (either sign, past the padded vocab) read NaN rows
 and their cotangents are dropped on both routes, as on one device: the
-ragged route clamps them to an owner, where they miss its range.
-``resolve_impl`` picks the route: ``dense`` on a one-rank axis (whose
-``n == 1`` path is the local gather) and on the CPU, ``ragged`` on the card
-across ranks.  Every collective goes through the trainer's ``Reducer``
+ragged route clamps them to an owner, where they miss its range, as a
+``-1`` padding slot misses every owner's.  ``resolve_impl`` picks the
+route: ``dense`` on a one-rank axis (whose ``n == 1`` path is the local
+gather) and on the CPU, ``ragged`` on the card across ranks.  An explicit
+``ragged`` request on a one-rank axis runs the real exchange over the
+axis's group where there is one, as the reference does, and keeps its rows
+where there is none.  Every collective goes through the trainer's ``Reducer``
 (``ParallelContext.reducer``), which times it and names the op when it
 fails.
 """
@@ -329,56 +345,63 @@ class _DenseLookup(torch.autograd.Function):
 
 
 class _RaggedLookup(torch.autograd.Function):
-    """The ragged route: ids sorted by owner travel to their owners and the
-    vectors back, by ``all_to_all_single`` with exactly sized buffers.  The
-    split sizes must be on the host, so each direction costs one
-    device-to-host copy of the ``[n, n]`` count matrix (forward and
-    backward: the backward reuses the forward's plan).  The reference sizes
-    its receive buffer ``n * L`` statically, an XLA shape rule."""
+    """The ragged route with static shapes: ``[n * L]`` send and receive
+    buffers, chunk ``j`` for rank ``j``, ``-1`` padding (the reference's
+    ``id_buf``), and equal-split ``all_to_all_single`` calls, so no split
+    size and no count comes to the host.  The padding crosses the wire
+    (the module docstring says what that costs).  A padding slot reads a
+    NaN row at the owner and drops its cotangent, as a junk id does."""
 
     @staticmethod
     def forward(fctx, local_table, ids, ctx: ParallelContext, dim: int):
         n, me = ctx.axis_size, ctx.axis_index
         rows_local = logical_rows(local_table, dim)
         flat = ids.reshape(-1).to(torch.int64)
-        # Junk ids get a clamped owner; their value then misses that owner's
-        # row range and reads NaN there.
-        owner = torch.div(flat, rows_local, rounding_mode="floor").clamp_(0, n - 1)
-        perm = torch.argsort(owner, stable=True)
-        send_dev = torch.bincount(owner, minlength=n)
-        if n > 1:
-            counts = _reducer(ctx).all_gather(send_dev, ctx.group, tag="lookup").view(n, n)
-        else:
-            counts = send_dev.view(1, 1)
-        counts = counts.cpu()  # the host sync the split sizes need
-        send = counts[me].tolist()
-        recv = counts[:, me].tolist()
-        recv_ids = _exchange(flat[perm], recv, send, ctx)
-        local_rows = recv_ids - me * rows_local
+        send_src, send_ok, place = _routing_plan(flat, rows_local, n)
+        sent = torch.where(send_ok, flat.index_select(0, send_src), -1)
+        local_rows = _exchange(sent, ctx) - me * rows_local
         vecs = gather_rows(local_table, local_rows, dim)  # NaN where not owned
-        sorted_out = _exchange(vecs, send, recv, ctx)
-        out = torch.empty_like(sorted_out)
-        out[perm] = sorted_out
-        fctx.save_for_backward(perm, local_rows)
-        fctx.plan = (send, recv)
+        out = _exchange(vecs, ctx).index_select(0, place)
+        fctx.save_for_backward(send_src, send_ok, local_rows)
         fctx.table_shape, fctx.ctx, fctx.dim = tuple(local_table.shape), ctx, dim
         return out.reshape(tuple(ids.shape) + (dim,))
 
     @staticmethod
     def backward(fctx, g):
-        perm, local_rows = fctx.saved_tensors
-        send, recv = fctx.plan
+        send_src, send_ok, local_rows = fctx.saved_tensors
         ctx, dim = fctx.ctx, fctx.dim
-        g_sorted = g.reshape(-1, dim)[perm]
-        g_at_owner = _exchange(g_sorted, recv, send, ctx)
+        g_sent = g.reshape(-1, dim).index_select(0, send_src)
+        g_sent = g_sent.masked_fill(~send_ok[:, None], 0.0)
+        g_at_owner = _exchange(g_sent, ctx)
         return _scatter_add_rows(fctx.table_shape, local_rows, g_at_owner, dim), None, None, None
 
 
-def _exchange(x: torch.Tensor, out_splits, in_splits, ctx: ParallelContext) -> torch.Tensor:
-    """``all_to_all_single`` of ``x``'s rows: ``in_splits[j]`` rows to rank
-    ``j``, ``out_splits[j]`` rows from it; one rank keeps its rows."""
-    if ctx.axis_size == 1:
-        return x.clone()
-    out = x.new_empty((sum(out_splits),) + tuple(x.shape[1:]))
-    return _reducer(ctx).all_to_all(out, x.contiguous(), out_splits, in_splits, ctx.group,
+def _routing_plan(flat: torch.Tensor, rows_local: int, n: int):
+    """The ragged route's plan for this rank's ``L`` ids, on their device:
+    ``(send_src, send_ok, place)``.  Slot ``q = j * L + p`` of the ``[n *
+    L]`` send buffer holds id ``send_src[q]`` where ``send_ok[q]`` (the
+    ``p``-th id that rank ``j`` owns, in id order) and padding elsewhere;
+    id ``i`` sits at slot ``place[i]``.  Junk ids get a clamped owner,
+    whose row range they then miss."""
+    L = flat.shape[0]
+    owner = torch.div(flat, rows_local, rounding_mode="floor").clamp_(0, n - 1)
+    perm = torch.argsort(owner, stable=True)
+    by_owner = owner.index_select(0, perm)
+    # bounds[j]: the ids owned by ranks before j (bounds[n] == L).
+    bounds = torch.searchsorted(by_owner, torch.arange(n + 1, device=flat.device))
+    p = torch.arange(L, device=flat.device)
+    src = bounds[:-1, None] + p  # [n, L]: each slot's place in owner order
+    send_ok = (src < bounds[1:, None]).reshape(-1)
+    send_src = perm.index_select(0, src.clamp_(max=L - 1).reshape(-1))
+    place = by_owner * L + p - bounds.index_select(0, by_owner)
+    return send_src, send_ok, place.index_select(0, torch.argsort(perm))
+
+
+def _exchange(x: torch.Tensor, ctx: ParallelContext) -> torch.Tensor:
+    """``all_to_all_single`` of ``x``'s ``[n * L]`` rows in equal chunks:
+    chunk ``j`` to group rank ``j``, and chunk ``j`` of the result from it.
+    A one-rank axis without a group keeps its rows."""
+    if ctx.group is None and ctx.axis_size == 1:
+        return x
+    return _reducer(ctx).all_to_all(torch.empty_like(x), x.contiguous(), ctx.group,
                                     tag="lookup")

@@ -205,8 +205,9 @@ class CollectiveFailed(RuntimeError):
 class Reducer:
     """The collectives of one mesh: the group of each reduction and the
     seconds spent inside the collective calls (``seconds``, ``calls``, and
-    per ``"<tag>:<op>"`` in ``by_op``: ``grads`` for the gradient and metric
-    reductions, ``lookup`` for the sharded embedding routes, ``zero`` for
+    per ``"<tag>:<op>"`` one ``[calls, seconds]`` record, read as
+    ``by_op`` (seconds) and ``calls_by_op``: ``grads`` for the gradient and
+    metric reductions, ``lookup`` for the sharded embedding routes, ``zero`` for
     the sharded optimizer, ``snapshot`` for the gathers of a canonical
     state).  Under gloo the call returns once the reduction is done; on card
     tensors the stream's earlier work is waited for first, outside the
@@ -225,8 +226,29 @@ class Reducer:
         self._lock = threading.Lock()  # lock-order: leaf
         self.seconds = 0.0
         self.calls = 0
-        self.by_op: Dict[str, float] = {}
+        self._ops: Dict[str, List] = {}  # "<tag>:<op>": [calls, seconds]
         self._capture_tally: Optional[Dict[str, List]] = None
+
+    @property
+    def by_op(self) -> Dict[str, float]:
+        """The seconds by ``"<tag>:<op>"``."""
+        with self._lock:
+            return {key: dt for key, (_, dt) in self._ops.items()}
+
+    @property
+    def calls_by_op(self) -> Dict[str, int]:
+        """The calls by ``"<tag>:<op>"``."""
+        with self._lock:
+            return {key: n for key, (n, _) in self._ops.items()}
+
+    def _add(self, key: str, n: int, dt: float) -> None:
+        """``n`` calls of ``key`` that took ``dt`` seconds ran."""
+        with self._lock:
+            self.calls += n
+            self.seconds += dt
+            entry = self._ops.setdefault(key, [0, 0.0])
+            entry[0] += n
+            entry[1] += dt
 
     @contextmanager
     def capturing(self) -> Iterator[Dict[str, List]]:
@@ -247,11 +269,8 @@ class Reducer:
 
     def add_replay(self, tally: Dict[str, List]) -> None:
         """One replay of a captured graph: its recorded calls ran."""
-        with self._lock:
-            for key, (n, dt) in tally.items():
-                self.calls += n
-                self.seconds += dt
-                self.by_op[key] = self.by_op.get(key, 0.0) + dt
+        for key, (n, dt) in tally.items():
+            self._add(key, n, dt)
 
     def _collective(self, fn, group, tensors: List[torch.Tensor], op: str = "all_reduce",
                     tag: str = "grads") -> None:
@@ -274,9 +293,7 @@ class Reducer:
                 entry[0] += 1
                 entry[1] += dt
                 return
-            self.seconds += dt
-            self.calls += 1
-            self.by_op[key] = self.by_op.get(key, 0.0) + dt
+        self._add(key, 1, dt)
 
     def all_reduce(self, buf: torch.Tensor, group, tag: str = "grads") -> torch.Tensor:
         import torch.distributed as dist
@@ -310,15 +327,16 @@ class Reducer:
                          group, [flat], "reduce_scatter", tag)
         return out
 
-    def all_to_all(self, out: torch.Tensor, x: torch.Tensor, out_splits: List[int],
-                   in_splits: List[int], group, tag: str = "lookup") -> torch.Tensor:
-        """``all_to_all_single`` along dim 0: ``in_splits[j]`` rows of ``x``
-        to group rank ``j``, ``out_splits[j]`` rows from it into ``out``."""
+    def all_to_all(self, out: torch.Tensor, x: torch.Tensor, group,
+                   tag: str = "lookup") -> torch.Tensor:
+        """``all_to_all_single`` along dim 0 in equal chunks: chunk ``j`` of
+        ``x`` to group rank ``j``, chunk ``j`` of ``out`` from it.  No split
+        size comes to the host, so the call records into a CUDA graph like
+        the other calls."""
         import torch.distributed as dist
 
-        self._collective(
-            lambda: dist.all_to_all_single(out, x, out_splits, in_splits, group=group),
-            group, [x], "all_to_all", tag)
+        self._collective(lambda: dist.all_to_all_single(out, x, group=group),
+                         group, [x], "all_to_all", tag)
         return out
 
     def ring_shift(self, tensors: List[torch.Tensor], group, shift: int = 1,

@@ -146,8 +146,9 @@ call a task, on the card as on the CPU.  Neither is a fallback of the
 other.  The contributor weights are 0-d device tensors
 (``_weight``, the reference's ``_active_device``) that
 ``set_active_contributors`` writes in place, so a replay reads the mask
-set before it.  Where the scan would capture, the ragged lookup is refused
-(``scan_unsupported``): its split sizes are a host copy inside the step.
+set before it.  A row-sharded table scans on either lookup route: the
+ragged one moves statically shaped buffers by equal-split all-to-alls, so
+over NCCL the graph records them with the rest of the step.
 """
 
 from __future__ import annotations
@@ -172,7 +173,6 @@ from elasticdl_tpu_torch.models.spec import EmbeddingTableSpec, ModelSpec, shard
 from elasticdl_tpu_torch.ops import kernels
 from elasticdl_tpu_torch.ops.embedding import (
     IMPL_AUTO,
-    IMPL_RAGGED,
     ParallelContext,
     pack_table,
     resolve_impl,
@@ -1094,17 +1094,11 @@ class Trainer:
     def scan_unsupported(self) -> Optional[str]:
         """Why the fused scans cannot run on this trainer, or None: host-tier
         tables (their pulls need each step's host batch; the reference
-        refuses them too), or, where the scan would capture, the ragged
-        lookup (its split sizes are a host copy inside the step,
-        ``ops/embedding.py``, ``_RaggedLookup.forward``).  Eagerly (the CPU,
-        a gloo group) that copy is legal and the ragged route scans."""
+        refuses them too).  Both sharded lookup routes have static shapes
+        and no host copy inside the step, so they scan wherever the trainer
+        runs, captured or eagerly (``_scan_captures``)."""
         if self.spec.host_io:
             return "host-tier tables pull and push around every step"
-        if (self.sharded_embeddings and self.ctx.embedding_impl == IMPL_RAGGED
-                and self._scan_captures()):
-            return ("the ragged lookup copies its split sizes to the host inside the step "
-                    "(ops/embedding.py, _RaggedLookup.forward), which a CUDA graph cannot "
-                    "capture")
         return None
 
     def _scan_captures(self) -> bool:

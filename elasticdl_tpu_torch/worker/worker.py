@@ -1122,11 +1122,12 @@ class Worker:
     def _fused_eligible(self) -> Optional[str]:
         """Why a task's full minibatches cannot run as one fused scan
         (``Trainer.train_scan``/``eval_scan``), or None: the flag off, or a
-        trainer that cannot scan (host-tier tables; the ragged lookup where
-        the scan captures).  Gang mode scans too (captured over NCCL, eager
-        over gloo: the trainer's choice); every rank of a gang picks the
-        same path, since the answer depends only on the replicated config
-        and the trainer's capability."""
+        trainer that cannot scan (host-tier tables).  Gang mode scans too,
+        a row-sharded table on either lookup route among them (captured
+        over NCCL, eager over gloo: the trainer's choice); a capture that
+        fails fails the task, with no per-step fallback.  Every rank of a
+        gang picks the same path, since the answer depends only on the
+        replicated config and the trainer's capability."""
         if not self.config.fused_task_scan:
             return "--fused_task_scan=False"
         return self.trainer.scan_unsupported()

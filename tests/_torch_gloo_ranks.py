@@ -180,8 +180,10 @@ def sharded_lookup_cases(rank, world, cases):
     ``dim``, the global ``ids`` and cotangents ``cot``) through the port's
     sharded lookup: this rank holds rows ``[rank*P/n, (rank+1)*P/n)`` of
     the table and slice ``rank`` of the ids (dim 0).  Returns, per case,
-    this rank's output and the gradient of ``sum(where(isnan(out), 0, out *
-    cot))`` with respect to its rows."""
+    this rank's output, the gradient of ``sum(where(isnan(out), 0, out *
+    cot))`` with respect to its rows, and the collective calls of the
+    forward and backward as ``(op, rows of the input)`` (rows of the flat
+    input for the gathers)."""
     import numpy as np
     import torch
 
@@ -189,8 +191,21 @@ def sharded_lookup_cases(rank, world, cases):
     from elasticdl_tpu_torch.parallel import collectives as coll
     from elasticdl_tpu_torch.parallel.mesh import create_mesh
 
+    class RecordingReducer(coll.Reducer):
+        def all_gather(self, x, group, tag="grads"):
+            self.recorded.append(("all_gather", x.numel()))
+            return super().all_gather(x, group, tag)
+
+        def reduce_scatter(self, flat, group, tag="grads"):
+            self.recorded.append(("reduce_scatter", flat.numel()))
+            return super().reduce_scatter(flat, group, tag)
+
+        def all_to_all(self, out, x, group, tag="lookup"):
+            self.recorded.append(("all_to_all", x.shape[0]))
+            return super().all_to_all(out, x, group, tag)
+
     mesh = create_mesh()
-    reducer = coll.Reducer(mesh)
+    reducer = RecordingReducer(mesh)
     out = []
     for case in cases:
         ctx = ParallelContext(axis_name="dp", sharded_embeddings=True,
@@ -201,10 +216,27 @@ def sharded_lookup_cases(rank, world, cases):
         local = torch.tensor(table[rank * k:(rank + 1) * k], requires_grad=True)
         my_ids = torch.from_numpy(ids[rank * b:(rank + 1) * b].copy())
         my_cot = torch.from_numpy(cot[rank * b:(rank + 1) * b].copy())
+        reducer.recorded = []
         vec = embedding_lookup(local, my_ids, ctx, dim=case["dim"])
         torch.where(torch.isnan(vec), 0.0, vec * my_cot).sum().backward()
-        out.append((vec.detach().numpy().copy(), local.grad.numpy().copy()))
-    return {"cases": out, "by_op": dict(reducer.by_op)}
+        out.append((vec.detach().numpy().copy(), local.grad.numpy().copy(), reducer.recorded))
+    return {"cases": out, "by_op": dict(reducer.by_op), "calls_by_op": dict(reducer.calls_by_op)}
+
+
+def sharded_lookup_cases_one_rank_group(rank, world, cases):
+    """``sharded_lookup_cases`` in a world of one over a one-rank gloo
+    group, which ``distributed.initialize`` does not make for one process."""
+    import datetime
+
+    import torch.distributed as dist
+
+    t = datetime.timedelta(seconds=60)
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True, timeout=t)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1, timeout=t)
+    try:
+        return sharded_lookup_cases(rank, world, cases)
+    finally:
+        dist.destroy_process_group()
 
 
 def _canonical_from(trainer, state, params_tree):

@@ -193,3 +193,22 @@ def test_left_out_collectives_name_their_roadmap_items():
         assert out is y
         (out * torch.arange(6.0)).sum().backward()
         assert torch.equal(y.grad, torch.arange(6.0))
+
+
+def test_the_reducer_counts_calls_by_op_eagerly_and_at_each_replay():
+    """Each ``"<tag>:<op>"`` call counts as it runs, and a replay of a
+    captured graph adds its tally's calls and seconds: ``calls_by_op`` and
+    ``by_op`` read one record, the per-op form of ``calls`` and
+    ``seconds``."""
+    red = coll.Reducer(tmesh.Mesh({"dp": 1}))
+    for op in ("all_to_all", "all_to_all", "all_reduce"):
+        red._collective(lambda: None, None, [torch.zeros(1)], op, "lookup")
+    assert red.calls == 3 and red.calls_by_op == {"lookup:all_to_all": 2, "lookup:all_reduce": 1}
+    tally = {"lookup:all_to_all": [24, 0.5], "grads:all_reduce": [8, 0.25]}
+    red.add_replay(tally)
+    red.add_replay(tally)
+    assert red.calls == 3 + 2 * 32
+    assert red.calls_by_op == {"lookup:all_to_all": 50, "lookup:all_reduce": 1,
+                               "grads:all_reduce": 16}
+    assert red.by_op["grads:all_reduce"] == 0.5 and set(red.by_op) == set(red.calls_by_op)
+    assert red.seconds == pytest.approx(sum(red.by_op.values()))

@@ -946,10 +946,12 @@ def test_cuda_zoo_template_trains_through_the_worker_on_the_fused_path(card, tmp
 
 
 @contextlib.contextmanager
-def _nccl_world_of_one(monkeypatch):
+def _nccl_world_of_one(monkeypatch, model="transformer_lm"):
     """A one-rank NCCL process group on this card, with deterministic
     kernels where PyTorch has a choice (the comparisons are bit for bit):
-    ``(trainer over the group, stacked host batch of T steps)``."""
+    ``(trainer over the group, stacked host batch of T steps)``.  ``model``
+    ``"deepfm"``: DeepFM's table row-sharded over the group
+    (ParameterServer) with an explicit ``ragged`` lookup."""
     import datetime
 
     import torch.distributed as dist
@@ -964,10 +966,19 @@ def _nccl_world_of_one(monkeypatch):
     dist.init_process_group("nccl", store=store, rank=0, world_size=1, timeout=t,
                             device_id=torch.device("cuda", torch.cuda.current_device()))
     try:
-        trainer = Trainer(tlm.model_spec(**dict(_GANG_MODEL, remat=True)), device="cuda",
-                          mesh=create_mesh())
+        if model == "deepfm":
+            from elasticdl_tpu_torch.common.config import JobConfig
+            from elasticdl_tpu_torch.models import deepfm
+
+            spec = deepfm.model_spec(buckets_per_feature=512, embedding_dim=8, hidden=(64, 64))
+            trainer = Trainer(spec, device="cuda", mesh=create_mesh(), config=JobConfig(
+                distribution_strategy="ParameterServer", embedding_lookup_impl="ragged"))
+            batches = [dict(spec.feed(_criteo_records(256, seed=i))) for i in range(_SCAN_T)]
+        else:
+            trainer = Trainer(tlm.model_spec(**dict(_GANG_MODEL, remat=True)), device="cuda",
+                              mesh=create_mesh())
+            batches = [{k: v for k, v in b.items() if k != "__mask__"} for b in _gang_batches()]
         assert dist.get_backend(trainer._group) == "nccl" and trainer._scan_captures()
-        batches = [{k: v for k, v in b.items() if k != "__mask__"} for b in _gang_batches()]
         yield trainer, {k: np.stack([b[k] for b in batches]) for k in batches[0]}
     finally:
         dist.destroy_process_group()
@@ -1062,3 +1073,67 @@ def test_cuda_a_replay_adds_its_collective_calls_as_an_eager_task_does(card, mon
         assert red.calls - before == replayed > 0
         (graph,) = trainer.scan_graphs()
         assert sum(graph["collectives"].values()) == replayed
+
+
+def test_cuda_nccl_world_of_one_replays_the_ragged_lookup_equal_to_the_loop(card, monkeypatch):
+    """DeepFM's table row-sharded over a one-rank NCCL group with an explicit
+    ``ragged`` lookup: ``train_scan`` captures the route's equal-split
+    all-to-alls over the group (three a step: ids, vectors, cotangents; no
+    count all-gather) and replays them under ``set_sync_debug_mode("error")``;
+    the per-step loop from the same state gives the same losses,
+    parameters and optimizer slots bit for bit."""
+    with _nccl_world_of_one(monkeypatch, "deepfm") as (trainer, stacked):
+        assert trainer.sharded_embeddings and trainer.ctx.embedding_impl == "ragged"
+        assert trainer.ctx.group is not None and trainer.scan_unsupported() is None
+        state, placed, start = _warm_and_capture(trainer, stacked)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, fused = trainer.train_scan(state, placed)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        (graph,) = trainer.scan_graphs()
+        assert graph["collectives"].get("lookup:all_to_all") == 3 * _SCAN_T, graph["collectives"]
+        assert "lookup:all_gather" not in graph["collectives"]
+        got = trainer.host_state(state)
+        state = trainer.adopt_restored(start, state)
+        state, per_step = trainer.run_train_steps(state, _scan_steps(placed), pre_sharded=True)
+        assert torch.equal(fused["loss"], torch.stack([m["loss"] for m in per_step]))
+        _assert_states(got, trainer.host_state(state), 0)
+
+
+def test_cuda_ragged_lookup_reads_nothing_back_to_the_host(card, monkeypatch):
+    """The ragged route's forward and backward over a one-rank NCCL group,
+    deterministic algorithms on, raise nothing under
+    ``set_sync_debug_mode("error")``: the plan, the gathers, the exchanges
+    and the scatter-add stay on the device.  Rows equal the local gather
+    (NaN for ids past the table, either sign), the table gradient its
+    scatter-add."""
+    from elasticdl_tpu_torch.ops.embedding import (
+        embedding_lookup,
+        gather_rows,
+        logical_rows,
+        pack_table,
+    )
+
+    with _nccl_world_of_one(monkeypatch, "deepfm") as (trainer, _):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        table = pack_table(torch.randn(4096, 9, device="cuda", generator=gen), 9)
+        rows = logical_rows(table, 9)
+        ids = torch.randint(-8, rows + 8, (64, 26), device="cuda", generator=gen)
+        cot = torch.randn(64, 26, 9, device="cuda", generator=gen)
+        got_t, want_t = table.clone().requires_grad_(True), table.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = embedding_lookup(got_t, ids, trainer.ctx, dim=9)
+            torch.where(torch.isnan(out), 0.0, out * cot).sum().backward()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = gather_rows(want_t, ids, 9)
+        torch.where(torch.isnan(want), 0.0, want * cot).sum().backward()
+        assert "lookup:all_to_all" in trainer.reducer.by_op  # the real exchange ran
+        assert torch.equal(torch.isnan(out), torch.isnan(want))
+        ok = ~torch.isnan(want)
+        assert torch.equal(out[ok], want[ok])
+        torch.testing.assert_close(got_t.grad, want_t.grad, rtol=1e-5, atol=1e-6)

@@ -180,8 +180,7 @@ def test_gang_scan_equals_the_per_step_gang_loop_bit_for_bit(case):
     """Over gloo the scan runs the gang's steps eagerly: the same metrics
     and the same state as the per-step loop, bit for bit, for the plain
     data-parallel step, the sharded optimizer, and a table row-sharded over
-    both ranks on the dense and on the ragged route (whose host copy of the
-    split sizes is legal eagerly)."""
+    both ranks on the dense and on the ragged route."""
     kind, dcn, config, facts = _LOOP_CASES[case]
     model_kw = LM if kind == "transformer_lm" else DFM
     ranks = run_ranks(gang_scan_against_loop, 2, kind, model_kw, dcn, config, _plan(kind, 1))
@@ -220,36 +219,39 @@ def test_set_active_contributors_writes_the_device_weights_in_place():
     assert (float(w), float(n)) == (1.0, 2.0)
 
 
-@pytest.mark.parametrize("backend,device,ragged,refused", [
+@pytest.mark.parametrize("backend,device,ragged,host_tier", [
     ("gloo", "cpu", True, False),
     ("gloo", "cuda", True, False),
-    ("nccl", "cuda", True, True),
+    ("nccl", "cuda", True, False),
     ("nccl", "cuda", False, False),
+    ("nccl", "cuda", True, True),
 ])
-def test_scan_unsupported_names_the_ragged_lookup_only_where_the_scan_captures(
-        monkeypatch, backend, device, ragged, refused):
-    """A gloo group scans eagerly wherever it runs, so the ragged route's
-    host copy is legal there; an NCCL group on the card captures, and the
-    ragged route is refused with its reason.  (The card is only named
-    here: nothing runs on it.)"""
+def test_scan_unsupported_refuses_only_host_tier_tables(
+        monkeypatch, backend, device, ragged, host_tier):
+    """A row-sharded table scans on either lookup route, eagerly over gloo
+    and captured over NCCL on the card: the ragged route has static shapes
+    and no host copy inside the step.  Host-tier tables stay refused, as in
+    the reference.  (The card is only named here: nothing runs on it.)"""
     import torch.distributed as dist
 
     from elasticdl_tpu_torch.common.config import JobConfig
 
     group = object()
     monkeypatch.setattr(dist, "get_backend", lambda g=None: backend)
+    # A gang's host tier lives behind the PS service; no call reaches it here.
     config = JobConfig(distribution_strategy="ParameterServer",
-                       embedding_lookup_impl=IMPL_RAGGED if ragged else IMPL_DENSE)
-    tr = Trainer(deepfm.model_spec(**DFM), device="cpu", config=config,
-                 mesh=Mesh({"dp": 2}, rank=0, groups={("dp",): group}))
+                       embedding_lookup_impl=IMPL_RAGGED if ragged else IMPL_DENSE,
+                       ps_addresses="127.0.0.1:1" if host_tier else "")
+    tr = Trainer(deepfm.model_spec(**dict(DFM, host_tier=host_tier)), device="cpu",
+                 config=config, mesh=Mesh({"dp": 2}, rank=0, groups={("dp",): group}))
     assert tr._group is group and tr.ctx.axis_size == 2
     tr.device = torch.device(device)
     why = tr.scan_unsupported()
     assert tr._scan_captures() is (backend == "nccl")
-    if refused:
-        assert "ragged lookup" in why and "_RaggedLookup" in why
+    if host_tier:
+        assert "host-tier" in why
     else:
-        assert why is None
+        assert tr.sharded_embeddings and why is None
 
 
 @pytest.mark.parametrize("backend", ["gloo", "nccl"])

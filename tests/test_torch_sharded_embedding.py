@@ -10,10 +10,13 @@ runs under ``shard_map`` on a 2- and 4-device mesh (``dense`` and
 port's ``ragged`` is the real all-to-all, which gloo has on the CPU).  The
 same numpy-seeded tables (plain ``[V, D]`` and packed ``[V/8, 8*D]``), ids
 and cotangents go through both.  Cases: random ids, skewed ids (every id on
-the last shard), 2-D ids, duplicate ids (the table gradient accumulates
-them), out-of-range ids (NaN rows, cotangents dropped).  Tolerances, the
-reference test's: rows rtol 1e-6 (a gather moves values), gradients rtol
-1e-5, atol 1e-6.  All cases of one world run in one spawned world.
+the last shard), every rank's ids on the next rank's shard (one full chunk
+of the ragged route's send buffer, the others all padding), 2-D ids,
+duplicate ids (the table gradient accumulates them), out-of-range ids (NaN
+rows, cotangents dropped).  Tolerances, the reference test's: rows rtol
+1e-6 (a gather moves values), gradients rtol 1e-5, atol 1e-6.  All cases of
+one world run in one spawned world, whose ``Reducer`` records each case's
+collective calls.
 """
 
 import jax
@@ -32,13 +35,17 @@ from elasticdl_tpu.parallel.mesh import create_mesh as jax_create_mesh
 from elasticdl_tpu_torch.common.config import JobConfig
 from elasticdl_tpu_torch.ops import embedding as temb
 
-from _torch_gloo_ranks import run_ranks, sharded_lookup_cases
+from _torch_gloo_ranks import (
+    run_ranks,
+    sharded_lookup_cases,
+    sharded_lookup_cases_one_rank_group,
+)
 
 VOCAB, DIM = 64, 16
 WORLDS = (2, 4)
 IMPLS = {"dense": "dense", "ragged": "ragged_emulated"}  # port route: JAX route
 LAYOUTS = ("plain", "packed")
-CASES = ("random", "skewed", "ids_2d", "duplicates", "out_of_range")
+CASES = ("random", "skewed", "one_owner", "ids_2d", "duplicates", "out_of_range")
 
 
 def _table() -> np.ndarray:
@@ -59,6 +66,10 @@ def _ids_and_cot(case: str, world: int):
         ids = rng.integers(0, VOCAB, 32)
     elif case == "skewed":  # every rank's ids on the last shard
         ids = rng.integers((world - 1) * VOCAB // world, VOCAB, 32)
+    elif case == "one_owner":  # rank r's ids all on shard r + 1 (mod world)
+        shard = VOCAB // world
+        ids = np.concatenate([rng.integers(o * shard, (o + 1) * shard, 32 // world)
+                              for o in np.roll(np.arange(world), -1)])
     elif case == "ids_2d":  # [batch, features], the tabular models' shape
         ids = rng.integers(0, VOCAB, (16, 5))
     elif case == "duplicates":  # id 3 from every rank
@@ -93,6 +104,7 @@ def port_results():
             out = np.concatenate([r["cases"][i][0] for r in ranks])
             grad = np.concatenate([r["cases"][i][1] for r in ranks])
             results[key] = (out, grad)
+            results[f"{key}-calls"] = [r["cases"][i][2] for r in ranks]
         results[f"{world}-by_op"] = [r["by_op"] for r in ranks]
     return results
 
@@ -152,11 +164,47 @@ def test_sharded_lookup_matches_the_reference(port_results, world, impl, layout,
 @pytest.mark.parametrize("world", WORLDS)
 def test_each_route_ran_its_collectives(port_results, world):
     """The dense route all-gathers ids and reduce-scatters vectors; the
-    ragged one all-gathers the counts and exchanges ids, vectors and
-    cotangents all-to-all; all through the Reducer, timed by op."""
+    ragged one exchanges ids, vectors and cotangents all-to-all; all
+    through the Reducer, timed by op."""
     for by_op in port_results[f"{world}-by_op"]:
         assert set(by_op) == {"lookup:all_gather", "lookup:reduce_scatter", "lookup:all_to_all"}
         assert all(v >= 0 for v in by_op.values())
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("world", WORLDS)
+def test_ragged_route_makes_three_equal_split_all_to_alls(port_results, world, case):
+    """A forward and backward of the ragged route: the ids, the vectors and
+    the cotangents, each one ``all_to_all`` of ``n * L`` rows (the
+    Reducer's equal split: chunks of ``L``, no split sizes from the host),
+    and no ``all_gather`` of counts; whatever the ids, skew and padding
+    included."""
+    ids, _ = _ids_and_cot(case, world)
+    per_rank = ids.size // world
+    for layout in LAYOUTS:
+        for calls in port_results[f"{_key(world, 'ragged', layout, case)}-calls"]:
+            assert calls == [("all_to_all", world * per_rank)] * 3, calls
+
+
+def test_explicit_ragged_on_a_one_rank_group_runs_the_real_all_to_all():
+    """An explicit ``ragged`` lookup over a one-rank gloo group runs its
+    three exchanges through the group, as the reference honours the request
+    on a one-device axis, and equals the local gather: NaN rows for ids past
+    the table, their cotangents dropped."""
+    ids = np.array([0, 5, VOCAB - 1, VOCAB, -1, 5, 2**30], np.int32)
+    cot = np.random.default_rng(2).standard_normal(ids.shape + (DIM,)).astype(np.float32)
+    cases = [{"impl": "ragged", "table": _layout(layout), "dim": DIM, "ids": ids, "cot": cot}
+             for layout in LAYOUTS]
+    (rank,) = run_ranks(sharded_lookup_cases_one_rank_group, 1, cases)
+    good = (ids >= 0) & (ids < VOCAB)
+    want_grad = np.zeros((VOCAB, DIM), np.float32)
+    np.add.at(want_grad, ids[good], cot[good])
+    for out, grad, calls in rank["cases"]:
+        assert calls == [("all_to_all", ids.size)] * 3, calls
+        np.testing.assert_array_equal(out[good], _table()[ids[good]])
+        assert np.isnan(out[~good]).all()
+        np.testing.assert_allclose(grad.reshape(-1, DIM), want_grad, rtol=1e-5, atol=1e-6)
+    assert rank["calls_by_op"] == {"lookup:all_to_all": 3 * len(LAYOUTS)}
 
 
 def test_resolve_impl_matches_the_reference():
