@@ -294,7 +294,7 @@ class JobConfig:
     # A/B harness — docs/observability.md), so flipping the endpoint on
     # is purely additive.
     gauge_port: int = -1
-    profile_dir: str = ""  # worker: jax.profiler trace of one training task
+    profile_dir: str = ""  # worker: torch.profiler Chrome trace of its second training task
     metrics_dir: str = ""  # master: JSONL + TensorBoard scalar stream
     # Process backend: capture each worker pod's stdout+stderr to
     # {pod_log_dir}/{pod-name}.log (the local analog of kubectl logs; pod

@@ -92,7 +92,8 @@ class PhaseTimers:
     - ``prep_wait``   blocked on host ingest (bulk read + decode + stack, or
                       the prep-ahead future when pipelined)
     - ``dispatch``    issuing device work (H2D transfer + step/scan dispatch;
-                      includes the first task's XLA compile)
+                      includes a variant's eager first task and its CUDA-graph
+                      capture on the card)
     - ``step_wait``   draining device execution at the deferred metrics fetch
     - ``metrics``     host-side metric aggregation + the report RPC
     - ``checkpoint``  task-loop boundary cost of periodic checkpoints
@@ -111,6 +112,14 @@ class PhaseTimers:
                       so it is off the critical path like ``checkpoint_bg``;
                       compare it against ``prep_wait`` to see how much
                       decode the pool hid
+    - ``capture``     one entry a CUDA-graph capture (``Trainer._capture``),
+                      its seconds; it runs inside ``dispatch`` and keeps its
+                      own record, so the count is the number of captures and
+                      ``dispatch`` keeps the whole wall
+    - ``device_task`` / ``device_gap``  the card's own clock
+                      (``DEVICE_PHASES``, ``DeviceTaskClock``): a training
+                      task's device time, and the card's wait between two
+                      training tasks
 
     The snapshot rides every ReportTaskResult/ReportCheckpoint, so the
     master's view (JobStatus ``phase_times``) and the train-job artifact get
@@ -213,11 +222,58 @@ CRITICAL_PATH_PHASES = (
 )
 
 
+#: Entries timed on the device's clock, not the loop's wall
+#: (``DeviceTaskClock``): never part of the critical-path partition.
+DEVICE_PHASES = ("device_task", "device_gap")
+
+
 def critical_path_seconds(phase_times: Dict[str, float]) -> float:
     """Sum of the wall-consuming phases of one worker's snapshot."""
     return float(
         sum(v for k, v in phase_times.items() if k in CRITICAL_PATH_PHASES)
     )
+
+
+class DeviceTaskClock:
+    """A worker's training tasks on the device's own clock, from two timing
+    events a task on the loop's stream: ``start``, recorded just before the
+    task's first replay or eager step (``Trainer.task_start``), and ``end``,
+    the metrics fetch's event after its last operation.  When the loop has
+    waited for ``end`` (``settled``), ``phases`` gets ``device_task`` (start
+    to end: the task's steps on the card, and any host time between them
+    that the card waits for) and ``device_gap`` (the previous settled
+    training task's end to this start: the card's wait between them, the
+    task's upload included; none for the first task).  Summed over a run's
+    tasks the two are the first start to the last end, whatever the card
+    did: the sum checks that no task fell out of the chain, not how busy
+    the card was.  Both
+    events have completed by then, so reading them adds no wait.  Tasks
+    settle in the order they were dispatched; an unknown ``end`` (a task
+    with no events, a non-training fetch) is ignored and leaves the chain
+    as it was.  Events need only ``elapsed_time(other)`` in ms, as
+    ``torch.cuda.Event`` has it."""
+
+    def __init__(self, phases: PhaseTimers):
+        self._phases = phases
+        #: (start, end) of dispatched training tasks not settled yet.
+        self._open: list = []
+        self._last_end = None
+
+    def dispatched(self, start, end) -> None:
+        self._open.append((start, end))
+
+    def settled(self, end) -> None:
+        at = next((i for i, (_, e) in enumerate(self._open) if e is end), None)
+        if at is None:
+            return
+        start = self._open[at][0]
+        # Earlier entries never settled (their fetch failed): dropped.
+        del self._open[: at + 1]
+        task, gap = DEVICE_PHASES
+        self._phases.add(task, start.elapsed_time(end) / 1e3)
+        if self._last_end is not None:
+            self._phases.add(gap, self._last_end.elapsed_time(start) / 1e3)
+        self._last_end = end
 
 
 class MetricsWriter:

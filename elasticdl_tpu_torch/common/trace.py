@@ -27,6 +27,16 @@ Design constraints, in order:
   see ``Worker._check_membership``), so the dump tool can align per-process
   clocks onto the master's.
 
+Profiler ranges: while a ``torch.profiler`` records on the calling thread,
+``span(name)`` also opens the profiler range ``edl:<name>``, whether or not
+the recorder is enabled, so every span (every ``PhaseTimers`` phase among
+them) appears on the device trace under its own name; ``profiler_range``
+opens a range of any name the same way (the model's ``lm:head_loss``,
+``optim:step``, ``lookup:forward``, ``lookup:backward``).  This module never
+imports torch (the master imports it): it looks torch up among the loaded
+modules, so without a profiler a span costs that lookup and one call to
+the profiler's check, and in a process without torch the lookup alone.
+
 API split the ``trace-discipline`` lint rule enforces:
 
 - non-blocking ring API (legal anywhere, including ``# hot-path``):
@@ -45,8 +55,10 @@ block.
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import os
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -267,8 +279,62 @@ def enabled() -> bool:
     return _REC.enabled
 
 
+def _profiler():
+    """``torch.profiler`` while it records on the calling thread (its state
+    is per thread: a prep or checkpoint thread reads False), else None."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return None
+    try:
+        on = torch.autograd._profiler_enabled()
+    except AttributeError:  # torch half imported on another thread
+        return None
+    return torch.profiler if on else None
+
+
+_NULL_RANGE = contextlib.nullcontext()
+
+
+def profiler_range(name: str):
+    """The profiler range ``name`` around a block while a profiler records
+    on the calling thread, else a shared no-op context.  The ranges run on
+    the host, so a CUDA-graph replay does not show what they wrap; an eager
+    step, a capture and the operator's ``profile_dir`` trace do."""
+    profiler = _profiler()
+    return _NULL_RANGE if profiler is None else profiler.record_function(name)
+
+
+class _RangedSpan:
+    """A span with the profiler range ``edl:<name>`` open inside it."""
+
+    __slots__ = ("_span", "_range")
+
+    def __init__(self, sp, rng):
+        self._span, self._range = sp, rng
+
+    @property
+    def span_id(self) -> int:
+        return self._span.span_id
+
+    def __enter__(self):
+        out = self._span.__enter__()
+        self._range.__enter__()
+        return out
+
+    def __exit__(self, *exc) -> bool:
+        try:
+            self._range.__exit__(*exc)
+        finally:
+            self._span.__exit__(*exc)
+        return False
+
+
 def span(name: str, cat: str = "span", **attrs):
-    return _REC.span(name, cat, **attrs)
+    sp = _REC.span(name, cat, **attrs)
+    profiler = _profiler()
+    if profiler is None:
+        return sp
+    return _RangedSpan(sp, profiler.record_function("edl:" + name))
 
 
 def instant(name: str, cat: str = "event", **attrs) -> None:

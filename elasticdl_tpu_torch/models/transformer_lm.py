@@ -55,6 +55,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from elasticdl_tpu_torch.common.device import resolve_device
+from elasticdl_tpu_torch.common.trace import profiler_range
 from elasticdl_tpu_torch.data.codecs import lm_feed
 from elasticdl_tpu_torch.models.metrics import masked_mean
 from elasticdl_tpu_torch.models.spec import ModelSpec, shard_parameters
@@ -293,8 +294,9 @@ class TransformerLM(nn.Module):
                 x = run(x, w, self.n_heads, last)
         x = _rms_norm(x, self.ln_f)
         # Weight-tied head; logits in f32 after the compute-dtype product.
-        head = self.tok_emb.to(self.compute_dtype) if cast is None else cast["head"]
-        return (x @ head.T).float()
+        with profiler_range("lm:head_loss"):
+            head = self.tok_emb.to(self.compute_dtype) if cast is None else cast["head"]
+            return (x @ head.T).float()
 
 
 def _apply(
@@ -343,11 +345,12 @@ def _tp_dims(model: TransformerLM) -> Dict[str, int]:
 def _loss(logits: torch.Tensor, batch: Dict[str, torch.Tensor], mask=None) -> torch.Tensor:
     """Mean token cross-entropy (f32 logits, integer labels) over real
     sequences: ``mask`` gives whole padded sequences zero weight."""
-    ce = F.cross_entropy(
-        logits.reshape(-1, logits.shape[-1]), batch["labels"].reshape(-1).long(),
-        reduction="none",
-    ).reshape(logits.shape[:-1])
-    return masked_mean(ce, mask)
+    with profiler_range("lm:head_loss"):
+        ce = F.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), batch["labels"].reshape(-1).long(),
+            reduction="none",
+        ).reshape(logits.shape[:-1])
+        return masked_mean(ce, mask)
 
 
 def _metrics(logits: torch.Tensor, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -74,6 +74,8 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from elasticdl_tpu_torch.common.trace import profiler_range
+
 #: Lanes of one physical row in the reference's packed layout.
 LANES = 128
 
@@ -264,16 +266,17 @@ def embedding_lookup(
     if dim is None:
         dim = table.shape[1]
     _pack_geometry(table.shape[1], dim)  # raises on an inconsistent width/dim
-    if not (ctx.sharded_embeddings and ctx.axis_name):
-        return gather_rows(table, ids, dim)
-    impl = resolve_impl(ctx.embedding_impl, table.device.type, ctx.axis_size)
-    # n = 1 is a local gather on the dense route; an explicit ragged request
-    # still runs the ragged route, as in the reference.
-    if impl == IMPL_DENSE or (ctx.axis_size == 1 and impl == IMPL_RAGGED_EMULATED):
-        if ctx.axis_size == 1:
+    with profiler_range("lookup:forward"):
+        if not (ctx.sharded_embeddings and ctx.axis_name):
             return gather_rows(table, ids, dim)
-        return _DenseLookup.apply(table, ids, ctx, dim)
-    return _RaggedLookup.apply(table, ids, ctx, dim)
+        impl = resolve_impl(ctx.embedding_impl, table.device.type, ctx.axis_size)
+        # n = 1 is a local gather on the dense route; an explicit ragged
+        # request still runs the ragged route, as in the reference.
+        if impl == IMPL_DENSE or (ctx.axis_size == 1 and impl == IMPL_RAGGED_EMULATED):
+            if ctx.axis_size == 1:
+                return gather_rows(table, ids, dim)
+            return _DenseLookup.apply(table, ids, ctx, dim)
+        return _RaggedLookup.apply(table, ids, ctx, dim)
 
 
 def resolve_impl(impl: str, platform: Optional[str] = None,
@@ -335,13 +338,15 @@ class _DenseLookup(torch.autograd.Function):
 
     @staticmethod
     def backward(fctx, g):
-        safe, mine, bad = fctx.saved_tensors
-        ctx, dim = fctx.ctx, fctx.dim
-        g = g.reshape(-1, dim).masked_fill(bad[:, None], 0.0).contiguous()
-        # The transpose of the reduce-scatter: every rank's cotangents.
-        g_all = _reducer(ctx).all_gather(g.reshape(-1), ctx.group, tag="lookup").view(-1, dim)
-        rows = torch.where(mine, safe, -1)
-        return _scatter_add_rows(fctx.table_shape, rows, g_all, dim), None, None, None
+        with profiler_range("lookup:backward"):
+            safe, mine, bad = fctx.saved_tensors
+            ctx, dim = fctx.ctx, fctx.dim
+            g = g.reshape(-1, dim).masked_fill(bad[:, None], 0.0).contiguous()
+            # The transpose of the reduce-scatter: every rank's cotangents.
+            g_all = _reducer(ctx).all_gather(g.reshape(-1), ctx.group,
+                                             tag="lookup").view(-1, dim)
+            rows = torch.where(mine, safe, -1)
+            return _scatter_add_rows(fctx.table_shape, rows, g_all, dim), None, None, None
 
 
 class _RaggedLookup(torch.autograd.Function):
@@ -368,12 +373,13 @@ class _RaggedLookup(torch.autograd.Function):
 
     @staticmethod
     def backward(fctx, g):
-        send_src, send_ok, local_rows = fctx.saved_tensors
-        ctx, dim = fctx.ctx, fctx.dim
-        g_sent = g.reshape(-1, dim).index_select(0, send_src)
-        g_sent = g_sent.masked_fill(~send_ok[:, None], 0.0)
-        g_at_owner = _exchange(g_sent, ctx)
-        return _scatter_add_rows(fctx.table_shape, local_rows, g_at_owner, dim), None, None, None
+        with profiler_range("lookup:backward"):
+            send_src, send_ok, local_rows = fctx.saved_tensors
+            ctx, dim = fctx.ctx, fctx.dim
+            g_sent = g.reshape(-1, dim).index_select(0, send_src)
+            g_sent = g_sent.masked_fill(~send_ok[:, None], 0.0)
+            g_at_owner = _exchange(g_sent, ctx)
+            return _scatter_add_rows(fctx.table_shape, local_rows, g_at_owner, dim), None, None, None
 
 
 def _routing_plan(flat: torch.Tensor, rows_local: int, n: int):

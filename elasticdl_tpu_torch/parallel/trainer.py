@@ -164,7 +164,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from elasticdl_tpu_torch.common import durable
+from elasticdl_tpu_torch.common import durable, trace
 from elasticdl_tpu_torch.common.config import DistributionStrategy
 from elasticdl_tpu_torch.common.device import resolve_device, set_matmul_precision
 from elasticdl_tpu_torch.common.log_utils import get_logger
@@ -541,6 +541,13 @@ class Trainer:
         self._graph_sig: Optional[tuple] = None
         self._stacked_bufs: Dict[tuple, Dict[str, torch.Tensor]] = {}
         self._scan_mode_logged = False  # gil-atomic (a log-once flag: a race logs twice)
+        # The worker's ``PhaseTimers`` (None alone): each capture adds a
+        # ``capture`` entry, so its count is the number of captures.
+        self.phases = None
+        # On the card, a timing event recorded just before a task's first
+        # replay or eager step (``_mark_task_start``); the caller clears it
+        # before the task and reads it after.
+        self.task_start: Optional[torch.cuda.Event] = None
 
     def _make_host_stores(self) -> Dict[str, Any]:
         """The host-tier stores: one ``RemoteEmbeddingStore`` a table over
@@ -900,7 +907,8 @@ class Trainer:
             loss = spec.loss(out, batch)
         loss.backward()
         host_grads = self._host_grads(host_in)
-        optimizer.step()
+        with trace.profiler_range("optim:step"):
+            optimizer.step()
         metrics = {}
         if spec.metrics is not None:
             with torch.no_grad():
@@ -990,7 +998,8 @@ class Trainer:
             zero.set_grads(self._zero_scatter(zero))
         for path, p in params:
             p.grad = summed["grad/" + path]
-        optimizer.step()
+        with trace.profiler_range("optim:step"):
+            optimizer.step()
         if zero is not None:
             try:
                 full = self.reducer.all_gather(zero.buf, self.mesh.group((self.opt_axis,)),
@@ -1079,6 +1088,7 @@ class Trainer:
                 # is intact.
                 raise TrainLoopError(last_good, e) from e
             try:
+                self._mark_task_start()
                 state, metrics, _ = step(state, batch)
             except CollectiveError as e:
                 # Before the update the state before the step is intact;
@@ -1147,18 +1157,19 @@ class Trainer:
                        for k, v in stacked.items()}
         host = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
                 for k, v in stacked.items()}
-        if self.device.type != "cuda":
-            return {k: v.to(self.device) for k, v in host.items()}
-        variant = self._variant(host)
-        bufs = self._stacked_bufs.get(variant)
-        if bufs is None:
-            bufs = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
-                    for k, v in host.items()}
-            self._stacked_bufs[variant] = bufs
-        for k, v in host.items():
-            src = v.contiguous()
-            bufs[k].copy_(src if src.is_pinned() else src.pin_memory(), non_blocking=True)
-        return dict(bufs)
+        with trace.span("upload"):
+            if self.device.type != "cuda":
+                return {k: v.to(self.device) for k, v in host.items()}
+            variant = self._variant(host)
+            bufs = self._stacked_bufs.get(variant)
+            if bufs is None:
+                bufs = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
+                        for k, v in host.items()}
+                self._stacked_bufs[variant] = bufs
+            for k, v in host.items():
+                src = v.contiguous()
+                bufs[k].copy_(src if src.is_pinned() else src.pin_memory(), non_blocking=True)
+            return dict(bufs)
 
     def pin_stacked(self, stacked: Dict[str, Any]) -> Dict[str, Any]:
         """A stacked host batch in pinned host tensors when this trainer
@@ -1180,8 +1191,9 @@ class Trainer:
             raise ValueError(f"model {self.spec.name!r} declares no loss or optimizer: it cannot train")
         n = self._scan_begin("train_scan", stacked)
         if not self._graph_ready("train_scan", stacked, state):
-            state, per_step = self._step_loop(state, self._steps_of(stacked, n), True,
-                                              self._train_step)
+            with trace.span("eager_scan"):
+                state, per_step = self._step_loop(state, self._steps_of(stacked, n), True,
+                                                  self._train_step)
             self._warm_slots = self._slot_layout(state.optimizer)
             return state, self._stack_metrics(per_step)
 
@@ -1206,8 +1218,9 @@ class Trainer:
         CPU and over gloo."""
         n = self._scan_begin("eval_scan", stacked)
         if not self._graph_ready("eval_scan", stacked, state):
-            return self._stack_metrics([self._eval_step(state, b)
-                                        for b in self._steps_of(stacked, n)])
+            with trace.span("eager_scan"):
+                return self._stack_metrics([self._eval_step(state, b)
+                                            for b in self._steps_of(stacked, n)])
         return self._replay("eval_scan", stacked, state,
                             lambda views: [self._eval_step(state, b) for b in views])
 
@@ -1306,16 +1319,19 @@ class Trainer:
         entry = self._graphs.get(key)
         try:
             if entry is None:
-                entry = self._capture(kind, stacked, body)
+                with trace.span("capture"):
+                    entry = self._capture(kind, stacked, body)
                 self._graphs[key] = entry
                 # The capture itself read nothing: the tensors it touched
                 # are the same, but the signature covers the slots it may
                 # have made.
                 self._graph_sig = self._state_signature(state)
-            for k, v in stacked.items():
-                if v.data_ptr() != entry.inputs[k].data_ptr():
-                    entry.inputs[k].copy_(v, non_blocking=True)
-            entry.graph.replay()
+            with trace.span("replay"):
+                self._mark_task_start()
+                for k, v in stacked.items():
+                    if v.data_ptr() != entry.inputs[k].data_ptr():
+                        entry.inputs[k].copy_(v, non_blocking=True)
+                entry.graph.replay()
             kernels.add_counts(entry.tally)
             self.reducer.add_replay(entry.collectives)
             # Copies, so the next replay cannot overwrite what the caller
@@ -1325,10 +1341,19 @@ class Trainer:
             self._graphs.pop(key, None)
             raise TrainLoopError(None, e) from e
 
+    def _mark_task_start(self) -> None:
+        """On the card, record ``task_start`` on the current stream unless
+        the task has one: its device work from here on, after its upload,
+        its capture and the host's set-up, which the card does not run."""
+        if self.task_start is None and self.device.type == "cuda":
+            self.task_start = torch.cuda.Event(enable_timing=True)
+            self.task_start.record()
+
     def _capture(self, kind: str, stacked: Dict[str, torch.Tensor], body) -> _Graph:
         """Capture ``body`` over the T step views of ``stacked`` into one
         graph, in a memory pool of its own: nothing runs; the module's
-        Python state stays as it was."""
+        Python state stays as it was.  Each capture adds a ``capture`` entry
+        to ``phases`` (its seconds)."""
         inputs = dict(stacked)
         views = self._steps_of(inputs, int(next(iter(inputs.values())).shape[0]))
         torch.cuda.synchronize(self.device)
@@ -1348,6 +1373,8 @@ class Trainer:
                     "calls counted a replay, graph pool +%d bytes)", kind, len(views),
                     self._variant(stacked), capture_s, sum(tally.values()),
                     sum(n for n, _ in calls.values()), pool_bytes)
+        if self.phases is not None:
+            self.phases.add("capture", capture_s)
         return _Graph(graph, inputs, outputs, dict(tally), dict(calls), capture_s, pool_bytes)
 
     def scan_graphs(self) -> List[Dict[str, Any]]:
@@ -1397,6 +1424,7 @@ class Trainer:
             except Exception as e:
                 raise before_step(last_good, e) from e
             try:
+                self._mark_task_start()
                 state, metrics, host_grads = self.train_step(state, placed)
             except CollectiveError as e:
                 raise before_step(state if e.state_intact else None, e) from e

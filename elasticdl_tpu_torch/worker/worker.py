@@ -19,8 +19,10 @@ dispatched), prep-ahead (``_prep_queue``: the host half of up to
 ``prep_depth`` leased tasks read, decoded and stacked on prep threads, the
 oldest dispatched once the queue exceeds its depth), the wrap-padded tails
 with their ``__mask__``, count-weighted eval means reported raw, report
-sequence numbers, phase timers, the checkpoint watermark with its rollback
-on a failed background save, preemption snapshots (``preemption_snapshot``,
+sequence numbers, phase timers (with the card's own clock on each training
+task: ``device_task`` and ``device_gap``, ``DeviceTaskClock``), the
+checkpoint watermark with its rollback on a failed background save,
+preemption snapshots (``preemption_snapshot``,
 driven by ``worker/main.py``'s SIGTERM handler), the one-task profiler
 (``profile_dir``, a ``torch.profiler`` Chrome trace) and the worker-loop
 chaos hooks (``worker:task``, ``worker:prep``, ``worker:step``).
@@ -91,7 +93,7 @@ from elasticdl_tpu_torch.common import locksan, trace
 from elasticdl_tpu_torch.common.checkpoint import CheckpointManager, state_nbytes
 from elasticdl_tpu_torch.common.config import JobConfig
 from elasticdl_tpu_torch.common.log_utils import get_logger
-from elasticdl_tpu_torch.common.metrics import PhaseTimers, finalize_metrics
+from elasticdl_tpu_torch.common.metrics import DeviceTaskClock, PhaseTimers, finalize_metrics
 from elasticdl_tpu_torch.common.rpc import (
     PROTOCOL_VERSION,
     BackoffPolicy,
@@ -466,6 +468,11 @@ class Worker:
         # Per-phase wall decomposition of the task loop (common/metrics.py
         # PhaseTimers); snapshots ride every report.
         self.phases = PhaseTimers(gauges=self.gauges)
+        # The trainer counts its graph captures in the same timers.
+        self.trainer.phases = self.phases
+        # Each training task's device time and the card's wait before it,
+        # from timing events on the loop's stream (the card only).
+        self._device_clock = DeviceTaskClock(self.phases)
         if config.trace:
             trace.configure(
                 enabled=True, capacity=config.trace_buffer_events
@@ -1064,9 +1071,11 @@ class Worker:
     def _maybe_start_profile(self):
         """Trace the SECOND training task (the first pays the kernels'
         build and the allocator's warm-up) into ``config.profile_dir`` with
-        ``torch.profiler``; returns the running profiler or None.  Counts
-        training tasks only, so eval and prediction tasks neither skip the
-        trace nor shift it."""
+        ``torch.profiler``, with the operators' input shapes and the port's
+        ranges (``edl:<phase>``, ``lm:head_loss``, ``optim:step``, the
+        lookup's); returns the running profiler or None.  Counts training
+        tasks only, so eval and prediction tasks neither skip the trace nor
+        shift it."""
         if not self.config.profile_dir or self._training_tasks_done != 1:
             return None
         from torch.profiler import ProfilerActivity, profile
@@ -1075,7 +1084,7 @@ class Worker:
         if self.trainer.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         try:
-            prof = profile(activities=activities)
+            prof = profile(activities=activities, record_shapes=True)
             prof.start()
         except Exception:
             logger.exception("profiler start failed")
@@ -1272,6 +1281,9 @@ class Worker:
                     self.config.prefetch_depth,
                     name=f"prefetch:{task.task_id}",
                 )
+            # The task's start on the device's clock (DeviceTaskClock): the
+            # trainer records it before the first replay or eager step.
+            self.trainer.task_start = None
             with self.phases.phase("dispatch"):
                 head = []
                 if fused:
@@ -1299,7 +1311,11 @@ class Worker:
         n_steps = (total + mb - 1) // mb
         self._g_examples.inc(total)
         self._g_steps.inc(n_steps)
-        return self._start_metrics_fetch(metrics_list), n_steps
+        fetch = self._start_metrics_fetch(metrics_list)
+        start = self.trainer.task_start
+        if start is not None and fetch[3] is not None:
+            self._device_clock.dispatched(start, fetch[3])
+        return fetch, n_steps
 
     def _collective_gate(self, task: Task) -> None:
         """The in-step collective gate (the reference's ``_collective_gate``)
@@ -1331,7 +1347,9 @@ class Worker:
         vector (the AUC histograms): each step's metrics flatten into one
         row, so a task is one copy.  An entry is one step's metrics or a
         scan's (``ScanMetrics``: ``[T, ...]`` each, T rows).  Returns
-        (keys, shapes, host tensor [steps, row], event or None)."""
+        (keys, shapes, host tensor [steps, row], event or None); the event
+        is a timing one, the end of a training task on the device's clock
+        (``DeviceTaskClock``)."""
         keys = list(metrics_list[0]) if metrics_list else []
         if not keys:
             return keys, [], torch.zeros((0, 0)), None
@@ -1348,7 +1366,7 @@ class Worker:
             return keys, shapes, rows, None
         host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
         host.copy_(rows, non_blocking=True)
-        event = torch.cuda.Event()
+        event = torch.cuda.Event(enable_timing=True)
         event.record()
         return keys, shapes, host, event
 
@@ -1402,6 +1420,9 @@ class Worker:
         with self.phases.phase("step_wait"):
             if event is not None:
                 event.synchronize()
+                # The task's events have completed: its device time and the
+                # card's wait before it, read without a further wait.
+                self._device_clock.settled(event)
         with self.phases.phase("metrics"):
             values = host.numpy().astype(np.float64)
             # Vector entries sum over the steps like the scalars; the

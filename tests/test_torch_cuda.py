@@ -942,6 +942,73 @@ def test_cuda_zoo_template_trains_through_the_worker_on_the_fused_path(card, tmp
                    per_step.trainer.host_state(per_step.state), 0)
 
 
+def test_cuda_training_tasks_on_the_device_clock_and_captures_counted(card, tmp_path):
+    """A small fused job through the worker's task path on the card: every
+    training task records its device time (``device_task`` > 0) and each
+    after the first the card's wait before it (``device_gap``); the
+    variant's capture counts once, and once more after a restore replaces
+    the state; a task that captures starts on the device's clock at its
+    replay, so its device time leaves the capture out; the tasks' device
+    times and gaps add up to the span from the first task's start event to
+    the last task's fetch event (none fell out of the chain)."""
+    from elasticdl_tpu_torch.common.config import JobConfig
+    from elasticdl_tpu_torch.data.reader import Shard, create_data_reader
+    from elasticdl_tpu_torch.data.synthetic import generate
+    from elasticdl_tpu_torch.master.task_dispatcher import Task
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    seq, vocab, mb, tasks = 256, 512, 4, 6
+    path = str(tmp_path / "train.rio")
+    generate("lm", path, tasks * 2 * mb, seed=0, seq_len=seq, vocab=vocab)
+    spec = tlm.model_spec(compute_dtype="bfloat16", vocab=vocab, dim=128, n_heads=2, n_layers=2,
+                          max_seq=seq, seq_len=seq, remat=False)
+    config = JobConfig(model_def="transformer_lm.model_spec", training_data=path,
+                       minibatch_size=mb, num_minibatches_per_task=2)
+    worker = Worker(config, master=None, reader=create_data_reader(path), spec=spec)
+    worker.state = worker.trainer.init_state(0)
+    entries, events = [], []
+    add, dispatched = worker.phases.add, worker._device_clock.dispatched
+
+    def recorded_add(name, seconds):
+        entries.append((name, seconds))
+        add(name, seconds)
+
+    def recorded_dispatch(start, end):
+        events.append((start, end))
+        dispatched(start, end)
+
+    worker.phases.add = recorded_add
+    worker._device_clock.dispatched = recorded_dispatch
+
+    def run(i):
+        worker._run_training_task(
+            Task(task_id=i, shard=Shard(name=path, start=2 * mb * i, end=2 * mb * (i + 1))))
+
+    for i in range(2):
+        run(i)  # the variant's eager task, then its capture and first replay
+    saved = worker.trainer.host_state(worker.state)
+    for i in range(2, 4):
+        run(i)
+    assert worker.phases.counts()["capture"] == 1
+    # A restore replaces the state's tensors: the graph goes, the next task
+    # captures anew.
+    worker.state = worker.trainer.adopt_restored(saved, worker.state)
+    for i in range(4, tasks):
+        run(i)
+    counts = worker.phases.counts()
+    assert counts["capture"] == 2 and len(worker.trainer.scan_graphs()) == 1
+    task_s = [s for name, s in entries if name == "device_task"]
+    gap_s = [s for name, s in entries if name == "device_gap"]
+    capture_s = [s for name, s in entries if name == "capture"]
+    assert len(task_s) == tasks and all(s > 0 for s in task_s)
+    assert task_s[1] < capture_s[0]
+    assert len(gap_s) == tasks - 1 and all(s >= 0 for s in gap_s)
+    assert counts["device_task"] == tasks and counts["device_gap"] == tasks - 1
+    assert len(events) == tasks
+    span_s = events[0][0].elapsed_time(events[-1][1]) / 1e3
+    assert sum(task_s) + sum(gap_s) == pytest.approx(span_s, rel=0.05)
+
+
 # ---- the fused dispatch in a one-rank NCCL world (a gang's captured scan) ---------
 
 
