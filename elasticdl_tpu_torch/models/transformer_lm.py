@@ -20,7 +20,12 @@ same function with them:
   downcasts once;
 - the embedding sum is taken in f32 and then cast to the compute dtype;
 - the logits are the compute-dtype product with ``tok_emb.T``, cast to f32
-  after the matmul (so they carry its rounding);
+  after the matmul (so they carry its rounding).  Where the vocabulary is
+  not a multiple of 64 the product runs over a head padded with zero rows
+  to the next multiple (``head_pad`` rows, 47 at GPT-2's 50257): cuBLAS
+  serves an odd leading dimension only with its alignment-1 kernels.  The
+  pad never leaves the head: the logits are the first ``vocab`` columns,
+  and the pad rows' gradient is dropped before it reaches ``tok_emb``;
 - training rematerializes each block (``remat=True``, the default) and
   the loss is the mean token cross-entropy over real (unmasked) sequences,
   AdamW with optax's defaults.
@@ -65,6 +70,39 @@ from elasticdl_tpu_torch.parallel.collectives import tp_all_reduce, tp_grad_sync
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _MATMUL_WEIGHTS = ("wqkv", "wo", "w1", "w2")
+_HEAD_ALIGN = 64  # rows: the head's products get aligned leading dimensions
+
+
+def _pad_rows(w: torch.Tensor, pad: int) -> torch.Tensor:
+    return F.pad(w, (0, 0, 0, pad)) if pad else w
+
+
+class _PaddedHead(torch.autograd.Function):
+    """f32 logits ``[..., vocab]`` of ``x @ head_p.T``, where ``head_p``
+    is the compute-dtype head with zero rows appended (``[vocab + pad,
+    dim]``), so that all three products have aligned leading dimensions.
+    The logits are a contiguous f32 cast of the product's first ``vocab``
+    columns.  The backward casts the f32 logit gradient into a padded
+    compute-dtype buffer in one pass, zeroes only its pad columns, and runs
+    the input and weight gradients at the padded width; the pad rows'
+    weight gradient is zero (``_pad_rows``' backward drops it)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, head_p: torch.Tensor, vocab: int) -> torch.Tensor:
+        ctx.save_for_backward(x, head_p)
+        return (x @ head_p.T)[..., :vocab].float().contiguous()
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        x, head_p = ctx.saved_tensors
+        vocab = grad.shape[-1]
+        g = grad.new_empty(grad.shape[:-1] + head_p.shape[:1], dtype=head_p.dtype)
+        g[..., :vocab].copy_(grad)
+        g[..., vocab:].zero_()
+        g = g.flatten(0, -2)
+        dx = (g @ head_p).view(x.shape) if ctx.needs_input_grad[0] else None
+        dhead = g.T @ x.flatten(0, -2) if ctx.needs_input_grad[1] else None
+        return dx, dhead, None
 
 
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -165,6 +203,12 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleDict({f"b{i}": Block(dim, device) for i in range(n_layers)})
         self._cast: Optional[tuple] = None  # (parameter versions, casts)
 
+    @property
+    def head_pad(self) -> int:
+        """Zero rows that bring the head to a multiple of ``_HEAD_ALIGN``
+        rows for its products (``_PaddedHead``); 0 where it is one."""
+        return -self.tok_emb.shape[0] % _HEAD_ALIGN
+
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The reference's init distributions, drawn from ``generator``
@@ -211,7 +255,9 @@ class TransformerLM(nn.Module):
 
     def _weights(self) -> Dict[str, Any]:
         """The matmul weights in the compute dtype, for forwards without
-        autograd.  The reference casts the f32 weights on every call
+        autograd: the blocks' and the head, ``tok_emb`` cast and padded with
+        ``head_pad`` zero rows as the forward's product takes it.  The
+        reference casts the f32 weights on every call
         (``.astype(compute_dtype)``); these casts are made once and kept
         while the parameters are unchanged: the cache is keyed on their
         version counters, which every in-place update (a load, an
@@ -222,7 +268,7 @@ class TransformerLM(nn.Module):
             dt = self.compute_dtype
             with torch.inference_mode(False), torch.no_grad():
                 casts = {
-                    "head": self.tok_emb.to(dt),
+                    "head": _pad_rows(self.tok_emb.to(dt), self.head_pad),
                     "blocks": {
                         name: {key: getattr(blk, key).to(dt) for key in _MATMUL_WEIGHTS}
                         for name, blk in self.blocks.items()
@@ -295,8 +341,15 @@ class TransformerLM(nn.Module):
         x = _rms_norm(x, self.ln_f)
         # Weight-tied head; logits in f32 after the compute-dtype product.
         with profiler_range("lm:head_loss"):
-            head = self.tok_emb.to(self.compute_dtype) if cast is None else cast["head"]
-            return (x @ head.T).float()
+            pad = self.head_pad
+            if cast is None:
+                head = _pad_rows(self.tok_emb.to(self.compute_dtype), pad)
+            else:
+                head = cast["head"]
+            if not pad:
+                return (x @ head.T).float()
+            with profiler_range("lm:head_pad"):
+                return _PaddedHead.apply(x, head, self.tok_emb.shape[0])
 
 
 def _apply(

@@ -669,6 +669,48 @@ def test_cuda_in_process_fleet_scales_up_and_back(card, tmp_path):
         backend.close()
 
 
+def test_cuda_padded_head_takes_no_alignment1_gemm(card, monkeypatch):
+    """GPT-2's head (vocab 50257, dim 768) at a small B x L: a profiled
+    training step runs the head's three products over the head padded to
+    50304 rows, launches no alignment-1 GEMM (cuBLAS's fallback for an odd
+    leading dimension) and opens one ``lm:head_pad`` range per head
+    product; its loss and ``tok_emb`` gradient match the plain unpadded
+    product's within bf16 tolerance (error norm over norm, a few ulps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    vocab = 50257
+    spec = tlm.model_spec(compute_dtype="bfloat16", vocab=vocab, dim=768, n_heads=12,
+                          n_layers=1, max_seq=256, seq_len=256, remat=False)
+    toks = np.random.default_rng(0).integers(0, vocab, (2, 257)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).cuda(),
+             "labels": torch.from_numpy(toks[:, 1:]).cuda()}
+
+    def step(model):
+        loss = spec.loss(spec.apply(model, batch, train=True), batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.detach(), model.tok_emb.grad
+
+    model = spec.init(seed=0, device="cuda")
+    assert model.head_pad == 47
+    step(model)  # warm: the kernels' build, cuBLAS's handles
+    model.zero_grad(set_to_none=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        loss, grad = step(model)
+    events = prof.events()
+    ran = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert ran and not [k for k in ran if "align1" in k]
+    # The range's host side (a CUDA activity adds its span on the device too).
+    host = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    assert host.count("lm:head_pad") == 1
+    with monkeypatch.context() as patch:
+        patch.setattr(tlm.TransformerLM, "head_pad", 0)
+        plain = spec.init(seed=0, device="cuda")
+        want_loss, want_grad = step(plain)
+    assert abs(loss - want_loss).item() <= 2**-8 * abs(want_loss).item()
+    assert ((grad - want_grad).norm() / want_grad.norm()).item() <= 2e-2
+
+
 # ---- the fused task dispatch (train_scan / eval_scan as CUDA graphs) -------------
 
 _SCAN_T = 3
@@ -678,10 +720,12 @@ def _scan_case(name):
     """(trainer, stacked host batch of T steps) at a small width."""
     from elasticdl_tpu_torch.common.config import JobConfig
 
-    if name == "transformer_lm":
-        spec = tlm.model_spec(compute_dtype="bfloat16", vocab=512, dim=128, n_heads=2,
+    if name.startswith("transformer_lm"):
+        # GPT-2's vocabulary runs the head over zero rows (``head_pad``).
+        vocab = 50257 if name == "transformer_lm_vocab50257" else 512
+        spec = tlm.model_spec(compute_dtype="bfloat16", vocab=vocab, dim=128, n_heads=2,
                               n_layers=2, max_seq=256, seq_len=256, remat=True)
-        toks = np.random.default_rng(5).integers(0, 512, (_SCAN_T, 4, 257)).astype(np.int32)
+        toks = np.random.default_rng(5).integers(0, vocab, (_SCAN_T, 4, 257)).astype(np.int32)
         stacked = {"tokens": toks[:, :, :-1], "labels": toks[:, :, 1:]}
         return Trainer(spec, device="cuda"), stacked
     mod, kw = _ZOO[name]
@@ -707,7 +751,8 @@ def _assert_states(got, want, rel):
             assert err <= rel * max(np.abs(want[k]).max(), 1e-30), k
 
 
-@pytest.mark.parametrize("name", ["transformer_lm", "mnist", "resnet14", "wide_deep"])
+@pytest.mark.parametrize(
+    "name", ["transformer_lm", "transformer_lm_vocab50257", "mnist", "resnet14", "wide_deep"])
 def test_cuda_train_scan_replays_one_graph_equal_to_the_eager_loop(card, name):
     """A warm-up task (eager), then ``train_scan`` captures the T steps and
     replays them under ``set_sync_debug_mode("error")``; the per-step loop
@@ -748,7 +793,7 @@ def _train_scan_against_the_eager_loop(name):
     kernels.reset_counts()
     state, per_step = trainer.run_train_steps(state, _scan_steps(stacked))
     assert kernels.counts() == fused_counts
-    if name == "transformer_lm":
+    if name.startswith("transformer_lm"):
         assert fused_counts[tfa.KERNEL] == 2 * 2 * _SCAN_T  # remat: two forwards a layer
     rel = 1e-6 if name == "wide_deep" else 0
     want = torch.stack([m["loss"] for m in per_step]).cpu().numpy()

@@ -105,3 +105,58 @@ def test_fresh_init_is_seeded_and_shaped():
         with pytest.raises(ValueError, match="token ids"):
             spec.check_batch(a, {"tokens": np.full((1, 4), bad, np.int32)})
     spec.check_batch(a, {"tokens": tokens})
+
+
+# Padded against plain head: the error norm over the plain result's norm.
+# f32: summation order only (observed 4.1e-7 on the gradient); bf16: a few
+# ulps (2**-8) where the two products round apart.
+_HEAD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("mode", ["train", "serve"])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("vocab", [1001, 8192])
+def test_padded_head_matches_the_plain_product(monkeypatch, vocab, compute_dtype, mode):
+    """A vocabulary off a multiple of 64 runs the head over ``head_pad``
+    zero rows (23 at 1001); the logits ``[B, L, vocab]``, the loss and
+    ``tok_emb``'s gradient match the plain unpadded ``x @ tok_emb.T`` in the
+    compute dtype, and ``tok_emb`` keeps its shape.  An aligned vocabulary
+    (8192) runs the plain product itself, bit for bit."""
+    spec = tlm.model_spec(compute_dtype=compute_dtype, vocab=vocab, dim=64, n_heads=2,
+                          n_layers=2, max_seq=32, seq_len=32)
+    toks = np.random.default_rng(3).integers(0, vocab, (4, 33)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+
+    def run():
+        model = spec.init(seed=0, device="cpu")
+        if mode == "serve":
+            with torch.inference_mode():
+                logits = spec.apply(model, batch)
+            return model, logits, spec.loss(logits, batch), None
+        logits = spec.apply(model, batch, train=True)
+        loss = spec.loss(logits, batch)
+        loss.backward()
+        return model, logits, loss.detach(), model.tok_emb.grad
+
+    model, logits, loss, grad = run()
+    with monkeypatch.context() as patch:
+        patch.setattr(tlm.TransformerLM, "head_pad", 0)
+        plain, *want = run()
+        assert plain.head_pad == 0
+    pad = {1001: 23, 8192: 0}[vocab]
+    assert model.head_pad == pad
+    assert model.tok_emb.shape == (vocab, 64)
+    assert logits.shape == (4, 32, vocab) and logits.dtype == torch.float32
+    assert logits.is_contiguous()
+    if mode == "serve":
+        assert model._weights()["head"].shape == (vocab + pad, 64)
+    else:
+        padded = type(logits.grad_fn).__name__ == "_PaddedHeadBackward"
+        assert padded == bool(pad)
+    for got, ref in zip((logits.detach(), loss, grad), want):
+        if ref is None:
+            continue
+        if not pad:
+            assert torch.equal(got, ref)
+        err = ((got - ref).norm() / ref.norm()).item()
+        assert err <= _HEAD_TOL[compute_dtype], err
